@@ -1,0 +1,61 @@
+"""Import hygiene of the PyTorch port: it runs without JAX, imports nothing
+of the JAX package, and never quietly falls back to the CPU."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "ssd_tensorflow_tpu_torch"
+_JAX_PACKAGE = re.compile(r"^\s*(from|import)\s+(ssd_tensorflow_tpu|jax)(\.|\s|$)", re.M)
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_profile.py"]
+
+
+def test_port_imports_with_jax_blocked():
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).replace(".__init__", "")
+        for p in PORT.rglob("*.py")
+    )
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['ssd_tensorflow_tpu'] = None\n"
+        + "".join(f"import {m}\n" for m in modules)
+        + "import chip_smoke\n"
+        + "assert not any(k == 'jax' or k.startswith(('jax.', 'ssd_tensorflow_tpu.'))"
+        " for k, v in sys.modules.items() if v is not None)\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_names_no_jax_package(path):
+    assert not _JAX_PACKAGE.search(path.read_text()), path
+
+
+def test_cuda_request_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the no-CUDA error cannot occur")
+    from ssd_tensorflow_tpu_torch.inference import InferenceModel
+    from ssd_tensorflow_tpu_torch.models.ssd_vgg import ModelConfig, init_params
+
+    cfg = ModelConfig(preset_name="test64", num_classes=3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        InferenceModel(init_params(cfg), cfg)  # device="cuda" is the default
+
+
+def test_chip_smoke_refuses_without_the_repo_or_a_gpu(tmp_path):
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    for cwd, script in ((tmp_path, lone), (ROOT, ROOT / "chip_smoke.py")):
+        if cwd == ROOT and torch.cuda.is_available():
+            continue
+        proc = subprocess.run([sys.executable, str(script)], cwd=cwd, capture_output=True,
+                              text=True, timeout=120)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout

@@ -1,0 +1,125 @@
+"""The port's float detection path as a whole against the JAX package:
+test64, bf16, the JAX model with its Pallas stem and Pallas NMS switched
+on (interpret mode), the port's InferenceModel on the CPU.
+
+Pre-NMS scores: conf within 0.02, argmax class equal on >= 99 % of the
+anchors, locs within 0.05 (tests/test_stem_pallas.py's bounds for two
+bf16 stems that differ in summation order only).
+
+Detections: a bf16 rounding step apart in conf reorders near-tied
+candidates (random weights make many), which changes the top-200 set and
+so some NMS decisions. The measure is therefore set agreement: at least
+95 % of each side's detections find one on the other side with the same
+class, a box within 2e-3 and a score within 0.02, and the counts differ
+by at most 5 %. Decode itself is bit-exact on identical scores
+(tests/test_torch_nms.py).
+"""
+
+import dataclasses
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from ssd_tensorflow_tpu import inference as jax_inference
+from ssd_tensorflow_tpu.models import ssd_vgg as jax_ssd
+from ssd_tensorflow_tpu.ops.postprocess import DetectionConfig as JaxDetectionConfig
+from ssd_tensorflow_tpu_torch import inference
+from ssd_tensorflow_tpu_torch.models import ssd_vgg
+from ssd_tensorflow_tpu_torch.weights import params_from_jax, params_to_jax
+
+CFG = dict(preset_name="test64", num_classes=3)
+ASSETS = Path(__file__).resolve().parent.parent / "assets"
+
+
+@pytest.fixture(scope="module", params=[1, 2])
+def models(request):
+    seed = request.param
+    jcfg = jax_ssd.ModelConfig(**CFG)
+    jp = jax_ssd.init_params(jax.random.PRNGKey(seed), jcfg)
+    jm = jax_inference.InferenceModel(
+        jp, jcfg, overrides={"pallas_stem": True},
+        detection=JaxDetectionConfig(top_k=200, confidence_threshold=0.01, use_pallas_nms=True),
+    )
+    tm = inference.InferenceModel(params_from_jax(jp), ssd_vgg.ModelConfig(**CFG), device="cpu")
+    img = np.random.default_rng(seed).integers(0, 255, (2, 64, 64, 3), dtype=np.uint8)
+    return jp, jm, tm, img
+
+
+def test_pre_nms_scores(models):
+    jp, jm, tm, img = models
+    jconf, jcls, jlocs = jax_ssd.apply_scores(jp, img, jm.config)
+    tconf, tcls, tlocs = ssd_vgg.apply_scores(tm.params, torch.from_numpy(img), tm.config)
+    assert float(np.abs(tconf.numpy() - np.asarray(jconf)).max()) < 0.02
+    assert float(np.mean(tcls.numpy() == np.asarray(jcls))) >= 0.99
+    assert float(np.abs(tlocs.numpy() - np.asarray(jlocs)).max()) < 0.05
+
+
+def _matched_share(a, b):
+    """Share of a's valid detections with a match among b's."""
+    hits = 0
+    for box, cls, score in zip(*a):
+        ok = (b[1] == cls) & (np.abs(b[0] - box).max(axis=1) < 2e-3) & (np.abs(b[2] - score) < 0.02)
+        hits += bool(ok.any())
+    return hits / max(len(a[0]), 1)
+
+
+def test_detections(models):
+    _, jm, tm, img = models
+    jd = jm._run_scores(jm.params, jm._to_device(img))
+    td = tm.run_scores(img)
+    assert td.boxes.shape == tuple(jd.boxes.shape) == (2, 200, 4)
+    for b in range(img.shape[0]):
+        jv, tv = np.asarray(jd.valid[b]), td.valid[b].numpy()
+        j = (np.asarray(jd.boxes[b])[jv], np.asarray(jd.classes[b])[jv], np.asarray(jd.scores[b])[jv])
+        t = (td.boxes[b].numpy()[tv], td.classes[b].numpy()[tv], td.scores[b].numpy()[tv])
+        assert abs(len(t[0]) - len(j[0])) <= 0.05 * max(len(j[0]), 1)
+        assert _matched_share(t, j) >= 0.95
+        assert _matched_share(j, t) >= 0.95
+
+
+def test_detect_boxes_rows(models):
+    _, _, tm, img = models
+    rows = tm.detect_boxes(img)
+    assert len(rows) == 2 and all(0 <= len(r) <= 200 for r in rows)
+    assert all(0.01 <= conf <= 1.0 for r in rows for conf, _ in r)
+
+
+def test_float_bundle_from_jax(tmp_path):
+    jcfg = jax_ssd.ModelConfig(**CFG)
+    jp = jax_ssd.init_params(jax.random.PRNGKey(7), jcfg)
+    path = str(tmp_path / "m.npz")
+    jax_inference.save_bundle(path, jp, jcfg, {0: "cat", 1: "dog", 2: "bird"})
+    params, cfg, lid2name = inference.load_bundle(path)
+    assert inference.model_config_to_dict(cfg) == jax_inference.model_config_to_dict(jcfg)
+    assert lid2name == {0: "cat", 1: "dog", 2: "bird"}
+    ref = params_from_jax(jp)
+    for name in ref:
+        for key in ref[name]:
+            torch.testing.assert_close(params[name][key], ref[name][key], rtol=0, atol=0)
+    img = np.random.default_rng(0).integers(0, 255, (1, 64, 64, 3), dtype=np.uint8)
+    a = inference.InferenceModel.from_bundle(path, device="cpu").run_scores(img)
+    b = inference.InferenceModel(ref, cfg, device="cpu").run_scores(img)
+    for field in ("boxes", "scores", "classes", "valid"):
+        torch.testing.assert_close(getattr(a, field), getattr(b, field), rtol=0, atol=0)
+
+
+def test_float_bundle_to_jax(tmp_path):
+    cfg = dataclasses.replace(ssd_vgg.ModelConfig(**CFG), l2_norm_eps=1e-3)
+    params = ssd_vgg.init_params(cfg, seed=3)
+    path = str(tmp_path / "m.npz")
+    inference.save_bundle(path, params, cfg, {1: "dog"})
+    jp, jcfg, lid2name, act_scales = jax_inference.load_bundle(path)
+    assert act_scales is None and lid2name == {1: "dog"}
+    assert jcfg.l2_norm_eps == 1e-3
+    want = params_to_jax(params)
+    for name in want:
+        for key in want[name]:
+            np.testing.assert_array_equal(np.asarray(jp[name][key]), want[name][key])
+
+
+def test_int8_bundle_names_its_slice():
+    with pytest.raises(NotImplementedError, match="int8"):
+        inference.load_bundle(str(ASSETS / "vgg512_int8_minivoc.ssdtpu.npz"))
