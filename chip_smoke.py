@@ -13,14 +13,16 @@ non-zero, and the final line is printed only when every phase passed:
 2. kernels: each kernel against its plain PyTorch version on the card,
    at the detection path's shapes (vgg512, batch 64): NMS keep masks
    must be identical (D = 200, 57, 256); the stem within one bf16 step
-   of the largest output. Times from CUDA events.
+   of the largest output. ``ms`` is the kernel's device time from a
+   ``torch.profiler`` window; ``event_ms`` the CUDA-event time per call
+   over chained calls, which includes host launch cost.
 3. main path: ``InferenceModel.run_scores`` -> ``detections_to_boxes`` on
    vgg512 bf16 with weights made from the seed. Both kernels' launch
    counts must rise in that run, the outputs must be finite with 0..200
    detections per image, and the pre-NMS scores must agree with the same
    model run through the plain stem (conf within 0.02, argmax class on
-   >= 99 % of anchors, locs within 0.05). Then images/s over chained
-   batches.
+   >= 99 % of anchors, locs within 0.05). The peak device memory of that
+   one run, and images/s over chained batches.
 
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is ``{"ok": true, "device": {...}}``.
@@ -45,24 +47,6 @@ PEAK_BYTES_PER_S = 3.35e12
 
 def _emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def _time_ms(fn, iters: int = 5, warmup: int = 2) -> float:
-    """Mean ms per call of ``fn`` on the card: CUDA events around
-    ``iters`` chained calls, after ``warmup`` calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def _bound(n_bytes: float, n_ops: float, peak_ops: float):
@@ -97,6 +81,7 @@ def check_nms(rng, batch: int, device):
     import torch
 
     from ssd_tensorflow_tpu_torch.ops import nms_cuda
+    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms, kernel_device_ms
 
     err = 0.0
     for d in (200, 57, 256):
@@ -109,8 +94,9 @@ def check_nms(rng, batch: int, device):
                                  f"{int((got != want).sum())} of {got.numel()} flags")
     corners, valid = _nms_inputs(rng, batch, 200, 21, device)
     d = 200
-    ms = _time_ms(lambda: nms_cuda.nms_keep(corners, valid), iters=50)
-    plain_ms = _time_ms(lambda: nms_cuda.nms_keep_plain(corners, valid), iters=3, warmup=1)
+    ms = kernel_device_ms(lambda: nms_cuda.nms_keep(corners, valid), "nms_kernel", iters=50)
+    event_ms = cuda_event_ms(lambda: nms_cuda.nms_keep(corners, valid), iters=50)
+    plain_ms = cuda_event_ms(lambda: nms_cuda.nms_keep_plain(corners, valid), iters=3, warmup=1)
     # each pair j > i: 4 min/max, 4 add/sub, 2 clamps, mul, add, sub, div, compare
     n_ops = batch * (d * (d - 1) / 2 * 15 + d * 5)
     n_bytes = batch * d * (16 + 1 + 1)
@@ -118,7 +104,7 @@ def check_nms(rng, batch: int, device):
     return {
         "name": "nms_keep", "route": "cuda", "source": "ssd_tensorflow_tpu_torch/csrc/nms.cu",
         "replaces": "ssd_tensorflow_tpu/ops/nms_pallas.py:72",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "shape": [batch, d],
     }
@@ -128,10 +114,11 @@ def check_stem(params, images):
     import torch
     import torch.nn.functional as F
 
-    from ssd_tensorflow_tpu_torch.models.layers import conv2d
+    from ssd_tensorflow_tpu_torch.models.vgg16 import conv1_1_unbiased
     from ssd_tensorflow_tpu_torch.ops import stem_cuda
+    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms, kernel_device_ms
 
-    c1 = conv2d(images, params["conv1_1"]["w"]).contiguous()
+    c1 = conv1_1_unbiased(params, images)
     b1, w2, b2 = params["conv1_1"]["b"], params["conv1_2"]["w"], params["conv1_2"]["b"]
     got = stem_cuda.fused_stem(c1, b1, w2, b2)
     want = stem_cuda.fused_stem_plain(c1, b1, w2, b2)
@@ -144,12 +131,14 @@ def check_stem(params, images):
         raise AssertionError(f"fused_stem differs from its plain version: max err {err} "
                              f"> {tol} (max |ref| {scale})")
     del want
-    ms = _time_ms(lambda: stem_cuda.fused_stem(c1, b1, w2, b2), iters=10)
-    plain_ms = _time_ms(lambda: stem_cuda.fused_stem_plain(c1, b1, w2, b2), iters=3, warmup=1)
+    ms = kernel_device_ms(lambda: stem_cuda.fused_stem(c1, b1, w2, b2), "stem_kernel", iters=10)
+    event_ms = cuda_event_ms(lambda: stem_cuda.fused_stem(c1, b1, w2, b2), iters=10)
+    plain_ms = cuda_event_ms(lambda: stem_cuda.fused_stem_plain(c1, b1, w2, b2), iters=3,
+                             warmup=1)
     c1n = c1.permute(0, 3, 1, 2)
     b1n = b1.to(torch.bfloat16).view(1, -1, 1, 1)
     w2b, b2b = w2.to(torch.bfloat16), b2.to(torch.bfloat16)
-    library_ms = _time_ms(
+    library_ms = cuda_event_ms(
         lambda: F.max_pool2d(F.relu(F.conv2d(F.relu(c1n + b1n), w2b, b2b, padding=1)), 2),
         iters=10)
     b, h, w, c = c1.shape
@@ -159,7 +148,7 @@ def check_stem(params, images):
     return {
         "name": "fused_stem", "route": "cuda", "source": "ssd_tensorflow_tpu_torch/csrc/stem.cu",
         "replaces": "ssd_tensorflow_tpu/ops/stem_pallas.py:160",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         "shape": [b, h, w, c], "tolerance": tol,
     }
@@ -184,6 +173,7 @@ def main(argv=None) -> int:
     from ssd_tensorflow_tpu_torch.models import ssd_vgg
     from ssd_tensorflow_tpu_torch.ops import _build, nms_cuda, stem_cuda
     from ssd_tensorflow_tpu_torch.ops.postprocess import detections_to_boxes
+    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -219,9 +209,12 @@ def main(argv=None) -> int:
     # 3. the main path, counted
     nms_cuda.nms_keep.launches = 0
     stem_cuda.fused_stem.launches = 0
-    dets = model.run_scores(images)
-    rows = detections_to_boxes(dets, model.lid2name)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dets = model.run_scores(images)
+    torch.cuda.synchronize()
+    peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30
+    rows = detections_to_boxes(dets, model.lid2name)
     launches = {"nms_keep": nms_cuda.nms_keep.launches,
                 "fused_stem": stem_cuda.fused_stem.launches}
     for k in kernels:
@@ -254,7 +247,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"kernel path and plain path disagree: {agree}")
 
     iters = 5
-    model_ms = _time_ms(lambda: model.run_scores(images), iters=iters, warmup=1)
+    model_ms = cuda_event_ms(lambda: model.run_scores(images), iters=iters, warmup=1)
     t0 = time.perf_counter()
     for _ in range(3):
         detections_to_boxes(model.run_scores(images))
@@ -267,7 +260,7 @@ def main(argv=None) -> int:
         "plain_stem_agreement": agree,
         "batch_ms": model_ms, "images_per_s": args.batch / model_ms * 1e3,
         "host_images_per_s_with_box_lists": args.batch / host_s,
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "peak_mem_gib": peak_mem_gib,
     })
 
     _emit({"kernels": kernels})

@@ -33,6 +33,8 @@ namespace {
 
 constexpr int kMaxD = 1024;
 constexpr int kThreads = 256;
+constexpr size_t kDefaultSmem = 48 * 1024;  // dynamic shared memory allowed without opt-in
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? a + b : fmaxf(a, b);
@@ -107,6 +109,24 @@ nms_kernel(const float* __restrict__ corners, const uint8_t* __restrict__ valid,
   }
 }
 
+// Opts nms_kernel into `smem` bytes of dynamic shared memory on the
+// current device. The attribute belongs to the function on each device,
+// so it is set once per device and size, not on every launch. Up to the
+// default 48 KB (D <= 544, the detection path's D = 200 included) no
+// opt-in is needed at all.
+cudaError_t allow_smem(size_t smem) {
+  static size_t allowed[kMaxDevices] = {};
+  if (smem <= kDefaultSmem) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && allowed[dev] >= smem) return cudaSuccess;
+  err = cudaFuncSetAttribute(nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = smem;
+  return err;
+}
+
 }  // namespace
 
 extern "C" int nms_max_candidates() { return kMaxD; }
@@ -118,8 +138,7 @@ extern "C" int nms_keep_launch(const float* corners, const uint8_t* valid, uint8
   if (batch <= 0 || d <= 0 || d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
   const int words = (d + 31) / 32;
   const size_t smem = static_cast<size_t>(d) * words * 4 + static_cast<size_t>(d) * 5 * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const cudaError_t err = allow_smem(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   nms_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       corners, valid, keep, d, threshold);

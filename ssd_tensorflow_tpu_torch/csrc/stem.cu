@@ -48,6 +48,7 @@ constexpr int kHaloElems = kHaloR * kHaloC * kPix;
 constexpr int kWeightElems = 9 * kC * kPix;
 constexpr size_t kSmemBytes =
     (kHaloElems + kWeightElems) * sizeof(__nv_bfloat16) + 2 * kC * sizeof(float);
+constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -185,6 +186,21 @@ stem_kernel(const __nv_bfloat16* __restrict__ c1, const float* __restrict__ b1,
   }
 }
 
+// Opts stem_kernel into kSmemBytes of dynamic shared memory on the
+// current device. The attribute belongs to the function on each device,
+// so it is set once per device, not on every launch.
+cudaError_t allow_smem() {
+  static bool allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemBytes));
+  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = true;
+  return err;
+}
+
 }  // namespace
 
 // c1: (B, H, W, 64) bf16 NHWC; b1, b2: (64,) float32; w2t: (9, 64, 64) bf16
@@ -195,8 +211,7 @@ extern "C" int stem_launch(const void* c1, const float* b1, const void* w2t, con
                            void* out, int batch, int h, int w, int grid, void* stream) {
   if (batch <= 0 || h <= 0 || w <= 0 || (h & 1) || (w & 1) || grid <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemBytes));
+  const cudaError_t err = allow_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
   stem_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(c1), b1, static_cast<const __nv_bfloat16*>(w2t), b2,

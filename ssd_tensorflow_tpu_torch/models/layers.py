@@ -30,11 +30,13 @@ def conv2d(x, w, b=None, stride=1, padding="SAME", dilation=1):
     """2-D convolution of NHWC ``x`` with OIHW ``w``, optional bias.
 
     Computes in ``x.dtype``. A bf16 convolution accumulates in float32
-    and rounds its output to bf16 once, as the JAX package's
-    ``conv2d(..., f32_out=True)`` does (float32 accumulation, cast back
-    to the input dtype). One difference: ``F.conv2d`` takes the bias in
-    bf16, where the JAX package adds it in float32, so a bias may land
-    one bf16 rounding of its own value apart.
+    and rounds its output to bf16, as the JAX package's
+    ``conv2d(..., f32_out=True)`` does. The bias goes to ``F.conv2d`` in
+    bf16: the CPU adds it inside its float32 accumulation (one rounding,
+    as in JAX); cuDNN's path adds it to the rounded output in a bf16 pass,
+    so there the output may round twice. A float32 bias add on the card
+    would remove only the bias's own rounding and, being a mixed-dtype
+    elementwise kernel, costs more than the bf16 pass (PERF.md).
     """
     w = w.to(x.dtype)
     if b is not None:
@@ -56,7 +58,7 @@ def conv2d(x, w, b=None, stride=1, padding="SAME", dilation=1):
 
 def conv_relu(params, x, stride=1, padding="SAME", dilation=1):
     """conv + bias + ReLU block."""
-    return torch.relu(conv2d(x, params["w"], params["b"], stride, padding, dilation))
+    return torch.relu_(conv2d(x, params["w"], params["b"], stride, padding, dilation))
 
 
 def max_pool(x, window=2, stride=2):

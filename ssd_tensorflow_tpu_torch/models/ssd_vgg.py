@@ -11,9 +11,9 @@ Parameters are a nested dict ``{layer: {"w": OIHW, "b": (cout,)}}`` plus
 ``{"l2_norm_conv4_3": {"scale": (512,)}}``; ``weights.params_from_jax``
 converts the JAX package's HWIO dict into it.
 
-A bf16 inference forward always runs conv1_2 + pool1 as the fused stem
-kernel (``ops/stem_cuda.py``); float32 and non-inference forwards run the
-conv1 block as plain convolutions.
+A bf16 forward always runs conv1_2 + pool1 as the fused stem kernel
+(``ops/stem_cuda.py``); a float32 forward runs the conv1 block as plain
+convolutions.
 """
 
 from __future__ import annotations
@@ -152,15 +152,18 @@ def preprocess(images, config: ModelConfig):
     return (images.float() - mean).to(config.dtype)
 
 
-def _feature_maps(params, images, config: ModelConfig, *, inference: bool = False):
-    """Backbone + extra layers -> the preset's multibox source maps (NHWC)."""
+def _backbone(params, images, config: ModelConfig):
+    """Preprocess + VGG trunk -> (conv4_3, mod_conv7), NHWC."""
     x = preprocess(images, config)
-    if config.dtype == torch.bfloat16 and inference:
+    if config.dtype == torch.bfloat16:
         pool1 = vgg16.conv1_block(params, x)
-        conv4_3, x = vgg16.apply_backbone(params, pool1, config.a_trous, from_pool1=True)
-    else:
-        conv4_3, x = vgg16.apply_backbone(params, x, config.a_trous)
+        return vgg16.apply_backbone(params, pool1, config.a_trous, from_pool1=True)
+    return vgg16.apply_backbone(params, x, config.a_trous)
 
+
+def _extra_maps(params, conv4_3, x, config: ModelConfig):
+    """L2-normalized conv4_3, mod_conv7 and the extra layers -> the
+    preset's multibox source maps (NHWC)."""
     maps = [
         l2_normalize_scale(conv4_3, params["l2_norm_conv4_3"]["scale"], eps=config.l2_norm_eps),
         x,
@@ -176,6 +179,11 @@ def _feature_maps(params, images, config: ModelConfig, *, inference: bool = Fals
     return maps
 
 
+def _feature_maps(params, images, config: ModelConfig):
+    """Backbone + extra layers -> the preset's multibox source maps (NHWC)."""
+    return _extra_maps(params, *_backbone(params, images, config), config)
+
+
 def _head_maps(params, maps, config: ModelConfig):
     """Each map's multibox head conv: ``(B, h, w, ns * (K+5))`` NHWC."""
     out = []
@@ -189,13 +197,13 @@ def _head_maps(params, maps, config: ModelConfig):
     return out
 
 
-def apply_model(params, images, config: ModelConfig, *, inference: bool = False):
+def apply_model(params, images, config: ModelConfig):
     """Forward pass of ``(B, H, W, 3)`` raw BGR images.
 
     Returns ``(logits, locs)``: ``(B, A, K+1)`` float32 class logits and
     ``(B, A, 4)`` float32 location offsets, heads-major anchor order.
     """
-    maps = _feature_maps(params, images, config, inference=inference)
+    maps = _feature_maps(params, images, config)
     nv = config.num_vars
     outputs = []
     for y, m in zip(_head_maps(params, maps, config), config.preset.maps):
@@ -208,7 +216,7 @@ def apply_model(params, images, config: ModelConfig, *, inference: bool = False)
 
 def apply_result(params, images, config: ModelConfig):
     """The fused inference tensor ``concat(softmax(logits), locs)``."""
-    logits, locs = apply_model(params, images, config, inference=True)
+    logits, locs = apply_model(params, images, config)
     return torch.cat([torch.softmax(logits, dim=-1), locs], dim=-1)
 
 
@@ -218,7 +226,7 @@ def apply_scores(params, images, config: ModelConfig):
     Returns conf ``(B, A)`` float32, cls ``(B, A)`` int32 and locs
     ``(B, A, 4)`` float32 in the anchor-order contract.
     """
-    maps = _feature_maps(params, images, config, inference=True)
+    maps = _feature_maps(params, images, config)
     return reduce_head_maps(_head_maps(params, maps, config), config)
 
 

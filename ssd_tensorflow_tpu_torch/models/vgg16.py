@@ -44,15 +44,19 @@ def init_vgg_params(rng: np.random.Generator) -> dict:
     return {name: init_conv(rng, *shape) for name, shape in vgg_param_shapes().items()}
 
 
-def conv1_block(params, x):
-    """conv1_1 + conv1_2 + pool1 of a preprocessed bf16 NHWC batch.
+def conv1_1_unbiased(params, x):
+    """conv1_1 of a preprocessed bf16 NHWC batch, without its bias: the
+    stem kernel's input (the kernel adds b1)."""
+    return conv2d(x, params["conv1_1"]["w"]).contiguous()
 
-    conv1_1 runs as a bf16 convolution without its bias; the rest is the
-    fused stem kernel (``ops/stem_cuda.fused_stem``), which adds b1.
-    """
-    c1 = conv2d(x, params["conv1_1"]["w"]).contiguous()
+
+def conv1_block(params, x):
+    """conv1_1 + conv1_2 + pool1 of a preprocessed bf16 NHWC batch:
+    conv1_1 as a bf16 convolution, the rest as the fused stem kernel
+    (``ops/stem_cuda.fused_stem``)."""
     p2 = params["conv1_2"]
-    return stem_cuda.fused_stem(c1, params["conv1_1"]["b"], p2["w"], p2["b"])
+    return stem_cuda.fused_stem(conv1_1_unbiased(params, x), params["conv1_1"]["b"],
+                                p2["w"], p2["b"])
 
 
 def apply_backbone(params, x, a_trous: bool = True, from_pool1: bool = False):

@@ -62,6 +62,12 @@ def _candidates_from_scores(conf, cls, locs, anchors, cfg: DetectionConfig):
     return boxes, conf_top, cls_top, valid
 
 
+def _keep(boxes, cls_top, valid, cfg: DetectionConfig):
+    """Class-aware greedy-NMS keep mask of the candidates (the kernel)."""
+    shifted = class_shifted(box_canvas_corners(boxes), cls_top).contiguous()
+    return nms_cuda.nms_keep(shifted, valid.contiguous(), cfg.nms_threshold)
+
+
 def _finalize(boxes, conf_top, cls_top, keep, cfg: DetectionConfig):
     """Compact kept rows to the front (they are already sorted by
     confidence) and trim to ``max_detections``."""
@@ -93,8 +99,7 @@ def decode_scores(conf, cls, locs, anchors, cfg: DetectionConfig = DetectionConf
       per image, confidence-sorted, ``valid`` marking real detections.
     """
     boxes, conf_top, cls_top, valid = _candidates_from_scores(conf, cls, locs, anchors, cfg)
-    shifted = class_shifted(box_canvas_corners(boxes), cls_top).contiguous()
-    keep = nms_cuda.nms_keep(shifted, valid.contiguous(), cfg.nms_threshold)
+    keep = _keep(boxes, cls_top, valid, cfg)
     boxes, scores, classes, valid = _finalize(boxes, conf_top, cls_top, keep, cfg)
     return Detections(boxes=boxes, scores=scores, classes=classes, valid=valid)
 

@@ -5,6 +5,8 @@ Tolerance: 1e-4 relative to the largest magnitude of the reference —
 both sides accumulate in float32 but in different orders.
 """
 
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +17,7 @@ from ssd_tensorflow_tpu.models import layers as jax_layers
 from ssd_tensorflow_tpu.models import ssd_vgg as jax_ssd
 from ssd_tensorflow_tpu.models import vgg16 as jax_vgg16
 from ssd_tensorflow_tpu_torch.models import layers, ssd_vgg, vgg16
+from ssd_tensorflow_tpu_torch.ops import stem_cuda
 from ssd_tensorflow_tpu_torch.weights import params_from_jax
 
 RTOL = 1e-4
@@ -48,6 +51,22 @@ def test_conv2d_matches_jax(rng, size, k, stride, padding, dilation):
     got = layers.conv2d(torch.from_numpy(x), torch.from_numpy(w.transpose(3, 2, 0, 1).copy()),
                         torch.from_numpy(b), stride, padding, dilation)
     _close(got, want)
+
+
+def test_bf16_conv2d_matches_jax_f32_out(rng):
+    """A bf16 conv with a bias bf16 cannot hold against the JAX package's
+    f32-accumulate conv: within one bf16 step of the largest output."""
+    x = torch.tensor(rng.normal(0, 1, (2, 9, 10, 16)), dtype=torch.bfloat16)
+    w = torch.tensor(rng.normal(0, 0.3, (8, 16, 3, 3)), dtype=torch.float32)
+    b = torch.tensor(rng.normal(0, 1, (8,)), dtype=torch.float32)
+    assert not torch.equal(b.to(torch.bfloat16).float(), b)
+    got = layers.conv2d(x, w, b)
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(jax_layers.conv2d(
+        jnp.asarray(x.float().numpy(), jnp.bfloat16), w.permute(2, 3, 1, 0).numpy(), b.numpy(),
+        f32_out=True), dtype=np.float32)
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= 2.0 ** -7 * np.abs(want).max()
 
 
 @pytest.mark.parametrize("size,window,stride", [(75, 2, 2), (64, 2, 2), (19, 3, 1), (5, 2, 2)])
@@ -107,7 +126,7 @@ def test_apply_model_matches_jax(preset, batch):
     size = jcfg.preset.image_size
     img = np.random.default_rng(1).integers(0, 255, (batch, size.h, size.w, 3), dtype=np.uint8)
     jl, jloc = jax_ssd.apply_model(jp, img, jcfg, inference=True)
-    tl, tloc = ssd_vgg.apply_model(tp, torch.from_numpy(img), tcfg, inference=True)
+    tl, tloc = ssd_vgg.apply_model(tp, torch.from_numpy(img), tcfg)
     _close(tl, jl)
     _close(tloc, jloc)
 
@@ -123,6 +142,17 @@ def test_apply_result_and_scores_match_jax():
     _close(tlocs, jlocs)
     assert tcls.dtype == torch.int32
     np.testing.assert_array_equal(tcls.numpy(), np.asarray(jcls))
+
+
+@pytest.mark.parametrize("dtype,stem_calls", [("bfloat16", 1), ("float32", 0)])
+def test_bf16_forward_always_takes_the_stem(dtype, stem_calls):
+    cfg = ssd_vgg.ModelConfig(preset_name="test64", num_classes=3, compute_dtype=dtype)
+    params = ssd_vgg.init_params(cfg, seed=0)
+    img = torch.from_numpy(np.random.default_rng(0).integers(0, 255, (1, 64, 64, 3), dtype=np.uint8))
+    with mock.patch.object(stem_cuda, "fused_stem", wraps=stem_cuda.fused_stem) as stem:
+        ssd_vgg.apply_scores(params, img, cfg)
+        ssd_vgg.apply_model(params, img, cfg)
+    assert stem.call_count == 2 * stem_calls
 
 
 def test_argmax_ties_take_first_class():

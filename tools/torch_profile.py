@@ -9,7 +9,7 @@ one JSON object (and writes it to ``--out``):
 * ``stages``: each layer of the path timed alone with CUDA events on the
   inputs the path gives it (preprocess + conv1_1, the stem kernel, the
   rest of the VGG trunk, L2-norm + extras, heads + lazy softmax, top-k +
-  decode + clamp, the NMS kernel, compaction), in ms per batch;
+  decode + clamp, class shift + the NMS kernel, compaction), in ms per batch;
 * ``run_scores_ms``: the whole ``InferenceModel.run_scores`` per batch;
 * ``profile``: a ``torch.profiler`` window over a few chained batches:
   device busy time per batch, the idle share of the window, and the
@@ -29,65 +29,42 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from chip_smoke import _time_ms  # noqa: E402  (CUDA-event timing, after warm-up)
-
 
 def _stages(model, images):
-    """``{stage: ms}`` for each layer of the path, in path order."""
-    import torch.nn.functional as F
-
+    """``{stage: ms}`` for each layer of the path, in path order: the
+    functions ``run_scores`` calls, each timed alone on its inputs."""
     from ssd_tensorflow_tpu_torch.models import ssd_vgg, vgg16
-    from ssd_tensorflow_tpu_torch.models.layers import conv2d, conv_relu, l2_normalize_scale
-    from ssd_tensorflow_tpu_torch.ops import nms_cuda, postprocess, stem_cuda
-    from ssd_tensorflow_tpu_torch.ops.boxes import box_canvas_corners
-    from ssd_tensorflow_tpu_torch.ops.nms import class_shifted
+    from ssd_tensorflow_tpu_torch.ops import postprocess, stem_cuda
+    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
 
     p, cfg, det = model.params, model.config, model.detection
     out = {}
 
-    def conv1_1():
-        return conv2d(ssd_vgg.preprocess(images, cfg), p["conv1_1"]["w"]).contiguous()
+    def timed(name, fn):
+        out[name] = cuda_event_ms(fn)
+        return fn()
 
-    c1 = conv1_1()
-    out["preprocess_conv1_1"] = _time_ms(conv1_1)
-    args = (c1, p["conv1_1"]["b"], p["conv1_2"]["w"], p["conv1_2"]["b"])
-    pool1 = stem_cuda.fused_stem(*args)
-    out["stem_kernel"] = _time_ms(lambda: stem_cuda.fused_stem(*args))
-    conv4_3, x7 = vgg16.apply_backbone(p, pool1, cfg.a_trous, from_pool1=True)
-    out["trunk_conv2_to_conv7"] = _time_ms(
-        lambda: vgg16.apply_backbone(p, pool1, cfg.a_trous, from_pool1=True))
-
-    def extras():
-        maps = [l2_normalize_scale(conv4_3, p["l2_norm_conv4_3"]["scale"], cfg.l2_norm_eps), x7]
-        x = x7
-        for name, _, _, stride, padding in ssd_vgg._extra_layer_defs(cfg.preset.num_maps):
-            x = conv_relu(p[name], x, stride, padding)
-            if name == "conv12_1":
-                x = F.pad(x, (0, 0, 0, 1, 0, 1))
-            elif name.endswith("_2"):
-                maps.append(x)
-        return maps
-
-    maps = extras()
-    out["l2norm_extras"] = _time_ms(extras)
-    conf, cls, locs = ssd_vgg.reduce_head_maps(ssd_vgg._head_maps(p, maps, cfg), cfg)
-    out["heads_lazy_softmax"] = _time_ms(
-        lambda: ssd_vgg.reduce_head_maps(ssd_vgg._head_maps(p, maps, cfg), cfg))
-    cand = postprocess._candidates_from_scores(conf, cls, locs, model.anchors, det)
-    out["topk_decode_clamp"] = _time_ms(
-        lambda: postprocess._candidates_from_scores(conf, cls, locs, model.anchors, det))
-    boxes, conf_top, cls_top, valid = cand
-    shifted = class_shifted(box_canvas_corners(boxes), cls_top).contiguous()
-    out["nms_kernel"] = _time_ms(lambda: nms_cuda.nms_keep(shifted, valid, det.nms_threshold))
-    keep = nms_cuda.nms_keep(shifted, valid, det.nms_threshold)
-    out["compaction"] = _time_ms(lambda: postprocess._finalize(*cand[:3], keep, det))
+    c1 = timed("preprocess_conv1_1",
+               lambda: vgg16.conv1_1_unbiased(p, ssd_vgg.preprocess(images, cfg)))
+    pool1 = timed("stem_kernel", lambda: stem_cuda.fused_stem(
+        c1, p["conv1_1"]["b"], p["conv1_2"]["w"], p["conv1_2"]["b"]))
+    conv4_3, x7 = timed("trunk_conv2_to_conv7",
+                        lambda: vgg16.apply_backbone(p, pool1, cfg.a_trous, from_pool1=True))
+    maps = timed("l2norm_extras", lambda: ssd_vgg._extra_maps(p, conv4_3, x7, cfg))
+    conf, cls, locs = timed("heads_lazy_softmax", lambda: ssd_vgg.reduce_head_maps(
+        ssd_vgg._head_maps(p, maps, cfg), cfg))
+    boxes, conf_top, cls_top, valid = timed("topk_decode_clamp", lambda: (
+        postprocess._candidates_from_scores(conf, cls, locs, model.anchors, det)))
+    keep = timed("class_shift_nms_kernel", lambda: postprocess._keep(boxes, cls_top, valid, det))
+    timed("compaction", lambda: postprocess._finalize(boxes, conf_top, cls_top, keep, det))
     return out
 
 
 def _profile(model, images, iters=3):
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from ssd_tensorflow_tpu_torch.timing import device_kernels
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -96,14 +73,7 @@ def _profile(model, images, iters=3):
             model.run_scores(images)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = []
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = evt.self_cuda_time_total
-        if dev_us > 0 and evt.device_type == DeviceType.CUDA:
-            kernels.append((evt.key, dev_us / 1e3 / iters, evt.count // iters))
-    kernels.sort(key=lambda k: -k[1])
+    kernels = device_kernels(prof, iters)
     busy = sum(k[1] for k in kernels)
     if busy <= 0:
         raise RuntimeError("the profiler recorded no device time")
@@ -132,6 +102,7 @@ def main(argv=None) -> int:
         return 2
     from ssd_tensorflow_tpu_torch.inference import InferenceModel
     from ssd_tensorflow_tpu_torch.models import ssd_vgg
+    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
 
     cfg = ssd_vgg.ModelConfig(preset_name="vgg512", num_classes=20, compute_dtype="bfloat16")
     model = InferenceModel(ssd_vgg.init_params(cfg, seed=args.seed), cfg)
@@ -143,7 +114,7 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     with torch.inference_mode():
         stages = _stages(model, images)
-        run_ms = _time_ms(lambda: model.run_scores(images))
+        run_ms = cuda_event_ms(lambda: model.run_scores(images))
         prof = _profile(model, images)
     result = {
         "card": smi.splitlines()[0], "torch": torch.__version__, "preset": cfg.preset_name,
