@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's float detection path on one NVIDIA GPU.
+"""Drive the PyTorch port's float detection paths on one NVIDIA GPU.
 
 Run from the repository root:
 
@@ -10,19 +10,32 @@ non-zero, and the final line is printed only when every phase passed:
 
 1. device: the card's name and power limit (``nvidia-smi``), then the
    build of every kernel from ``ssd_tensorflow_tpu_torch/csrc/``.
-2. kernels: each kernel against its plain PyTorch version on the card,
-   at the detection path's shapes (vgg512, batch 64): NMS keep masks
-   must be identical (D = 200, 57, 256); the stem within one bf16 step
-   of the largest output. ``ms`` is the kernel's device time from a
-   ``torch.profiler`` window; ``event_ms`` the CUDA-event time per call
-   over chained calls, which includes host launch cost.
-3. main path: ``InferenceModel.run_scores`` -> ``detections_to_boxes`` on
-   vgg512 bf16 with weights made from the seed. Both kernels' launch
-   counts must rise in that run, the outputs must be finite with 0..200
-   detections per image, and the pre-NMS scores must agree with the same
-   model run through the plain stem (conf within 0.02, argmax class on
-   >= 99 % of anchors, locs within 0.05). The peak device memory of that
-   one run, and images/s over chained batches.
+2. conv_epilogue: every conv + bias + ReLU call of the vgg512 forward
+   (trunk, the dilated mod_conv6, the extras), recorded from one run at
+   batch 2 and replayed with nonzero float32 biases: the fused route
+   (``layers.conv_relu``, cuDNN's conv + bias + ReLU) against the
+   one-rounding reference ``bf16(relu(conv_f32 + b))`` (TF32 off). It
+   must be equal on >= 99 % of elements and within one bf16 step of the
+   largest output. As a control, the unfused route's share (bf16 conv +
+   bf16 bias pass + ReLU) on the same inputs; the multibox heads, which
+   have no ReLU and keep that route, are listed with their share.
+3. kernels: each kernel against its plain PyTorch version on the card at
+   its path's shapes (vgg512 batch 64; the stem probe at its TPU shape):
+   NMS keep masks and the lane-unflatten sums bit-exact, every stem
+   kernel within one bf16 step of its largest output. ``ms`` is device
+   time from a ``torch.profiler`` window, ``event_ms`` the CUDA-event
+   time per call over chained calls (it includes host launch cost).
+4. paths, each driven with every launch count set to 0 just before it
+   and read just after: the detection path ``InferenceModel.run_scores``
+   -> ``detections_to_boxes`` on vgg512 bf16 with weights made from the
+   seed, once with the split stem ("dma") and once with the whole uint8
+   stem (``overrides={"pallas_stem_variant": "uint8"}``); then the
+   ``fused_stem_pallas`` entry and the stem probes. Each detection run
+   must launch its stem kernel and NMS (and not the other stem), give
+   finite outputs with 0..200 detections per image, and agree with the
+   same model run through its stem's plain version (conf within 0.02,
+   argmax class on >= 99 % of anchors, locs within 0.05); it reports the
+   peak device memory of that one run and images/s over chained batches.
 
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is ``{"ok": true, "device": {...}}``.
@@ -32,6 +45,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
@@ -43,6 +57,7 @@ from unittest import mock
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+MEAN_BGR = (104.0, 117.0, 123.0)
 
 
 def _emit(obj) -> None:
@@ -53,6 +68,43 @@ def _bound(n_bytes: float, n_ops: float, peak_ops: float):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / peak_ops * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _err(got, want):
+    """``(max |got - want|, max |want|)`` in float32."""
+    return (float((got.float() - want.float()).abs().max()), float(want.float().abs().max()))
+
+
+def _within_a_step(name, got, want):
+    """Both sum exact bf16 products in float32, in different orders: an
+    output may round one bf16 step (2^-7 of the largest) apart, no more."""
+    import torch
+
+    err, scale = _err(got, want)
+    tol = scale * 2.0 ** -7
+    if not (scale > 0 and err <= tol and torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{name} differs from its plain version: max err {err} > {tol} "
+                             f"(max |ref| {scale})")
+    return err, tol
+
+
+def _row(name, source, replaces, err, times, plain_ms, bound, library_ms, **extra):
+    return {"name": name, "route": "cuda", "source": f"ssd_tensorflow_tpu_torch/csrc/{source}",
+            "replaces": replaces, "max_abs_err": err, **times, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms, **extra}
+
+
+def _times(fn, kernel_name: str, iters: int):
+    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms, kernel_device_ms
+
+    return {"ms": kernel_device_ms(fn, kernel_name, iters=iters),
+            "event_ms": cuda_event_ms(fn, iters=iters)}
+
+
+def _plain_ms(fn):
+    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
+
+    return cuda_event_ms(fn, iters=3, warmup=1)
 
 
 def _nms_inputs(rng, b: int, d: int, num_classes: int, device):
@@ -77,11 +129,109 @@ def _nms_inputs(rng, b: int, d: int, num_classes: int, device):
     return shifted.to(device), torch.tensor(valid.copy()).to(device)
 
 
+def conv_calls(model, images):
+    """Every distinct conv + bias + ReLU (``layers.conv_relu``) and head conv
+    (``layers.conv2d``) call of ``model``'s forward on ``images``, recorded:
+    ``[{"kind", "x", "w", "stride", "padding", "dilation"}]``."""
+    import torch
+
+    from ssd_tensorflow_tpu_torch.models import layers, ssd_vgg, vgg16
+
+    calls = []
+
+    def record(fn):
+        def wrapper(*args, **kwargs):
+            bound = inspect.signature(fn).bind(*args, **kwargs)
+            bound.apply_defaults()
+            calls.append((fn.__name__, bound.arguments))
+            return fn(*args, **kwargs)
+        return wrapper
+
+    with torch.inference_mode(), \
+            mock.patch.object(vgg16, "conv_relu", record(layers.conv_relu)), \
+            mock.patch.object(ssd_vgg, "conv_relu", record(layers.conv_relu)), \
+            mock.patch.object(ssd_vgg, "conv2d", record(layers.conv2d)):
+        ssd_vgg.apply_scores(model.params, images, model.config)
+    out, seen = [], set()
+    for kind, a in calls:
+        w = a["params"]["w"] if kind == "conv_relu" else a["w"]
+        key = (kind, tuple(a["x"].shape), tuple(w.shape), a["stride"], a["padding"], a["dilation"])
+        if key not in seen:
+            seen.add(key)
+            out.append({"kind": kind, "x": a["x"], "w": w, "stride": a["stride"],
+                        "padding": a["padding"], "dilation": a["dilation"]})
+    return out
+
+
+def one_rounding_reference(call, bias):
+    """``bf16(act(conv_f32(x, w) + b))``: the JAX package's f32-accumulate
+    conv + bias (+ ReLU), rounded once (TF32 must be off)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ssd_tensorflow_tpu_torch.models import layers
+
+    xn, pad = layers._same_input(call["x"], call["w"], call["stride"], call["padding"],
+                                 call["dilation"])
+    y = F.conv2d(xn.float(), call["w"].float(), None, call["stride"], pad, call["dilation"])
+    y = y + bias.view(1, -1, 1, 1)
+    if call["kind"] == "conv_relu":
+        y = torch.relu(y)
+    return y.to(torch.bfloat16).permute(0, 2, 3, 1)
+
+
+def unfused(call, bias):
+    """The bf16 conv + bf16 bias pass (+ ReLU pass) route."""
+    import torch
+
+    from ssd_tensorflow_tpu_torch.models import layers
+
+    y = layers.conv2d(call["x"], call["w"], bias, call["stride"], call["padding"],
+                      call["dilation"])
+    return torch.relu(y) if call["kind"] == "conv_relu" else y
+
+
+def conv_epilogue(model, images, seed: int):
+    """Phase 2: the fused conv + bias + ReLU route against the one-rounding
+    reference, on every such call of the forward (see the module doc)."""
+    import torch
+
+    from ssd_tensorflow_tpu_torch.models import layers
+
+    gen = torch.Generator(device=images.device).manual_seed(seed)
+    out = []
+    with torch.inference_mode():
+        for call in conv_calls(model, images[:2]):
+            bias = torch.randn(call["w"].shape[0], generator=gen, device=images.device) * 0.5
+            ref = one_rounding_reference(call, bias)
+            plain = unfused(call, bias)
+            row = {"shape": {k: list(v.shape) if torch.is_tensor(v) else v
+                             for k, v in call.items() if k != "kind"},
+                   "unfused_equal": float((plain == ref).float().mean()),
+                   "unfused_max_abs_err": _err(plain, ref)[0]}
+            if call["kind"] == "conv_relu":
+                got = layers.conv_relu({"w": call["w"], "b": bias}, call["x"], call["stride"],
+                                       call["padding"], call["dilation"])
+                err, scale = _err(got, ref)
+                row.update(route="fused", fused_equal=float((got == ref).float().mean()),
+                           max_abs_err=err, max_ref=scale)
+                if not (row["fused_equal"] >= 0.99 and err <= scale * 2.0 ** -7):
+                    raise AssertionError(f"fused conv + bias + ReLU is not one rounding: {row}")
+            else:
+                row.update(route="unfused: a multibox head conv, no ReLU to fuse")
+            out.append(row)
+    fused = [r for r in out if r["route"] == "fused"]
+    _emit({"phase": "conv_epilogue", "batch": 2, "layers": out,
+           "fused_layers": len(fused),
+           "fused_equal_min": min(r["fused_equal"] for r in fused),
+           "unfused_equal_of_fused_layers_max": max(r["unfused_equal"] for r in fused),
+           "left_unfused": [r["shape"] for r in out if r["route"] != "fused"]})
+
+
 def check_nms(rng, batch: int, device):
     import torch
 
     from ssd_tensorflow_tpu_torch.ops import nms_cuda
-    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms, kernel_device_ms
 
     err = 0.0
     for d in (200, 57, 256):
@@ -94,64 +244,276 @@ def check_nms(rng, batch: int, device):
                                  f"{int((got != want).sum())} of {got.numel()} flags")
     corners, valid = _nms_inputs(rng, batch, 200, 21, device)
     d = 200
-    ms = kernel_device_ms(lambda: nms_cuda.nms_keep(corners, valid), "nms_kernel", iters=50)
-    event_ms = cuda_event_ms(lambda: nms_cuda.nms_keep(corners, valid), iters=50)
-    plain_ms = cuda_event_ms(lambda: nms_cuda.nms_keep_plain(corners, valid), iters=3, warmup=1)
+    times = _times(lambda: nms_cuda.nms_keep(corners, valid), "nms_kernel", iters=50)
+    plain_ms = _plain_ms(lambda: nms_cuda.nms_keep_plain(corners, valid))
     # each pair j > i: 4 min/max, 4 add/sub, 2 clamps, mul, add, sub, div, compare
     n_ops = batch * (d * (d - 1) / 2 * 15 + d * 5)
     n_bytes = batch * d * (16 + 1 + 1)
-    bound_ms, bound_by = _bound(n_bytes, n_ops, PEAK_F32_FLOPS)
-    return {
-        "name": "nms_keep", "route": "cuda", "source": "ssd_tensorflow_tpu_torch/csrc/nms.cu",
-        "replaces": "ssd_tensorflow_tpu/ops/nms_pallas.py:72",
-        "max_abs_err": err, "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "shape": [batch, d],
-    }
+    return _row("nms_keep", "nms.cu", "ssd_tensorflow_tpu/ops/nms_pallas.py:72", err, times,
+                plain_ms, _bound(n_bytes, n_ops, PEAK_F32_FLOPS), None, shape=[batch, d])
+
+
+def _stem_bound(b, h, w, c_in):
+    """Whole-stem bound: conv1_1 (27 -> 64) + conv1_2 (576 -> 64) MACs;
+    the input read once, pool1 written once."""
+    n_ops = 2.0 * b * h * w * 64 * (27 + 9 * 64)
+    n_bytes = b * h * w * 3 * c_in + b * (h // 2) * (w // 2) * 64 * 2 + (27 + 9 * 64) * 64 * 2
+    return _bound(n_bytes, n_ops, PEAK_BF16_FLOPS)
 
 
 def check_stem(params, images):
+    """Row 2: the split stem kernel (conv1_2 + pool1) on conv1_1's output."""
     import torch
     import torch.nn.functional as F
 
-    from ssd_tensorflow_tpu_torch.models.vgg16 import conv1_1_unbiased
     from ssd_tensorflow_tpu_torch.ops import stem_cuda
-    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms, kernel_device_ms
 
-    c1 = conv1_1_unbiased(params, images)
+    c1 = stem_cuda.conv1_1_unbiased(params, stem_cuda._preprocess(images, MEAN_BGR))
     b1, w2, b2 = params["conv1_1"]["b"], params["conv1_2"]["w"], params["conv1_2"]["b"]
-    got = stem_cuda.fused_stem(c1, b1, w2, b2)
-    want = stem_cuda.fused_stem_plain(c1, b1, w2, b2)
-    err = float((got.float() - want.float()).abs().max())
-    scale = float(want.float().abs().max())
-    # both sum exact bf16 products in float32, in different orders: an
-    # output may round one bf16 step (2^-7 relative) apart, no more
-    tol = scale * 2.0 ** -7
-    if not (scale > 0 and err <= tol and torch.isfinite(got.float()).all()):
-        raise AssertionError(f"fused_stem differs from its plain version: max err {err} "
-                             f"> {tol} (max |ref| {scale})")
-    del want
-    ms = kernel_device_ms(lambda: stem_cuda.fused_stem(c1, b1, w2, b2), "stem_kernel", iters=10)
-    event_ms = cuda_event_ms(lambda: stem_cuda.fused_stem(c1, b1, w2, b2), iters=10)
-    plain_ms = cuda_event_ms(lambda: stem_cuda.fused_stem_plain(c1, b1, w2, b2), iters=3,
-                             warmup=1)
+    err, tol = _within_a_step("fused_stem", stem_cuda.fused_stem(c1, b1, w2, b2),
+                              stem_cuda.fused_stem_plain(c1, b1, w2, b2))
+    times = _times(lambda: stem_cuda.fused_stem(c1, b1, w2, b2), "stem_kernel", iters=10)
+    plain_ms = _plain_ms(lambda: stem_cuda.fused_stem_plain(c1, b1, w2, b2))
     c1n = c1.permute(0, 3, 1, 2)
     b1n = b1.to(torch.bfloat16).view(1, -1, 1, 1)
     w2b, b2b = w2.to(torch.bfloat16), b2.to(torch.bfloat16)
-    library_ms = cuda_event_ms(
-        lambda: F.max_pool2d(F.relu(F.conv2d(F.relu(c1n + b1n), w2b, b2b, padding=1)), 2),
-        iters=10)
+    library_ms = _plain_ms(
+        lambda: F.max_pool2d(F.relu(F.conv2d(F.relu(c1n + b1n), w2b, b2b, padding=1)), 2))
     b, h, w, c = c1.shape
     n_ops = 2.0 * b * h * w * c * c * 9
-    n_bytes = c1.numel() * 2 + got.numel() * 2 + w2.numel() * 2 + 2 * c * 4
-    bound_ms, bound_by = _bound(n_bytes, n_ops, PEAK_BF16_FLOPS)
-    return {
-        "name": "fused_stem", "route": "cuda", "source": "ssd_tensorflow_tpu_torch/csrc/stem.cu",
-        "replaces": "ssd_tensorflow_tpu/ops/stem_pallas.py:160",
-        "max_abs_err": err, "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-        "shape": [b, h, w, c], "tolerance": tol,
+    n_bytes = c1.numel() * 2 + b * (h // 2) * (w // 2) * c * 2 + w2.numel() * 2 + 2 * c * 4
+    return _row("fused_stem", "stem.cu", "ssd_tensorflow_tpu/ops/stem_pallas.py:160", err, times,
+                plain_ms, _bound(n_bytes, n_ops, PEAK_BF16_FLOPS), library_ms,
+                shape=[b, h, w, c], tolerance=tol)
+
+
+def library_stem(params, images, mean_bgr=MEAN_BGR):
+    """The stem as PyTorch calls in bf16: preprocess, cuDNN conv1_1 + bias +
+    ReLU, conv1_2 + bias + ReLU, 2x2 max-pool. A yardstick only."""
+    import torch
+    import torch.nn.functional as F
+
+    mean = torch.tensor(mean_bgr, dtype=torch.float32, device=images.device)
+    x = (images.float() - mean).to(torch.bfloat16).permute(0, 3, 1, 2)
+    p1, p2 = params["conv1_1"], params["conv1_2"]
+    bf = torch.bfloat16
+    y = F.relu(F.conv2d(x, p1["w"].to(bf), p1["b"].to(bf), padding=1))
+    y = F.relu(F.conv2d(y, p2["w"].to(bf), p2["b"].to(bf), padding=1))
+    return F.max_pool2d(y, 2).permute(0, 2, 3, 1)
+
+
+def probe_library(a1, w1, w2, variant: str):
+    """One PyTorch call sequence (bf16 matmuls / cuDNN convolutions) for a
+    stem-probe variant, or ``None`` where there is none (the aligned
+    variant's math is wrong on purpose). A yardstick only."""
+    import torch
+    import torch.nn.functional as F
+
+    from ssd_tensorflow_tpu_torch.ops.stem_probe import PROBE_VARIANTS
+
+    code, n_taps = PROBE_VARIANTS[variant]
+    if code == 0:
+        return a1[:, :, :16].clone()
+    if code in (1, 2):
+        return torch.relu(a1[:, :, :16] @ w1[:, :64])
+    if code == 4:
+        return None
+    b, t, _, wp, _ = a1.shape
+    y1 = torch.relu(a1 @ w1).reshape(b * t, 34, wp, 128).permute(0, 3, 1, 2)
+    taps = torch.zeros((3, 3, 128, 128), dtype=w2.dtype, device=w2.device)
+    taps.view(9, 128, 128)[:n_taps] = w2.reshape(9, 128, 128)[:n_taps]
+    y = torch.relu(F.conv2d(y1, taps.permute(3, 2, 0, 1), padding=(0, 1)))
+    z = F.max_pool2d(y, (2, 1))
+    return torch.maximum(z[:, :64], z[:, 64:]).permute(0, 2, 3, 1).reshape(b, t, 16, wp, 64)
+
+
+def check_whole_stems(params, images):
+    """Rows 3 and 4: the whole-stem uint8 kernel, and the fused_stem_pallas
+    entry (preprocess + cuDNN conv1_1 + the split stem kernel), each from
+    the raw uint8 batch to pool1. Row 4's ``ms`` is the entry's whole
+    device time, since its function is the whole stem."""
+    from ssd_tensorflow_tpu_torch.ops import stem_cuda
+
+    library_ms = _plain_ms(lambda: library_stem(params, images))
+    bound = _stem_bound(*images.shape[:3], c_in=1)
+    rows = []
+    for name, source, replaces, kernel_fn, plain_fn, kernel_name in (
+        ("fused_stem_uint8", "stem_uint8.cu", "ssd_tensorflow_tpu/ops/stem_pallas.py:386",
+         stem_cuda.fused_stem_uint8, stem_cuda.fused_stem_uint8_plain, "stem_uint8_kernel"),
+        # the whole entry's device time: preprocess, conv1_1 and the kernel
+        ("fused_stem_pallas", "stem.cu", "ssd_tensorflow_tpu/ops/stem_pallas.py:536",
+         stem_cuda.fused_stem_pallas, _split_stem_plain, ""),
+    ):
+        err, tol = _within_a_step(name, kernel_fn(params, images, MEAN_BGR),
+                                  plain_fn(params, images, MEAN_BGR))
+        times = _times(lambda: kernel_fn(params, images, MEAN_BGR), kernel_name, iters=10)
+        rows.append(_row(name, source, replaces, err, times,
+                         _plain_ms(lambda: plain_fn(params, images, MEAN_BGR)), bound, library_ms,
+                         shape=list(images.shape), tolerance=tol,
+                         ms_covers=kernel_name or "preprocess + conv1_1 + stem_kernel"))
+    return rows
+
+
+def _split_stem_plain(params, images, mean_bgr):
+    """The fused_stem_pallas entry with the kernel's plain version."""
+    from ssd_tensorflow_tpu_torch.ops import stem_cuda
+
+    c1 = stem_cuda.conv1_1_unbiased(params, stem_cuda._preprocess(images, mean_bgr))
+    p1, p2 = params["conv1_1"], params["conv1_2"]
+    return stem_cuda.fused_stem_plain(c1, p1["b"], p2["w"], p2["b"])
+
+
+def _probe_bound(variant, b, t, wp):
+    from ssd_tensorflow_tpu_torch.ops.stem_probe import PROBE_VARIANTS
+
+    code, n_taps = PROBE_VARIANTS[variant]
+    out_bytes = b * t * 16 * wp * 64 * 2
+    if code == 0:
+        return _bound(2 * out_bytes, 0.0, PEAK_BF16_FLOPS)
+    if code in (1, 2):  # 16 rows of a1, the first 64 of w1's columns
+        return _bound(2 * out_bytes + 64 * 64 * 2, 2.0 * b * t * 16 * wp * 64 * 64,
+                      PEAK_BF16_FLOPS)
+    rows = 34 if n_taps > 3 else 32  # taps of dy = 2 read a1's last two rows
+    n_ops = 2.0 * b * t * wp * (rows * 64 * 128 + 32 * 128 * 128 * n_taps)
+    n_bytes = b * t * rows * wp * 64 * 2 + out_bytes + (64 * 128 + n_taps * 128 * 128) * 2
+    return _bound(n_bytes, n_ops, PEAK_BF16_FLOPS)
+
+
+def check_probes(seed: int, device):
+    """Rows 5 and 6: each stem-probe variant at the TPU probe's shape and
+    the lane-unflatten sum, against their plain versions."""
+    import torch
+
+    from ssd_tensorflow_tpu_torch.ops import stem_probe
+
+    rows = []
+    a1, w1, w2 = stem_probe.probe_inputs(seed, device)
+    b, t, _, wp, _ = a1.shape
+    for variant in stem_probe.PROBE_VARIANTS:
+        fn = (lambda v=variant: stem_probe.stem_probe(a1, w1, w2, v))
+        got, want = fn(), stem_probe.stem_probe_plain(a1, w1, w2, variant)
+        if variant == "copy":
+            err, tol = _err(got, want)[0], 0.0
+            if not torch.equal(got, want):
+                raise AssertionError("stem_probe(copy) differs from its plain version")
+        else:
+            err, tol = _within_a_step(f"stem_probe({variant})", got, want)
+        del got, want
+        times = _times(fn, "probe_kernel", iters=5)
+        plain_ms = _plain_ms(lambda v=variant: stem_probe.stem_probe_plain(a1, w1, w2, v))
+        library_ms = None
+        if probe_library(a1, w1, w2, variant) is not None:
+            library_ms = _plain_ms(lambda v=variant: probe_library(a1, w1, w2, v))
+        rows.append(_row(f"stem_probe:{variant}", "stem_probe.cu",
+                         f"tools/stem_kernel_probe.py:{PROBE_LINES[variant]}", err, times,
+                         plain_ms, _probe_bound(variant, b, t, wp), library_ms,
+                         shape=list(a1.shape), tolerance=tol))
+    del a1
+
+    x = torch.randn((36, 1536), generator=torch.Generator(device=device).manual_seed(seed),
+                    device=device).to(torch.bfloat16)
+    got, want = stem_probe.lane_unflatten_sum(x), stem_probe.lane_unflatten_sum_plain(x)
+    if not torch.equal(got, want):
+        raise AssertionError("lane_unflatten_sum differs from its plain version")
+    times = _times(lambda: stem_probe.lane_unflatten_sum(x), "lane_unflatten", iters=50)
+    rows.append(_row("lane_unflatten_sum", "stem_probe.cu", "tools/stem_uint8_probe.py:45",
+                     _err(got, want)[0], times,
+                     _plain_ms(lambda: stem_probe.lane_unflatten_sum_plain(x)),
+                     _bound(x.numel() * 2 + got.numel() * 2, x.numel(), PEAK_F32_FLOPS),
+                     _plain_ms(lambda: x.view(36, 256, 6).sum(dim=-1)),
+                     shape=list(x.shape), tolerance=0.0))
+    return rows
+
+
+#: the kernel body of each variant in tools/stem_kernel_probe.py
+PROBE_LINES = {"copy": 46, "conv1_1": 50, "conv1_1_store": 57, "taps1": 67, "taps3": 67,
+               "taps9": 67, "taps9_aligned": 86}
+
+
+def _launch_counts():
+    from ssd_tensorflow_tpu_torch.ops import nms_cuda, stem_cuda, stem_probe
+
+    return {"nms_keep": nms_cuda.nms_keep, "fused_stem": stem_cuda.fused_stem,
+            "fused_stem_uint8": stem_cuda.fused_stem_uint8, "stem_probe": stem_probe.stem_probe,
+            "lane_unflatten_sum": stem_probe.lane_unflatten_sum}
+
+
+def counted(run):
+    """Run ``run()`` with every kernel's launch count set to 0 just before
+    and read just after: ``(result, {kernel: launches})``."""
+    import torch
+
+    wrappers = _launch_counts()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    result = run()
+    torch.cuda.synchronize()
+    return result, {name: fn.launches for name, fn in wrappers.items()}
+
+
+def detection_path(model, images, batch: int):
+    """Phase 4: one counted ``run_scores`` of ``model``, its checks, its
+    agreement with its stem's plain version, and its throughput."""
+    import torch
+
+    from ssd_tensorflow_tpu_torch.models import ssd_vgg
+    from ssd_tensorflow_tpu_torch.ops import stem_cuda
+    from ssd_tensorflow_tpu_torch.ops.postprocess import detections_to_boxes
+    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
+
+    cfg = model.config
+    variant = cfg.pallas_stem_variant
+    stem, other = ("fused_stem_uint8", "fused_stem") if variant == "uint8" else \
+        ("fused_stem", "fused_stem_uint8")
+    torch.cuda.reset_peak_memory_stats()
+    dets, launches = counted(lambda: model.run_scores(images))
+    peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30
+    rows = detections_to_boxes(dets, model.lid2name)
+    if launches["nms_keep"] < 1 or launches[stem] < 1 or launches[other] != 0:
+        raise AssertionError(f"the {variant} path did not run its kernels: {launches}")
+    counts = dets.valid.sum(dim=1)
+    if len(rows) != batch or [len(r) for r in rows] != counts.tolist():
+        raise AssertionError("detections_to_boxes rows disagree with the valid mask")
+    if not (0 <= int(counts.min()) and int(counts.max()) <= 200):
+        raise AssertionError(f"detection counts out of [0, 200]: {counts.tolist()}")
+    v = dets.valid
+    if not (torch.isfinite(dets.scores[v]).all() and torch.isfinite(dets.boxes[v]).all()):
+        raise AssertionError("non-finite detections")
+
+    with torch.inference_mode():
+        conf, cls, locs = ssd_vgg.apply_scores(model.params, images, cfg)
+        with mock.patch.object(stem_cuda, stem, getattr(stem_cuda, f"{stem}_plain")):
+            conf_p, cls_p, locs_p = ssd_vgg.apply_scores(model.params, images, cfg)
+    agree = {
+        "conf_max_abs": float((conf - conf_p).abs().max()),
+        "cls_share": float((cls == cls_p).float().mean()),
+        "locs_max_abs": float((locs - locs_p).abs().max()),
+        "locs_max_ref": float(locs_p.abs().max()),
     }
+    if not (torch.isfinite(conf).all() and torch.isfinite(locs).all()):
+        raise AssertionError("non-finite pre-NMS scores")
+    if not (agree["conf_max_abs"] < 0.02 and agree["cls_share"] >= 0.99
+            and agree["locs_max_abs"] < 0.05):
+        raise AssertionError(f"the {variant} kernel path and its plain path disagree: {agree}")
+    del conf, cls, locs, conf_p, cls_p, locs_p
+
+    model_ms = cuda_event_ms(lambda: model.run_scores(images), iters=5, warmup=1)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        detections_to_boxes(model.run_scores(images))
+    host_s = (time.perf_counter() - t0) / 3
+    _emit({
+        "phase": "main_path", "stem_variant": variant, "preset": cfg.preset_name,
+        "dtype": cfg.compute_dtype, "batch": batch, "launches": launches,
+        "detections_per_image": {"min": int(counts.min()), "max": int(counts.max()),
+                                 "mean": float(counts.float().mean())},
+        "plain_stem_agreement": agree,
+        "batch_ms": model_ms, "images_per_s": batch / model_ms * 1e3,
+        "host_images_per_s_with_box_lists": batch / host_s,
+        "peak_mem_gib": peak_mem_gib,
+    })
+    return launches
 
 
 def main(argv=None) -> int:
@@ -171,9 +533,7 @@ def main(argv=None) -> int:
 
     from ssd_tensorflow_tpu_torch.inference import InferenceModel
     from ssd_tensorflow_tpu_torch.models import ssd_vgg
-    from ssd_tensorflow_tpu_torch.ops import _build, nms_cuda, stem_cuda
-    from ssd_tensorflow_tpu_torch.ops.postprocess import detections_to_boxes
-    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
+    from ssd_tensorflow_tpu_torch.ops import _build, stem_cuda, stem_probe
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -189,79 +549,54 @@ def main(argv=None) -> int:
                     if "registers" in ln or "spill" in ln]
              for name in _build.SOURCES}
     _emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas,
-           "torch": torch.__version__, "cuda": torch.version.cuda})
+           "torch": torch.__version__, "cuda": torch.version.cuda,
+           "cudnn": torch.backends.cudnn.version()})
 
     cfg = ssd_vgg.ModelConfig(preset_name="vgg512", num_classes=20, compute_dtype="bfloat16")
-    model = InferenceModel(ssd_vgg.init_params(cfg, seed=args.seed), cfg, device=device)
+    params = ssd_vgg.init_params(cfg, seed=args.seed)
+    model = InferenceModel(params, cfg, device=device)
     rng = np.random.default_rng(args.seed)
     size = cfg.preset.image_size
     images = torch.from_numpy(
         rng.integers(0, 256, (args.batch, size.h, size.w, 3), dtype=np.uint8)).to(device)
 
-    # 2. each kernel against its plain version at the main path's shapes
+    # 2. the conv epilogue repair
+    conv_epilogue(model, images, args.seed)
+
+    # 3. each kernel against its plain version at its path's shapes
     with torch.inference_mode():
-        kernels = [
-            check_nms(rng, args.batch, device),
-            check_stem(model.params, ssd_vgg.preprocess(images, cfg)),
-        ]
+        kernels = [check_nms(rng, args.batch, device), check_stem(model.params, images),
+                   *check_whole_stems(model.params, images), *check_probes(args.seed, device)]
     _emit({"phase": "kernels", "checked": [k["name"] for k in kernels]})
 
-    # 3. the main path, counted
-    nms_cuda.nms_keep.launches = 0
-    stem_cuda.fused_stem.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    dets = model.run_scores(images)
-    torch.cuda.synchronize()
-    peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30
-    rows = detections_to_boxes(dets, model.lid2name)
-    launches = {"nms_keep": nms_cuda.nms_keep.launches,
-                "fused_stem": stem_cuda.fused_stem.launches}
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the path was not launched: {launches}")
-    counts = dets.valid.sum(dim=1)
-    if len(rows) != args.batch or [len(r) for r in rows] != counts.tolist():
-        raise AssertionError("detections_to_boxes rows disagree with the valid mask")
-    if not (0 <= int(counts.min()) and int(counts.max()) <= 200):
-        raise AssertionError(f"detection counts out of [0, 200]: {counts.tolist()}")
-    v = dets.valid
-    if not (torch.isfinite(dets.scores[v]).all() and torch.isfinite(dets.boxes[v]).all()):
-        raise AssertionError("non-finite detections")
-
-    with torch.inference_mode():
-        conf, cls, locs = ssd_vgg.apply_scores(model.params, images, cfg)
-        with mock.patch.object(stem_cuda, "fused_stem", stem_cuda.fused_stem_plain):
-            conf_p, cls_p, locs_p = ssd_vgg.apply_scores(model.params, images, cfg)
-    agree = {
-        "conf_max_abs": float((conf - conf_p).abs().max()),
-        "cls_share": float((cls == cls_p).float().mean()),
-        "locs_max_abs": float((locs - locs_p).abs().max()),
-        "locs_max_ref": float(locs_p.abs().max()),
+    # 4. the paths, each counted on its own
+    launches = {
+        "dma": detection_path(model, images, args.batch),
+        "uint8": detection_path(
+            InferenceModel(params, cfg, overrides={"pallas_stem_variant": "uint8"},
+                           device=device), images, args.batch),
     }
-    if not (torch.isfinite(conf).all() and torch.isfinite(locs).all()):
-        raise AssertionError("non-finite pre-NMS scores")
-    if not (agree["conf_max_abs"] < 0.02 and agree["cls_share"] >= 0.99
-            and agree["locs_max_abs"] < 0.05):
-        raise AssertionError(f"kernel path and plain path disagree: {agree}")
-
-    iters = 5
-    model_ms = cuda_event_ms(lambda: model.run_scores(images), iters=iters, warmup=1)
-    t0 = time.perf_counter()
-    for _ in range(3):
-        detections_to_boxes(model.run_scores(images))
-    host_s = (time.perf_counter() - t0) / 3
-    _emit({
-        "phase": "main_path", "preset": cfg.preset_name, "dtype": cfg.compute_dtype,
-        "batch": args.batch, "launches": launches,
-        "detections_per_image": {"min": int(counts.min()), "max": int(counts.max()),
-                                 "mean": float(counts.float().mean())},
-        "plain_stem_agreement": agree,
-        "batch_ms": model_ms, "images_per_s": args.batch / model_ms * 1e3,
-        "host_images_per_s_with_box_lists": args.batch / host_s,
-        "peak_mem_gib": peak_mem_gib,
-    })
+    with torch.inference_mode():
+        _, launches["fused_stem_pallas"] = counted(
+            lambda: stem_cuda.fused_stem_pallas(model.params, images, MEAN_BGR))
+        a1, w1, w2 = stem_probe.probe_inputs(args.seed, device)
+        for v in stem_probe.PROBE_VARIANTS:
+            _, launches[f"stem_probe:{v}"] = counted(
+                lambda v=v: stem_probe.stem_probe(a1, w1, w2, v))
+        del a1
+        x = torch.randn((36, 1536), device=device).to(torch.bfloat16)
+        _, launches["lane_unflatten_sum"] = counted(lambda: stem_probe.lane_unflatten_sum(x))
+    _emit({"phase": "paths", "launches": launches})
+    path_of = {"nms_keep": ("dma", "nms_keep"), "fused_stem": ("dma", "fused_stem"),
+               "fused_stem_uint8": ("uint8", "fused_stem_uint8"),
+               "fused_stem_pallas": ("fused_stem_pallas", "fused_stem"),
+               "lane_unflatten_sum": ("lane_unflatten_sum", "lane_unflatten_sum")}
+    for k in kernels:
+        path, counter = path_of.get(k["name"], (k["name"], "stem_probe"))
+        k["launches"] = launches[path][counter]
+        k["launched_by"] = path
+        if k["launches"] < 1:
+            raise AssertionError(f"{k['name']} was not launched on its path {path}")
 
     _emit({"kernels": kernels})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

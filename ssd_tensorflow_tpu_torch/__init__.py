@@ -6,10 +6,11 @@ package. Public functions keep the JAX package's layouts (NHWC images,
 ``(B, A)`` / ``(B, A, 4)`` scores, ``(xmin, xmax, ymin, ymax)`` canvas
 corners), so both can be held against each other on the same inputs.
 
-The two TPU kernels of the float detection path are hand-written CUDA
-for ``sm_90a`` (``csrc/``): the conv1_2 + pool1 stem
-(``ops/stem_cuda.py``) and the fused IoU + greedy NMS
-(``ops/nms_cuda.py``). Entry points run on ``device="cuda"`` unless the
+Every TPU kernel of the JAX package is a hand-written CUDA kernel for
+``sm_90a`` here (``csrc/``): the split conv1_2 + pool1 stem and the whole
+uint8 stem (``ops/stem_cuda.py``), the fused IoU + greedy NMS
+(``ops/nms_cuda.py``), and the stem probes' kernels
+(``ops/stem_probe.py``). Entry points run on ``device="cuda"`` unless the
 caller asks for the CPU; on the CPU each kernel's wrapper runs its plain
 PyTorch version.
 """

@@ -9,6 +9,7 @@ load in the other.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 
 import numpy as np
@@ -103,11 +104,49 @@ def load_bundle(path: str):
     return params_from_jax(tree), model_cfg, lid2name
 
 
+def _apply_overrides(model_cfg: ModelConfig, overrides: dict) -> ModelConfig:
+    """``model_cfg`` with execution-backend fields replaced, as the JAX
+    package's ``InferenceModel(overrides=...)`` does; never serialized.
+
+    Takes ``pallas_stem_variant``, and ``pallas_stem: True`` as a no-op so
+    that the JAX package's override dicts work: the port's bf16 forward
+    always runs a stem kernel, so ``pallas_stem: False`` raises. On a
+    bundle that does not run the bf16 float stem (float32) the stem
+    overrides are dropped with the JAX package's message.
+    """
+    overrides = dict(overrides)
+    if not overrides.get("pallas_stem", True):
+        raise ValueError(
+            "pallas_stem=False is not available in the port: its bf16 forward "
+            "always runs a stem kernel (ops/stem_cuda.py); choose the kernel "
+            "with pallas_stem_variant"
+        )
+    stem_keys = [k for k in ("pallas_stem", "pallas_stem_variant") if k in overrides]
+    if stem_keys and model_cfg.compute_dtype != "bfloat16":
+        print(f"[!] pallas_stem override ignored: this {model_cfg.compute_dtype} "
+              "bundle does not run the bf16 VGG float stem")
+        for k in stem_keys:
+            overrides.pop(k)
+    overrides.pop("pallas_stem", None)
+    unknown = set(overrides) - {"pallas_stem_variant"}
+    if unknown:
+        raise ValueError(f"unsupported overrides {sorted(unknown)}; the port takes "
+                         "pallas_stem and pallas_stem_variant")
+    return dataclasses.replace(model_cfg, **overrides)
+
+
 class InferenceModel:
-    """End-to-end detector: uint8 BGR batch -> detections, on one device."""
+    """End-to-end detector: uint8 BGR batch -> detections, on one device.
+
+    ``overrides`` holds execution-backend fields of the model config,
+    applied per run and never serialized (see :func:`_apply_overrides`).
+    """
 
     def __init__(self, params, model_cfg: ModelConfig, lid2name=None,
-                 detection: DetectionConfig | None = None, device="cuda"):
+                 detection: DetectionConfig | None = None, overrides: dict | None = None,
+                 device="cuda"):
+        if overrides:
+            model_cfg = _apply_overrides(model_cfg, overrides)
         self.device = resolve_device(device)
         self.config = model_cfg
         self.preset = model_cfg.preset

@@ -26,6 +26,23 @@ def _same_pads(size: int, window: int, stride: int, dilation: int = 1):
     return total // 2, total - total // 2
 
 
+def _same_input(x, w, stride, padding, dilation):
+    """``(NCHW channels-last view of x, symmetric pads)`` for a convolution
+    with OIHW ``w``: an asymmetric TF-SAME padding is applied to ``x``
+    here, a symmetric one is left to the convolution."""
+    pad = (0, 0)
+    if padding == "SAME":
+        ph = _same_pads(x.shape[1], w.shape[2], stride, dilation)
+        pw = _same_pads(x.shape[2], w.shape[3], stride, dilation)
+        if ph[0] == ph[1] and pw[0] == pw[1]:
+            pad = (ph[0], pw[0])
+        else:
+            x = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
+    elif padding != "VALID":
+        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+    return x.permute(0, 3, 1, 2), pad
+
+
 def conv2d(x, w, b=None, stride=1, padding="SAME", dilation=1):
     """2-D convolution of NHWC ``x`` with OIHW ``w``, optional bias.
 
@@ -33,32 +50,39 @@ def conv2d(x, w, b=None, stride=1, padding="SAME", dilation=1):
     and rounds its output to bf16, as the JAX package's
     ``conv2d(..., f32_out=True)`` does. The bias goes to ``F.conv2d`` in
     bf16: the CPU adds it inside its float32 accumulation (one rounding,
-    as in JAX); cuDNN's path adds it to the rounded output in a bf16 pass,
-    so there the output may round twice. A float32 bias add on the card
-    would remove only the bias's own rounding and, being a mixed-dtype
-    elementwise kernel, costs more than the bf16 pass (PERF.md).
+    as in JAX); cuDNN adds it to the rounded output in a bf16 pass, so on
+    the card the output may round twice. Only the multibox heads, which
+    have no ReLU, still take this route on the card (ROADMAP.md faults).
     """
     w = w.to(x.dtype)
     if b is not None:
         b = b.to(x.dtype)
-    pad = 0
-    if padding == "SAME":
-        kh, kw = w.shape[2], w.shape[3]
-        ph = _same_pads(x.shape[1], kh, stride, dilation)
-        pw = _same_pads(x.shape[2], kw, stride, dilation)
-        if ph[0] == ph[1] and pw[0] == pw[1]:
-            pad = (ph[0], pw[0])
-        else:
-            x = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
-    elif padding != "VALID":
-        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=stride, padding=pad, dilation=dilation)
+    xn, pad = _same_input(x, w, stride, padding, dilation)
+    y = F.conv2d(xn, w, b, stride=stride, padding=pad, dilation=dilation)
     return y.permute(0, 2, 3, 1)
 
 
 def conv_relu(params, x, stride=1, padding="SAME", dilation=1):
-    """conv + bias + ReLU block."""
-    return torch.relu_(conv2d(x, params["w"], params["b"], stride, padding, dilation))
+    """conv + bias + ReLU block.
+
+    On the card this is cuDNN's fused convolution + bias + ReLU
+    (``torch.cudnn_convolution_relu``): the float32 bias is added to the
+    float32 accumulator and the output rounds once, as the JAX package's
+    ``conv2d(..., f32_out=True)`` + ReLU does, and no separate bias or
+    ReLU pass runs. The bias must stay float32 there: cuDNN misreads a
+    bf16 bias in this fused op (PERF.md). Every conv + bias + ReLU
+    shape of the vgg300/vgg512 models takes this route. CPU tensors take
+    ``conv2d`` + in-place ReLU, which rounds once as well (oneDNN adds the
+    bias inside its accumulation, though it takes the bias in the input's
+    dtype, so a bf16 layer's bias is rounded first).
+    """
+    if x.device.type != "cuda":
+        return torch.relu_(conv2d(x, params["w"], params["b"], stride, padding, dilation))
+    w = params["w"].to(x.dtype)
+    xn, pad = _same_input(x, w, stride, padding, dilation)
+    y = torch.cudnn_convolution_relu(xn, w, params["b"].float(), [stride, stride], list(pad),
+                                     [dilation, dilation], 1)
+    return y.permute(0, 2, 3, 1)
 
 
 def max_pool(x, window=2, stride=2):

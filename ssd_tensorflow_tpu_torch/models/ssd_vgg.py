@@ -11,9 +11,10 @@ Parameters are a nested dict ``{layer: {"w": OIHW, "b": (cout,)}}`` plus
 ``{"l2_norm_conv4_3": {"scale": (512,)}}``; ``weights.params_from_jax``
 converts the JAX package's HWIO dict into it.
 
-A bf16 forward always runs conv1_2 + pool1 as the fused stem kernel
-(``ops/stem_cuda.py``); a float32 forward runs the conv1 block as plain
-convolutions.
+A bf16 forward always runs a stem kernel (``ops/stem_cuda.py``): the
+split stem (conv1_1 as a convolution, conv1_2 + pool1 as a kernel) or,
+with ``pallas_stem_variant="uint8"``, the whole stem from the raw uint8
+image; a float32 forward runs the conv1 block as plain convolutions.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ from ssd_tensorflow_tpu_torch.models.layers import conv2d, conv_relu, init_conv,
 from ssd_tensorflow_tpu_torch.presets import SSDPreset, get_preset_by_name
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+#: the stem kernels a bf16 forward may run (``ModelConfig.pallas_stem_variant``)
+STEM_VARIANTS = ("dma", "uint8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +55,17 @@ class ModelConfig:
     packed_stem: bool = True
     #: epsilon inside the conv4_3 L2-normalization rsqrt.
     l2_norm_eps: float = 1e-12
+    #: which stem kernel a bf16 forward runs: "dma" = the split stem
+    #: (conv1_1 as a cuDNN convolution, conv1_2 + pool1 as
+    #: ``csrc/stem.cu``); "uint8" = the whole stem in one kernel reading
+    #: the raw uint8 image (``csrc/stem_uint8.cu``). An execution-backend
+    #: choice, never serialized (``InferenceModel(overrides=...)`` sets
+    #: it per run), as in the JAX package. The port has no ``pallas_stem``
+    #: switch: its bf16 forward always runs a stem kernel, because on the
+    #: card the split stem kernel beats cuDNN's conv1_2 + ReLU + pool
+    #: (5.15 ms against 14.21 ms per vgg512 batch of 64 on an H100 80GB
+    #: HBM3 at 700 W, PERF.md).
+    pallas_stem_variant: str = "dma"
 
     def __post_init__(self):
         if self.preset.backbone != "vgg":
@@ -62,6 +76,15 @@ class ModelConfig:
         if self.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, "
                              f"got {self.compute_dtype!r}")
+        if self.pallas_stem_variant not in STEM_VARIANTS:
+            raise ValueError(f"pallas_stem_variant must be one of {STEM_VARIANTS}, "
+                             f"got {self.pallas_stem_variant!r}")
+        if self.pallas_stem_variant != "dma" and self.compute_dtype != "bfloat16":
+            raise ValueError(
+                f"pallas_stem_variant={self.pallas_stem_variant!r} requires "
+                f"compute_dtype='bfloat16' (got {self.compute_dtype!r}); the fused "
+                "stem kernel is a bf16 tensor-core kernel (ops/stem_cuda.py)"
+            )
 
     @property
     def preset(self) -> SSDPreset:
@@ -153,12 +176,16 @@ def preprocess(images, config: ModelConfig):
 
 
 def _backbone(params, images, config: ModelConfig):
-    """Preprocess + VGG trunk -> (conv4_3, mod_conv7), NHWC."""
-    x = preprocess(images, config)
-    if config.dtype == torch.bfloat16:
-        pool1 = vgg16.conv1_block(params, x)
-        return vgg16.apply_backbone(params, pool1, config.a_trous, from_pool1=True)
-    return vgg16.apply_backbone(params, x, config.a_trous)
+    """Preprocess + VGG trunk -> (conv4_3, mod_conv7), NHWC. The uint8
+    stem preprocesses inside its kernel, from images cast to uint8 as in
+    the JAX package."""
+    if config.dtype != torch.bfloat16:
+        return vgg16.apply_backbone(params, preprocess(images, config), config.a_trous)
+    if config.pallas_stem_variant == "uint8":
+        pool1 = vgg16.conv1_block_uint8(params, images.to(torch.uint8), config.mean_bgr)
+    else:
+        pool1 = vgg16.conv1_block(params, preprocess(images, config))
+    return vgg16.apply_backbone(params, pool1, config.a_trous, from_pool1=True)
 
 
 def _extra_maps(params, conv4_3, x, config: ModelConfig):

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ssd_tensorflow_tpu_torch.models.layers import conv2d, conv_relu, init_conv, max_pool
+from ssd_tensorflow_tpu_torch.models.layers import conv_relu, init_conv, max_pool
 from ssd_tensorflow_tpu_torch.ops import stem_cuda
 
 #: (name, out_channels) of the 13 conv layers; pools follow each block.
@@ -44,19 +44,20 @@ def init_vgg_params(rng: np.random.Generator) -> dict:
     return {name: init_conv(rng, *shape) for name, shape in vgg_param_shapes().items()}
 
 
-def conv1_1_unbiased(params, x):
-    """conv1_1 of a preprocessed bf16 NHWC batch, without its bias: the
-    stem kernel's input (the kernel adds b1)."""
-    return conv2d(x, params["conv1_1"]["w"]).contiguous()
-
-
 def conv1_block(params, x):
     """conv1_1 + conv1_2 + pool1 of a preprocessed bf16 NHWC batch:
-    conv1_1 as a bf16 convolution, the rest as the fused stem kernel
-    (``ops/stem_cuda.fused_stem``)."""
+    conv1_1 as an un-biased bf16 convolution, the rest as the split stem
+    kernel (``ops/stem_cuda.fused_stem``)."""
     p2 = params["conv1_2"]
-    return stem_cuda.fused_stem(conv1_1_unbiased(params, x), params["conv1_1"]["b"],
+    return stem_cuda.fused_stem(stem_cuda.conv1_1_unbiased(params, x), params["conv1_1"]["b"],
                                 p2["w"], p2["b"])
+
+
+def conv1_block_uint8(params, images, mean_bgr):
+    """preprocess + conv1_1 + conv1_2 + pool1 of a raw ``(B, H, W, 3)``
+    uint8 BGR batch as one kernel (``ops/stem_cuda.fused_stem_uint8``,
+    which stages the weights in the kernel's layout): bf16 pool1."""
+    return stem_cuda.fused_stem_uint8(params, images, mean_bgr)
 
 
 def apply_backbone(params, x, a_trous: bool = True, from_pool1: bool = False):

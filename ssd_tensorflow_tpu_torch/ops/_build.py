@@ -1,7 +1,8 @@
 """Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
-its own into ``_build/lib<name>-<hash>.so`` (the directory is listed in
+its own (with the shared ``csrc/*.cuh`` headers it includes) into
+``_build/lib<name>-<hash>.so`` (the directory is listed in
 ``.gitignore``) at first use, for ``sm_90a`` at ``-O3`` and without
 ``--use_fast_math``: the NMS kernel must divide in IEEE round-to-nearest
 to match the plain version bit for bit. All sources compile in parallel,
@@ -22,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("nms", "stem")
+SOURCES = ("nms", "stem", "stem_uint8", "stem_probe")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -44,7 +45,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     digest = hashlib.sha1()
-    digest.update((CSRC / f"{name}.cu").read_bytes())
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 

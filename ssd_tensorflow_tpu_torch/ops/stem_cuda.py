@@ -1,14 +1,27 @@
-"""VGG conv1_2 + pool1 stem: the CUDA kernel and its plain version.
+"""VGG conv1 stem: the CUDA kernels, their plain versions and the three
+whole-stem entry points of ``ssd_tensorflow_tpu/ops/stem_pallas.py``.
 
-Replaces ``ssd_tensorflow_tpu/ops/stem_pallas.py`` (``fused_stem_pallas_dma``):
-conv1_1 runs outside the kernel (bf16 in and out, no bias, see
-``models/vgg16.conv1_block``), the kernel (``csrc/stem.cu``) does b1 +
-ReLU + the zero border, conv1_2 with float32 accumulation, b2 + ReLU and
-the 2x2/s2 max-pool, so conv1_2's activation never reaches device
-memory. CUDA tensors run the kernel; CPU tensors take the plain version,
-which computes the same function in float32 from the same bf16 values.
-The source note in ``csrc/stem.cu`` says what bounds the kernel and how
-its design meets that.
+Two kernels:
+
+* ``fused_stem`` (``csrc/stem.cu``) — conv1_2 + pool1 over conv1_1's
+  un-biased bf16 output: b1 + ReLU + the zero border, conv1_2 with float32
+  accumulation, b2 + ReLU and the 2x2/s2 max-pool, so conv1_2's activation
+  never reaches device memory. conv1_1 runs outside it (bf16 in and out,
+  no bias, :func:`conv1_1_unbiased`).
+* ``fused_stem_uint8`` (``csrc/stem_uint8.cu``) — the whole stem from the
+  raw uint8 image: preprocess, conv1_1 + b1 + ReLU rounded once, conv1_2,
+  b2, ReLU and pool1; only the image is read and only pool1 written.
+
+The whole-stem entry points keep the JAX package's names and signature
+``(params, images, mean_bgr)`` -> bf16 pool1 ``(B, H/2, W/2, 64)``:
+:func:`fused_stem_pallas_dma`, :func:`fused_stem_pallas` (both the split
+stem) and :func:`fused_stem_uint8`. CUDA tensors run the kernels (and
+raise on what they do not take); CPU tensors take the plain versions,
+which compute the same functions in float32 from the same bf16 values
+with the kernels' rounding points. The plain versions' float32
+convolutions want TF32 off on the card
+(``torch.backends.cudnn.allow_tf32 = False``). The source notes in
+``csrc/`` say what bounds each kernel and how its design meets that.
 """
 
 from __future__ import annotations
@@ -19,9 +32,22 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ssd_tensorflow_tpu_torch.models.layers import conv2d
 from ssd_tensorflow_tpu_torch.ops import _build
 
 _C = 64
+
+
+def _preprocess(images, mean_bgr):
+    """Raw BGR images -> bf16 after a float32 mean subtraction."""
+    mean = torch.tensor(mean_bgr, dtype=torch.float32, device=images.device)
+    return (images.float() - mean).to(torch.bfloat16)
+
+
+def conv1_1_unbiased(params, x):
+    """conv1_1 of a preprocessed bf16 NHWC batch, without its bias: the
+    split stem kernel's input (the kernel adds b1)."""
+    return conv2d(x, params["conv1_1"]["w"]).contiguous()
 
 
 def fused_stem_plain(c1, b1, w2, b2):
@@ -43,9 +69,10 @@ def fused_stem_plain(c1, b1, w2, b2):
 
 
 @functools.cache
-def _launcher():
-    fn = _build.libraries()["stem"].stem_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def _launcher(name: str):
+    fn = getattr(_build.libraries()[name], f"{name}_launch")
+    n_ptr, n_int = {"stem": (5, 4), "stem_uint8": (7, 4)}[name]
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -53,6 +80,24 @@ def _launcher():
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch(name, device, pointers, b, h, w):
+    """Launch ``csrc/<name>.cu`` on the current stream with one persistent
+    block per SM (at most one per 16 x 32 conv-pixel tile)."""
+    tiles = b * -(-h // 16) * -(-w // 32)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _launcher(name)(*pointers, b, h, w, min(tiles, _sm_count(index)), stream)
+    _build.check(rc, name)
+
+
+def _check_device(name, x, *others):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if any(t.device != x.device for t in others):
+        raise ValueError(f"{name}: all operands must be on one device")
 
 
 def fused_stem(c1, b1, w2, b2):
@@ -71,8 +116,7 @@ def fused_stem(c1, b1, w2, b2):
     """
     if c1.device.type == "cpu":
         return fused_stem_plain(c1, b1, w2, b2)
-    if c1.device.type != "cuda":
-        raise ValueError(f"fused_stem: unsupported device {c1.device}")
+    _check_device("fused_stem", c1, b1, w2, b2)
     if c1.dtype != torch.bfloat16 or c1.dim() != 4 or c1.shape[-1] != _C:
         raise ValueError(f"fused_stem: c1 must be (B, H, W, 64) bf16, got "
                          f"{tuple(c1.shape)} {c1.dtype}")
@@ -83,24 +127,112 @@ def fused_stem(c1, b1, w2, b2):
         raise ValueError(f"fused_stem: H and W must be even, got {h}x{w}")
     if w2.shape != (_C, _C, 3, 3) or b1.shape != (_C,) or b2.shape != (_C,):
         raise ValueError("fused_stem: expected w2 (64, 64, 3, 3), b1 and b2 (64,)")
-    if any(t.device != c1.device for t in (b1, w2, b2)):
-        raise ValueError("fused_stem: all operands must be on one device")
     out = torch.empty((b, h // 2, w // 2, _C), dtype=torch.bfloat16, device=c1.device)
-    if b == 0 or h == 0 or w == 0:
+    if out.numel() == 0:
         return out
     # [dy*3 + dx][cout][cin], the kernel's shared-memory weight layout
     w2t = w2.to(torch.bfloat16).permute(2, 3, 0, 1).contiguous()
     b1f = b1.float().contiguous()
     b2f = b2.float().contiguous()
-    tiles = b * -(-h // 16) * -(-w // 32)
-    index = c1.device.index if c1.device.index is not None else torch.cuda.current_device()
-    with torch.cuda.device(c1.device):
-        stream = torch.cuda.current_stream(c1.device).cuda_stream
-        rc = _launcher()(c1.data_ptr(), b1f.data_ptr(), w2t.data_ptr(), b2f.data_ptr(),
-                         out.data_ptr(), b, h, w, min(tiles, _sm_count(index)), stream)
-    _build.check(rc, "fused_stem")
+    _launch("stem", c1.device, (c1.data_ptr(), b1f.data_ptr(), w2t.data_ptr(), b2f.data_ptr(),
+                                out.data_ptr()), b, h, w)
     fused_stem.launches += 1
     return out
 
 
 fused_stem.launches = 0
+
+
+def fused_stem_pallas_dma(params, images, mean_bgr):
+    """Counterpart of JAX ``stem_pallas.fused_stem_pallas_dma``: preprocess,
+    conv1_1 as an un-biased bf16 convolution, then the :func:`fused_stem`
+    kernel. ``images`` is ``(B, H, W, 3)`` raw BGR (uint8 or float), H and
+    W even; returns bf16 pool1 ``(B, H/2, W/2, 64)``."""
+    c1 = conv1_1_unbiased(params, _preprocess(images, mean_bgr))
+    p2 = params["conv1_2"]
+    return fused_stem(c1, params["conv1_1"]["b"], p2["w"], p2["b"])
+
+
+def fused_stem_pallas(params, images, mean_bgr):
+    """Counterpart of JAX ``stem_pallas.fused_stem_pallas``, the same
+    function as :func:`fused_stem_pallas_dma`. The two TPU kernels differ
+    only in how they feed conv1_1's halo rows (three BlockSpec streams
+    there, manual DMA in the dma one); on this card both are the
+    :func:`fused_stem` kernel behind preprocess + conv1_1."""
+    return fused_stem_pallas_dma(params, images, mean_bgr)
+
+
+def fused_stem_uint8_plain(params, images, mean_bgr):
+    """Plain PyTorch version of :func:`fused_stem_uint8`, same contract and
+    the TPU kernel's rounding points: ``x = bf16(u8 - mean)`` (zero SAME
+    padding after the subtraction), conv1_1 in float32 on bf16 weights +
+    b1 on the float32 sum, ReLU, one bf16 rounding (zero outside the
+    image, not relu(b1)), conv1_2 in float32 + b2, ReLU, 2x2/s2 max-pool,
+    one bf16 rounding."""
+    x = _preprocess(images, mean_bgr).float().permute(0, 3, 1, 2)
+    p1, p2 = params["conv1_1"], params["conv1_2"]
+    c1 = F.conv2d(x, p1["w"].to(torch.bfloat16).float(), padding=1)
+    y1 = torch.relu(c1 + p1["b"].float().view(1, -1, 1, 1)).to(torch.bfloat16).float()
+    y = F.conv2d(y1, p2["w"].to(torch.bfloat16).float(), p2["b"].float(), padding=1)
+    y = F.max_pool2d(torch.relu(y), 2, 2)
+    return y.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
+
+
+def uint8_stem_weights(params):
+    """``(w1k, b1, w2t, b2)`` in ``csrc/stem_uint8.cu``'s layouts: w1k
+    ``(64, 32)`` bf16 [cout][(dy*3 + dx)*3 + c] zero-padded from K = 27,
+    w2t ``(9, 64, 64)`` bf16 [dy*3 + dx][cout][cin], float32 biases."""
+    p1, p2 = params["conv1_1"], params["conv1_2"]
+    w1k = F.pad(p1["w"].to(torch.bfloat16).permute(0, 2, 3, 1).reshape(_C, 27), (0, 5))
+    w2t = p2["w"].to(torch.bfloat16).permute(2, 3, 0, 1).reshape(9, _C, _C).contiguous()
+    return w1k.contiguous(), p1["b"].float().contiguous(), w2t, p2["b"].float().contiguous()
+
+
+def fused_stem_uint8(params, images, mean_bgr, nine_taps: bool = False):
+    """The whole stem (preprocess + conv1_1 + conv1_2 + pool1) in one
+    kernel reading the raw uint8 image: counterpart of JAX
+    ``stem_pallas.fused_stem_uint8``.
+
+    Args:
+      params: the model's parameters (uses ``conv1_1`` and ``conv1_2``,
+        OIHW weights, float32 biases).
+      images: ``(B, H, W, 3)`` uint8 BGR, contiguous; H and W even.
+      mean_bgr: the channel means subtracted in float32.
+      nine_taps: accepted for the JAX signature and ignored. The TPU
+        kernel has two conv1_1 tap layouts (K = 18 after merging the dy
+        taps, or nine K = 6 dots) that compute one function; the port has
+        one layout (``csrc/stem_uint8.cu``).
+
+    Returns:
+      ``(B, H/2, W/2, 64)`` bf16 pool1. CUDA tensors run the kernel (and
+      count one launch in ``fused_stem_uint8.launches``); CPU tensors the
+      plain version.
+    """
+    del nine_taps
+    if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[-1] != 3:
+        raise ValueError(f"fused_stem_uint8: images must be (B, H, W, 3) uint8, got "
+                         f"{tuple(images.shape)} {images.dtype}")
+    b, h, w, _ = images.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"fused_stem_uint8: H and W must be even, got {h}x{w}")
+    if images.device.type == "cpu":
+        return fused_stem_uint8_plain(params, images, mean_bgr)
+    weights = uint8_stem_weights(params)
+    _check_device("fused_stem_uint8", images, *weights)
+    if not images.is_contiguous():
+        raise ValueError("fused_stem_uint8: images must be contiguous NHWC")
+    if weights[0].shape != (_C, 32) or weights[2].shape != (9, _C, _C):
+        raise ValueError("fused_stem_uint8: expected conv1_1 (64, 3, 3, 3), conv1_2 (64, 64, 3, 3)")
+    out = torch.empty((b, h // 2, w // 2, _C), dtype=torch.bfloat16, device=images.device)
+    if out.numel() == 0:
+        return out
+    mean = torch.tensor(mean_bgr, dtype=torch.float32, device=images.device)
+    w1k, b1, w2t, b2 = weights
+    _launch("stem_uint8", images.device, (images.data_ptr(), mean.data_ptr(), w1k.data_ptr(),
+                                          b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
+                                          out.data_ptr()), b, h, w)
+    fused_stem_uint8.launches += 1
+    return out
+
+
+fused_stem_uint8.launches = 0

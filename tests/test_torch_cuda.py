@@ -3,17 +3,22 @@
 Marked ``cuda``: each test skips without a GPU. Run on a machine with
 one:  ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 
-NMS keep masks must be identical. The stem may differ by one bf16 step
-of its largest output (2^-7 relative): both sum exact bf16 products in
-float32, in different orders.
+NMS keep masks and the lane-unflatten sums must be identical. The stem
+kernels and the stem probe may differ from their plain versions by one
+bf16 step of the largest output (2^-7 relative): both sum exact bf16
+products in float32, in different orders. The fused conv + bias + ReLU
+of ``layers.conv_relu`` must round once: equal to
+``bf16(relu(conv_f32 + b))`` on >= 99 % of elements and within one bf16
+step of the largest output.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from ssd_tensorflow_tpu_torch.models import layers
 from ssd_tensorflow_tpu_torch.models.ssd_vgg import ModelConfig, init_params
-from ssd_tensorflow_tpu_torch.ops import nms_cuda, stem_cuda
+from ssd_tensorflow_tpu_torch.ops import nms_cuda, stem_cuda, stem_probe
 from ssd_tensorflow_tpu_torch.ops.boxes import box_canvas_corners
 from ssd_tensorflow_tpu_torch.ops.nms import class_shifted
 
@@ -74,3 +79,88 @@ def test_stem_kernel_rejects_bad_input(cuda):
         stem_cuda.fused_stem(c1, z, torch.zeros((64, 64, 3, 3), device=cuda), z)
     with pytest.raises(ValueError, match="bf16"):
         stem_cuda.fused_stem(c1.float(), z, torch.zeros((64, 64, 3, 3), device=cuda), z)
+
+
+def _one_step(got, want):
+    scale = float(want.float().abs().max())
+    assert scale > 0
+    assert float((got.float() - want.float()).abs().max()) <= scale * 2.0 ** -7
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 32, 64), (1, 300, 300), (2, 18, 34), (4, 512, 512)])
+def test_uint8_stem_kernel_matches_plain(cuda, b, h, w):
+    params = {k: {n: v.to(cuda) for n, v in p.items()}
+              for k, p in init_params(ModelConfig(preset_name="vgg300"), seed=2).items()
+              if k in ("conv1_1", "conv1_2")}
+    rng = np.random.default_rng(h + w)
+    for name in params:
+        params[name]["b"] = torch.tensor(rng.normal(0, 2, 64), dtype=torch.float32, device=cuda)
+    img = torch.tensor(rng.integers(0, 256, (b, h, w, 3)), dtype=torch.uint8, device=cuda)
+    mean = (104.0, 117.0, 123.0)
+    before = stem_cuda.fused_stem_uint8.launches
+    got = stem_cuda.fused_stem_uint8(params, img, mean)
+    assert stem_cuda.fused_stem_uint8.launches == before + 1
+    want = stem_cuda.fused_stem_uint8_plain(params, img, mean)
+    assert got.shape == want.shape == (b, h // 2, w // 2, 64) and got.dtype == torch.bfloat16
+    _one_step(got, want)
+
+
+def test_uint8_stem_kernel_rejects_bad_input(cuda):
+    params = init_params(ModelConfig(preset_name="vgg300"), seed=0)
+    params = {k: {n: v.to(cuda) for n, v in params[k].items()} for k in ("conv1_1", "conv1_2")}
+    with pytest.raises(ValueError, match="even"):
+        stem_cuda.fused_stem_uint8(params, torch.zeros((1, 6, 7, 3), dtype=torch.uint8,
+                                                       device=cuda), (0.0, 0.0, 0.0))
+    with pytest.raises(ValueError, match="uint8"):
+        stem_cuda.fused_stem_uint8(params, torch.zeros((1, 6, 6, 3), device=cuda), (0.0,) * 3)
+
+
+@pytest.mark.parametrize("variant", list(stem_probe.PROBE_VARIANTS))
+def test_stem_probe_kernel_matches_plain(cuda, variant):
+    a1, w1, w2 = stem_probe.probe_inputs(3, cuda, shape=(2, 3, 48))
+    before = stem_probe.stem_probe.launches
+    got = stem_probe.stem_probe(a1, w1, w2, variant)
+    assert stem_probe.stem_probe.launches == before + 1
+    want = stem_probe.stem_probe_plain(a1, w1, w2, variant)
+    assert got.shape == want.shape == (2, 3, 16, 48, 64)
+    if variant == "copy":
+        assert torch.equal(got, want)
+    else:
+        _one_step(got, want)
+
+
+def test_lane_unflatten_sum_kernel_is_bit_exact(cuda):
+    x = torch.randn((36, 1536), generator=torch.Generator(device=cuda).manual_seed(4),
+                    device=cuda).to(torch.bfloat16)
+    assert torch.equal(stem_probe.lane_unflatten_sum(x), stem_probe.lane_unflatten_sum_plain(x))
+
+
+#: every conv + bias + ReLU shape of vgg512: (H = W, cin, cout, k, stride, padding, dilation)
+VGG512_CONV_RELU = [
+    (256, 64, 128, 3, 1, "SAME", 1), (256, 128, 128, 3, 1, "SAME", 1),
+    (128, 128, 256, 3, 1, "SAME", 1), (128, 256, 256, 3, 1, "SAME", 1),
+    (64, 256, 512, 3, 1, "SAME", 1), (64, 512, 512, 3, 1, "SAME", 1),
+    (32, 512, 512, 3, 1, "SAME", 1), (32, 512, 1024, 3, 1, "SAME", 6),
+    (32, 1024, 1024, 1, 1, "SAME", 1), (32, 1024, 256, 1, 1, "SAME", 1),
+    (32, 256, 512, 3, 2, "SAME", 1), (16, 512, 128, 1, 1, "SAME", 1),
+    (16, 128, 256, 3, 2, "SAME", 1), (8, 256, 128, 1, 1, "SAME", 1),
+    (8, 128, 256, 3, 2, "SAME", 1), (4, 256, 128, 1, 1, "SAME", 1),
+    (4, 128, 256, 3, 1, "VALID", 1), (2, 256, 128, 1, 1, "SAME", 1),
+    (3, 128, 256, 3, 1, "VALID", 1),
+]
+
+
+@pytest.mark.parametrize("hw,cin,cout,k,stride,padding,dilation", VGG512_CONV_RELU)
+def test_conv_relu_rounds_once(cuda, hw, cin, cout, k, stride, padding, dilation):
+    g = torch.Generator(device=cuda).manual_seed(hw * cin + cout)
+    x = (2 * torch.randn((2, hw, hw, cin), generator=g, device=cuda)).to(torch.bfloat16)
+    w = (torch.randn((cout, cin, k, k), generator=g, device=cuda) / (k * k * cin) ** 0.5).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    b = torch.randn(cout, generator=g, device=cuda) * 0.5
+    got = layers.conv_relu({"w": w, "b": b}, x, stride, padding, dilation)
+    xn, pad = layers._same_input(x, w, stride, padding, dilation)
+    want = torch.relu(torch.nn.functional.conv2d(xn.float(), w.float(), None, stride, pad, dilation)
+                      + b.view(1, -1, 1, 1)).to(torch.bfloat16).permute(0, 2, 3, 1)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    _one_step(got, want)
+    assert float((got == want).float().mean()) >= 0.99

@@ -11,11 +11,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "ssd_tensorflow_tpu_torch"
+TOOLS = [ROOT / "tools" / f"torch_{name}.py" for name in ("profile", "stem_probe", "conv_epilogue")]
 _JAX_PACKAGE = re.compile(r"^\s*(from|import)\s+(ssd_tensorflow_tpu|jax)(\.|\s|$)", re.M)
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_profile.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", *TOOLS]
 
 
 def test_port_imports_with_jax_blocked():
@@ -26,7 +27,10 @@ def test_port_imports_with_jax_blocked():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['ssd_tensorflow_tpu'] = None\n"
         + "".join(f"import {m}\n" for m in modules)
-        + "import chip_smoke\n"
+        + "import chip_smoke, importlib.util\n"
+        + "".join(f"s = importlib.util.spec_from_file_location('t{i}', {str(p)!r}); "
+                  "s.loader.exec_module(importlib.util.module_from_spec(s))\n"
+                  for i, p in enumerate(TOOLS))
         + "assert not any(k == 'jax' or k.startswith(('jax.', 'ssd_tensorflow_tpu.'))"
         " for k, v in sys.modules.items() if v is not None)\n"
     )

@@ -1,6 +1,8 @@
 """The port's float detection path as a whole against the JAX package:
 test64, bf16, the JAX model with its Pallas stem and Pallas NMS switched
-on (interpret mode), the port's InferenceModel on the CPU.
+on (interpret mode), the port's InferenceModel on the CPU; once with the
+split stem ("dma") and once with the whole uint8 stem (both sides'
+``overrides`` choose ``pallas_stem_variant="uint8"``).
 
 Pre-NMS scores: conf within 0.02, argmax class equal on >= 99 % of the
 anchors, locs within 0.05 (tests/test_stem_pallas.py's bounds for two
@@ -34,16 +36,19 @@ CFG = dict(preset_name="test64", num_classes=3)
 ASSETS = Path(__file__).resolve().parent.parent / "assets"
 
 
-@pytest.fixture(scope="module", params=[1, 2])
+@pytest.fixture(scope="module", params=[(1, "dma"), (2, "dma"), (1, "uint8"), (2, "uint8")],
+                ids=lambda p: f"seed{p[0]}-{p[1]}")
 def models(request):
-    seed = request.param
+    seed, variant = request.param
     jcfg = jax_ssd.ModelConfig(**CFG)
     jp = jax_ssd.init_params(jax.random.PRNGKey(seed), jcfg)
     jm = jax_inference.InferenceModel(
-        jp, jcfg, overrides={"pallas_stem": True},
+        jp, jcfg, overrides={"pallas_stem": True, "pallas_stem_variant": variant},
         detection=JaxDetectionConfig(top_k=200, confidence_threshold=0.01, use_pallas_nms=True),
     )
-    tm = inference.InferenceModel(params_from_jax(jp), ssd_vgg.ModelConfig(**CFG), device="cpu")
+    tm = inference.InferenceModel(params_from_jax(jp), ssd_vgg.ModelConfig(**CFG),
+                                  overrides={"pallas_stem_variant": variant}, device="cpu")
+    assert tm.config.pallas_stem_variant == jm.config.pallas_stem_variant == variant
     img = np.random.default_rng(seed).integers(0, 255, (2, 64, 64, 3), dtype=np.uint8)
     return jp, jm, tm, img
 
@@ -123,3 +128,39 @@ def test_float_bundle_to_jax(tmp_path):
 def test_int8_bundle_names_its_slice():
     with pytest.raises(NotImplementedError, match="int8"):
         inference.load_bundle(str(ASSETS / "vgg512_int8_minivoc.ssdtpu.npz"))
+
+
+def test_overrides_reject_a_bad_variant():
+    with pytest.raises(ValueError, match="pallas_stem_variant"):
+        ssd_vgg.ModelConfig(**CFG, pallas_stem_variant="bogus")
+    cfg = ssd_vgg.ModelConfig(**CFG)
+    with pytest.raises(ValueError, match="pallas_stem_variant"):
+        inference.InferenceModel(ssd_vgg.init_params(cfg), cfg,
+                                 overrides={"pallas_stem_variant": "bogus"}, device="cpu")
+    with pytest.raises(ValueError, match="bfloat16"):
+        ssd_vgg.ModelConfig(**CFG, compute_dtype="float32", pallas_stem_variant="uint8")
+
+
+def test_overrides_pallas_stem_true_is_a_no_op_and_false_raises():
+    cfg = ssd_vgg.ModelConfig(**CFG)
+    params = ssd_vgg.init_params(cfg)
+    m = inference.InferenceModel(params, cfg, overrides={"pallas_stem": True}, device="cpu")
+    assert m.config == cfg
+    with pytest.raises(ValueError, match="always runs a stem kernel"):
+        inference.InferenceModel(params, cfg, overrides={"pallas_stem": False}, device="cpu")
+
+
+def test_overrides_dropped_on_a_float32_bundle(capsys):
+    cfg = ssd_vgg.ModelConfig(**CFG, compute_dtype="float32")
+    m = inference.InferenceModel(ssd_vgg.init_params(cfg), cfg, device="cpu",
+                                 overrides={"pallas_stem": True, "pallas_stem_variant": "uint8"})
+    assert m.config == cfg
+    assert "pallas_stem override ignored: this float32 bundle" in capsys.readouterr().out
+
+
+def test_stem_variant_is_not_serialized():
+    cfg = ssd_vgg.ModelConfig(**CFG, pallas_stem_variant="uint8")
+    d = inference.model_config_to_dict(cfg)
+    assert "pallas_stem_variant" not in d
+    assert d == jax_inference.model_config_to_dict(jax_ssd.ModelConfig(**CFG))
+    assert inference.model_config_from_dict(d).pallas_stem_variant == "dma"

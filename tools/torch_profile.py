@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Where the time goes on the port's float detection path, on one GPU.
 
-    python3 tools/torch_profile.py [--seed 0] [--batch 64] [--out runs/torch_profile.json]
+    python3 tools/torch_profile.py [--seed 0] [--batch 64] [--stem-variant dma|uint8]
+                                   [--out runs/torch_profile.json]
 
-vgg512 bf16 with weights made from the seed, random uint8 images. Prints
-one JSON object (and writes it to ``--out``):
+vgg512 bf16 with weights made from the seed, random uint8 images, the
+stem kernel chosen as ``InferenceModel(overrides={"pallas_stem_variant":
+...})`` does. Prints one JSON object (and writes it to ``--out``):
 
 * ``stages``: each layer of the path timed alone with CUDA events on the
-  inputs the path gives it (preprocess + conv1_1, the stem kernel, the
-  rest of the VGG trunk, L2-norm + extras, heads + lazy softmax, top-k +
-  decode + clamp, class shift + the NMS kernel, compaction), in ms per batch;
+  inputs the path gives it (preprocess + conv1_1 and the split stem
+  kernel, or the whole uint8 stem kernel; the rest of the VGG trunk,
+  L2-norm + extras, heads + lazy softmax, top-k + decode + clamp, class
+  shift + the NMS kernel, compaction), in ms per batch;
 * ``run_scores_ms``: the whole ``InferenceModel.run_scores`` per batch;
 * ``profile``: a ``torch.profiler`` window over a few chained batches:
   device busy time per batch, the idle share of the window, and the
@@ -44,10 +47,14 @@ def _stages(model, images):
         out[name] = cuda_event_ms(fn)
         return fn()
 
-    c1 = timed("preprocess_conv1_1",
-               lambda: vgg16.conv1_1_unbiased(p, ssd_vgg.preprocess(images, cfg)))
-    pool1 = timed("stem_kernel", lambda: stem_cuda.fused_stem(
-        c1, p["conv1_1"]["b"], p["conv1_2"]["w"], p["conv1_2"]["b"]))
+    if cfg.pallas_stem_variant == "uint8":
+        pool1 = timed("uint8_stem_kernel",
+                      lambda: vgg16.conv1_block_uint8(p, images, cfg.mean_bgr))
+    else:
+        c1 = timed("preprocess_conv1_1",
+                   lambda: stem_cuda.conv1_1_unbiased(p, ssd_vgg.preprocess(images, cfg)))
+        pool1 = timed("stem_kernel", lambda: stem_cuda.fused_stem(
+            c1, p["conv1_1"]["b"], p["conv1_2"]["w"], p["conv1_2"]["b"]))
     conv4_3, x7 = timed("trunk_conv2_to_conv7",
                         lambda: vgg16.apply_backbone(p, pool1, cfg.a_trous, from_pool1=True))
     maps = timed("l2norm_extras", lambda: ssd_vgg._extra_maps(p, conv4_3, x7, cfg))
@@ -82,7 +89,7 @@ def _profile(model, images, iters=3):
         "device_busy_ms_per_batch": busy,
         "idle_share": max(0.0, 1.0 - busy * iters / wall_ms),
         "top_kernels": [{"name": n[:120], "ms_per_batch": t, "launches_per_batch": c}
-                        for n, t, c in kernels[:15]],
+                        for n, t, c in kernels[:25]],
         "kernel_launches_per_batch": sum(k[2] for k in kernels),
     }
 
@@ -91,6 +98,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--stem-variant", choices=("dma", "uint8"), default="dma")
     ap.add_argument("--out", default="runs/torch_profile.json")
     args = ap.parse_args(argv)
 
@@ -105,7 +113,8 @@ def main(argv=None) -> int:
     from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
 
     cfg = ssd_vgg.ModelConfig(preset_name="vgg512", num_classes=20, compute_dtype="bfloat16")
-    model = InferenceModel(ssd_vgg.init_params(cfg, seed=args.seed), cfg)
+    model = InferenceModel(ssd_vgg.init_params(cfg, seed=args.seed), cfg,
+                           overrides={"pallas_stem_variant": args.stem_variant})
     size = cfg.preset.image_size
     rng = np.random.default_rng(args.seed)
     images = torch.from_numpy(
@@ -118,7 +127,7 @@ def main(argv=None) -> int:
         prof = _profile(model, images)
     result = {
         "card": smi.splitlines()[0], "torch": torch.__version__, "preset": cfg.preset_name,
-        "dtype": cfg.compute_dtype, "batch": args.batch, "stages_ms": stages,
+        "dtype": cfg.compute_dtype, "stem_variant": args.stem_variant, "batch": args.batch, "stages_ms": stages,
         "stages_sum_ms": sum(stages.values()), "run_scores_ms": run_ms,
         "images_per_s": args.batch / run_ms * 1e3, "profile": prof,
     }
