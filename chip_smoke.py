@@ -11,14 +11,19 @@ non-zero, and the final line is printed only when every phase passed:
 1. device: the card's name and power limit (``nvidia-smi``), then the
    build of every kernel from ``ssd_tensorflow_tpu_torch/csrc/``.
 2. conv_epilogue: every conv + bias + ReLU call of the vgg512 forward
-   (trunk, the dilated mod_conv6, the extras), recorded from one run at
-   batch 2 and replayed with nonzero float32 biases: the fused route
-   (``layers.conv_relu``, cuDNN's conv + bias + ReLU) against the
-   one-rounding reference ``bf16(relu(conv_f32 + b))`` (TF32 off). It
-   must be equal on >= 99 % of elements and within one bf16 step of the
-   largest output. As a control, the unfused route's share (bf16 conv +
-   bf16 bias pass + ReLU) on the same inputs; the multibox heads, which
-   have no ReLU and keep that route, are listed with their share.
+   (trunk, the dilated mod_conv6, the extras) and its seven multibox
+   head convs, recorded from one run at batch 2 and replayed with nonzero
+   float32 biases, against the one-rounding reference
+   ``bf16(act(conv_f32 + b))`` (TF32 off): the fused route
+   (``layers.conv_relu``, cuDNN's conv + bias + ReLU) must be equal on
+   >= 99 % of elements and the heads' route (``layers.conv2d_bias_in``,
+   the bias carried in as input channels) on >= 99.9 % where K = 9 * cin
+   is at most 2304; on the 512- and 1024-channel heads, where cuDNN's
+   own float32 accumulation over K = 4608 / 9216 already leaves the
+   bias-free conv short of that, on >= 99.5 % and no more than 0.1 %
+   below that bias-free share (``conv_only_equal``). All within one bf16
+   step of the largest output. As a control, the share of the route they
+   replaced (bf16 conv + bf16 bias pass (+ ReLU)) on the same inputs.
 3. kernels: each kernel against its plain PyTorch version on the card at
    its path's shapes (vgg512 batch 64; the stem probe at its TPU shape):
    NMS keep masks and the lane-unflatten sums bit-exact, every stem
@@ -131,8 +136,9 @@ def _nms_inputs(rng, b: int, d: int, num_classes: int, device):
 
 def conv_calls(model, images):
     """Every distinct conv + bias + ReLU (``layers.conv_relu``) and head conv
-    (``layers.conv2d``) call of ``model``'s forward on ``images``, recorded:
-    ``[{"kind", "x", "w", "stride", "padding", "dilation"}]``."""
+    (``layers.conv2d_bias_in``) call of ``model``'s forward on ``images``,
+    recorded: ``[{"kind", "x", "w", "stride", "padding", "dilation"}]``
+    (a head's ``w`` is its filter without the bias channels)."""
     import torch
 
     from ssd_tensorflow_tpu_torch.models import layers, ssd_vgg, vgg16
@@ -150,16 +156,23 @@ def conv_calls(model, images):
     with torch.inference_mode(), \
             mock.patch.object(vgg16, "conv_relu", record(layers.conv_relu)), \
             mock.patch.object(ssd_vgg, "conv_relu", record(layers.conv_relu)), \
-            mock.patch.object(ssd_vgg, "conv2d", record(layers.conv2d)):
+            mock.patch.object(ssd_vgg, "conv2d_bias_in", record(layers.conv2d_bias_in)):
         ssd_vgg.apply_scores(model.params, images, model.config)
     out, seen = [], set()
     for kind, a in calls:
-        w = a["params"]["w"] if kind == "conv_relu" else a["w"]
-        key = (kind, tuple(a["x"].shape), tuple(w.shape), a["stride"], a["padding"], a["dilation"])
+        if kind == "conv_relu":
+            call = {"kind": kind, "x": a["x"], "w": a["params"]["w"], "stride": a["stride"],
+                    "padding": a["padding"], "dilation": a["dilation"]}
+        else:
+            call = {"kind": "head", "x": a["x"],
+                    "w": a["wb"][:, :-layers.BIAS_CHANNELS].contiguous(
+                        memory_format=torch.channels_last),
+                    "stride": 1, "padding": "SAME", "dilation": a["dilation"]}
+        key = (call["kind"], tuple(call["x"].shape), tuple(call["w"].shape), call["stride"],
+               call["padding"], call["dilation"])
         if key not in seen:
             seen.add(key)
-            out.append({"kind": kind, "x": a["x"], "w": w, "stride": a["stride"],
-                        "padding": a["padding"], "dilation": a["dilation"]})
+            out.append(call)
     return out
 
 
@@ -192,8 +205,9 @@ def unfused(call, bias):
 
 
 def conv_epilogue(model, images, seed: int):
-    """Phase 2: the fused conv + bias + ReLU route against the one-rounding
-    reference, on every such call of the forward (see the module doc)."""
+    """Phase 2: the model's conv + bias (+ ReLU) routes against the
+    one-rounding reference, on every such call of the forward (see the
+    module doc)."""
     import torch
 
     from ssd_tensorflow_tpu_torch.models import layers
@@ -210,22 +224,41 @@ def conv_epilogue(model, images, seed: int):
                    "unfused_equal": float((plain == ref).float().mean()),
                    "unfused_max_abs_err": _err(plain, ref)[0]}
             if call["kind"] == "conv_relu":
+                route, floor = "fused", 0.99
                 got = layers.conv_relu({"w": call["w"], "b": bias}, call["x"], call["stride"],
                                        call["padding"], call["dilation"])
-                err, scale = _err(got, ref)
-                row.update(route="fused", fused_equal=float((got == ref).float().mean()),
-                           max_abs_err=err, max_ref=scale)
-                if not (row["fused_equal"] >= 0.99 and err <= scale * 2.0 ** -7):
-                    raise AssertionError(f"fused conv + bias + ReLU is not one rounding: {row}")
             else:
-                row.update(route="unfused: a multibox head conv, no ReLU to fuse")
+                # the library conv's own share, without any bias: what its
+                # float32 accumulation on the tensor cores leaves of 100 %
+                row["conv_only_equal"] = float(
+                    (unfused(call, None) == one_rounding_reference(call, torch.zeros_like(bias)))
+                    .float().mean())
+                route = "bias_in"
+                # (a map of a few hundred outputs may miss 99.9 % by two of them)
+                floor = min(0.999, 1.0 - 2.0 / ref.numel()) if call["w"].shape[1] <= 256 else \
+                    max(0.995, row["conv_only_equal"] - 0.001)
+                got = layers.conv2d_bias_in(call["x"], layers.widen_bias(call["w"], bias),
+                                            call["dilation"])
+            err, scale = _err(got, ref)
+            row.update(route=route, equal=float((got == ref).float().mean()), floor=floor,
+                       max_abs_err=err, max_ref=scale)
+            if not (row["equal"] >= floor and err <= scale * 2.0 ** -7):
+                raise AssertionError(f"{route} conv + bias is not one rounding: {row}")
             out.append(row)
     fused = [r for r in out if r["route"] == "fused"]
+    heads = [r for r in out if r["route"] == "bias_in"]
+    if len(heads) != len(model.config.preset.maps):
+        raise AssertionError(f"expected one head conv per map, recorded {len(heads)}")
     _emit({"phase": "conv_epilogue", "batch": 2, "layers": out,
-           "fused_layers": len(fused),
-           "fused_equal_min": min(r["fused_equal"] for r in fused),
+           "fused_layers": len(fused), "head_layers": len(heads),
+           "fused_equal_min": min(r["equal"] for r in fused),
+           "heads_equal_min": min(r["equal"] for r in heads),
+           "heads_equal": [r["equal"] for r in heads],
+           "heads_conv_only_equal": [r["conv_only_equal"] for r in heads],
+           "heads_max_abs_err": max(r["max_abs_err"] for r in heads),
            "unfused_equal_of_fused_layers_max": max(r["unfused_equal"] for r in fused),
-           "left_unfused": [r["shape"] for r in out if r["route"] != "fused"]})
+           "unfused_equal_of_heads": [min(r["unfused_equal"] for r in heads),
+                                      max(r["unfused_equal"] for r in heads)]})
 
 
 def check_nms(rng, batch: int, device):
@@ -546,7 +579,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.libraries()
     ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln or "Performance Loss" in ln]
              for name in _build.SOURCES}
     _emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": ptxas,
            "torch": torch.__version__, "cuda": torch.version.cuda,

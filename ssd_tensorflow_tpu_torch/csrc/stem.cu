@@ -16,15 +16,19 @@
 // peak against ~0.8 ms at the memory rate. conv1_2's 2.1 GB activation
 // never touches device memory, as on the TPU.
 //
-// Design: a persistent grid, one 256-thread block per SM. Each block
-// holds conv1_2's 3x3x64x64 weights in shared memory for its whole life
-// (81 KB) and walks output tiles of 16 conv rows x 32 conv columns
-// (8 x 16 pooled pixels). Per tile it stages the 18 x 34 pixel halo of
-// y1 in shared memory (86 KB, bias, ReLU, bf16 rounding and the zero
-// border applied while staging), then runs conv1_2 + pool1 as the
-// mma.sync implicit GEMM of stem_common.cuh, which csrc/stem_uint8.cu
-// shares. This first version neither pipelines the halo loads against
-// the MMAs nor uses wgmma/TMA; those are the next steps toward the bound.
+// Design: the warp-specialised persistent kernel of stem_common.cuh,
+// which csrc/stem_uint8.cu shares: consumer warpgroups run conv1_2 on
+// wgmma over two halo buffers and pool in registers; this file is the
+// producer half. Its 256 producer threads stage a tile's 10 x 34
+// pixel halo of y1: each thread owns one 16-byte channel chunk (so its 8
+// values of b1 live in registers) of every 32nd halo pixel, starts all
+// its 11 global loads before it touches the first result, so that a
+// block keeps ~43 KB of loads in flight under the consumers' MMAs, then
+// applies b1, ReLU, the rounding and the zero border in registers and
+// stores 16 bytes to the padded halo. A TMA box load would land the raw
+// c1 tile and need a second pass over it in shared memory for the bias,
+// ReLU and border, on a shared-memory pipe the wgmma feeds already keep
+// half busy; loads into registers need no such pass.
 
 #include "stem_common.cuh"
 
@@ -32,52 +36,73 @@ namespace {
 
 using namespace stem;
 
-constexpr size_t kSmemBytes =
-    (kHaloElems + kWeightElems) * sizeof(__nv_bfloat16) + 2 * kC * sizeof(float);
+constexpr size_t kSmemBytes = kCommonBytes;
+constexpr int kChunksPerThread = (kHaloPix * 8 + kProducers - 1) / kProducers;  // 11
+
+__device__ __forceinline__ void produce_tiles(unsigned char* smem,
+                                              const __nv_bfloat16* __restrict__ c1, int batch,
+                                              int h, int w) {
+  const int pt = threadIdx.x - kConsumers;
+  const int v = pt & 7, pix0 = pt >> 3;
+  float b1v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) b1v[k] = reinterpret_cast<const float*>(smem + kOffB1)[v * 8 + k];
+  const int tiles = tile_count(batch, h, w);
+
+  for (Walk wk; wk.tile < tiles; wk.next()) {
+    const Tile tl = tile_at(wk.tile, h, w);
+    const __nv_bfloat16* img = c1 + static_cast<size_t>(tl.b) * h * w * kC;
+
+    uint4 raw[kChunksPerThread];
+    uint32_t inside = 0;
+#pragma unroll
+    for (int k = 0; k < kChunksPerThread; ++k) {
+      const int pix = pix0 + 32 * k;
+      const int r = pix / kHaloC, cc = pix - r * kHaloC;
+      const int gy = tl.y0 - 1 + r, gx = tl.x0 - 1 + cc;
+      raw[k] = make_uint4(0u, 0u, 0u, 0u);
+      if (pix < kHaloPix && gy >= 0 && gy < h && gx >= 0 && gx < w) {
+        inside |= 1u << k;
+        raw[k] = __ldg(reinterpret_cast<const uint4*>(img + (static_cast<size_t>(gy) * w + gx) * kC) + v);
+      }
+    }
+
+    producer_acquire(smem, wk);
+    unsigned char* halo = smem + kOffHalo + wk.stage * kHaloBytes;
+#pragma unroll
+    for (int k = 0; k < kChunksPerThread; ++k) {
+      const int pix = pix0 + 32 * k;
+      if (pix >= kHaloPix) break;
+      uint4 packed = make_uint4(0u, 0u, 0u, 0u);
+      if (inside & (1u << k)) {
+        const __nv_bfloat162* src = reinterpret_cast<const __nv_bfloat162*>(&raw[k]);
+        __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float2 f = __bfloat1622float2(src[q]);
+          dst[q] = __floats2bfloat162_rn(fmaxf(f.x + b1v[2 * q], 0.0f),
+                                         fmaxf(f.y + b1v[2 * q + 1], 0.0f));
+        }
+      }
+      *reinterpret_cast<uint4*>(halo + (pix * kPix + v * 8) * 2) = packed;
+    }
+    producer_release(smem, wk);
+  }
+}
 
 __global__ void __launch_bounds__(kThreads, 1)
 stem_kernel(const __nv_bfloat16* __restrict__ c1, const float* __restrict__ b1,
             const __nv_bfloat16* __restrict__ w2t, const float* __restrict__ b2,
             __nv_bfloat16* __restrict__ out, int batch, int h, int w) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* halo = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* wts = halo + kHaloElems;
-  float* sb1 = reinterpret_cast<float*>(wts + kWeightElems);
-  float* sb2 = sb1 + kC;
-
-  const int tid = threadIdx.x;
-  load_conv1_2(wts, sb2, w2t, b2);
-  if (tid < kC) sb1[tid] = b1[tid];
-
-  const int tiles = tile_count(batch, h, w);
-  const int ho = h / 2, wo = w / 2;
-
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const Tile tl = tile_at(tile, h, w);
-
-    __syncthreads();  // previous tile's MMAs are done with the halo
-    for (int i = tid; i < kHaloR * kHaloC * 8; i += kThreads) {
-      const int pix = i >> 3, v = i & 7;
-      const int r = pix / kHaloC, cc = pix - r * kHaloC;
-      const int gy = tl.y0 - 1 + r, gx = tl.x0 - 1 + cc;
-      uint4 packed = make_uint4(0u, 0u, 0u, 0u);
-      if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
-        const uint4 raw = reinterpret_cast<const uint4*>(
-            c1 + ((static_cast<size_t>(tl.b) * h + gy) * w + gx) * kC)[v];
-        const __nv_bfloat162* src = reinterpret_cast<const __nv_bfloat162*>(&raw);
-        __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(&packed);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float2 f = __bfloat1622float2(src[k]);
-          const int ch = v * 8 + 2 * k;
-          dst[k] = __floats2bfloat162_rn(fmaxf(f.x + sb1[ch], 0.0f),
-                                         fmaxf(f.y + sb1[ch + 1], 0.0f));
-        }
-      }
-      reinterpret_cast<uint4*>(halo + pix * kPix)[v] = packed;
-    }
-    __syncthreads();
-    conv1_2_pool_store(halo, wts, sb2, out, tl, ho, wo);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  block_setup(smem, w2t, b1, b2);
+  if (threadIdx.x < kConsumers) {
+    consumer_registers();
+    consume_tiles(smem, out, batch, h, w);
+  } else {
+    producer_registers();
+    produce_tiles(smem, c1, batch, h, w);
   }
 }
 

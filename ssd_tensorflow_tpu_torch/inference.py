@@ -16,7 +16,12 @@ import numpy as np
 import torch
 
 from ssd_tensorflow_tpu_torch import resolve_device
-from ssd_tensorflow_tpu_torch.models.ssd_vgg import ModelConfig, apply_scores, param_shapes
+from ssd_tensorflow_tpu_torch.models.ssd_vgg import (
+    ModelConfig,
+    apply_scores,
+    param_shapes,
+    stage_head_weights,
+)
 from ssd_tensorflow_tpu_torch.ops.anchors import anchors_for_preset
 from ssd_tensorflow_tpu_torch.ops.postprocess import (
     DetectionConfig,
@@ -152,10 +157,10 @@ class InferenceModel:
         self.preset = model_cfg.preset
         self.lid2name = lid2name or {}
         self.detection = detection or DetectionConfig(top_k=200, confidence_threshold=0.01)
-        self.params = {
+        self.params = stage_head_weights({
             name: {key: self._stage(v) for key, v in leaves.items()}
             for name, leaves in params.items()
-        }
+        })
         self.anchors = torch.from_numpy(anchors_for_preset(self.preset)).to(self.device)
 
     def _stage(self, value):

@@ -48,11 +48,13 @@ def conv2d(x, w, b=None, stride=1, padding="SAME", dilation=1):
 
     Computes in ``x.dtype``. A bf16 convolution accumulates in float32
     and rounds its output to bf16, as the JAX package's
-    ``conv2d(..., f32_out=True)`` does. The bias goes to ``F.conv2d`` in
-    bf16: the CPU adds it inside its float32 accumulation (one rounding,
-    as in JAX); cuDNN adds it to the rounded output in a bf16 pass, so on
-    the card the output may round twice. Only the multibox heads, which
-    have no ReLU, still take this route on the card (ROADMAP.md faults).
+    ``conv2d(..., f32_out=True)`` does. A bias given here goes to
+    ``F.conv2d`` in ``x.dtype``, and where it joins is the library's
+    choice (inside the float32 accumulation on the CPU, in a separate
+    bf16 pass in cuDNN). No bf16 layer of the model takes that route on
+    the card: conv + bias + ReLU goes through :func:`conv_relu` and the
+    multibox heads through :func:`conv2d_bias_in`, both of which add the
+    float32 bias before the one rounding.
     """
     w = w.to(x.dtype)
     if b is not None:
@@ -60,6 +62,64 @@ def conv2d(x, w, b=None, stride=1, padding="SAME", dilation=1):
     xn, pad = _same_input(x, w, stride, padding, dilation)
     y = F.conv2d(xn, w, b, stride=stride, padding=pad, dilation=dilation)
     return y.permute(0, 2, 3, 1)
+
+
+#: input channels that carry the bias into a convolution: three of ones
+#: (one per term of the split bias), five of zeros for alignment
+BIAS_CHANNELS = 8
+
+
+def split_terms(x, dtype, terms: int = 3):
+    """float32 ``x`` as ``terms`` tensors of ``dtype`` whose float32 sum,
+    taken in order, is ``x`` again: each term rounds what the earlier ones
+    left. Three bf16 terms of 8 significant bits cover float32's 24; in
+    float32 the first term is ``x`` and the rest are zero."""
+    parts, rest = [], x.float()
+    for _ in range(terms):
+        part = rest.to(dtype)
+        parts.append(part)
+        rest = rest - part.float()
+    return parts
+
+
+def widen_bias(w, b):
+    """OIHW filter ``w`` (compute dtype) and float32 bias ``b`` -> the
+    filter of :func:`conv2d_bias_in`, ``(cout, cin + 8, kh, kw)`` in
+    ``w.dtype``, channels-last contiguous.
+
+    The bias sits at the centre tap of the first three added input
+    channels as :func:`split_terms` of ``b``: ``b_hi = w.dtype(b)``, then
+    what is left of it twice over, so in bf16 the first two terms are
+    within 2^-16 relative of ``b`` and the three add up to it exactly; the
+    other five channels are zero. ``kh`` and ``kw`` must be odd.
+    """
+    cout, _, kh, kw = w.shape
+    if kh % 2 == 0 or kw % 2 == 0:
+        raise ValueError(f"widen_bias: the kernel must have a centre tap, got {kh}x{kw}")
+    b = b.to(device=w.device, dtype=torch.float32)
+    extra = w.new_zeros((cout, BIAS_CHANNELS, kh, kw))
+    extra[:, :3, kh // 2, kw // 2] = torch.stack(split_terms(b, w.dtype), dim=1)
+    return torch.cat([w, extra], dim=1).contiguous(memory_format=torch.channels_last)
+
+
+def conv2d_bias_in(x, wb, dilation=1):
+    """Stride-1 SAME convolution + bias of NHWC ``x``, rounded once, with
+    the bias carried in as input channels: ``wb = widen_bias(w, b)``.
+
+    ``x`` gets 8 more channels, three of ones and five of zeros, so the
+    bias's terms enter the convolution's float32 accumulator with the
+    products, each times 1, and the output rounds once: the JAX package's
+    ``conv2d(x, w, b, f32_out=True)``. The centre tap never reads SAME
+    padding, so borders get the same bias. One code path on every device;
+    it costs one copy of ``x`` and saves the separate bias pass (which on
+    the card rounded a second time).
+    """
+    if wb.shape[1] != x.shape[-1] + BIAS_CHANNELS:
+        raise ValueError(f"conv2d_bias_in: filter of {wb.shape[1]} input channels for a map "
+                         f"of {x.shape[-1]}; expected widen_bias(w, b)")
+    carrier = x.new_zeros((*x.shape[:-1], BIAS_CHANNELS))
+    carrier[..., :3] = 1
+    return conv2d(torch.cat([x, carrier], dim=-1), wb, None, 1, "SAME", dilation)
 
 
 def conv_relu(params, x, stride=1, padding="SAME", dilation=1):

@@ -27,7 +27,13 @@ import torch
 import torch.nn.functional as F
 
 from ssd_tensorflow_tpu_torch.models import vgg16
-from ssd_tensorflow_tpu_torch.models.layers import conv2d, conv_relu, init_conv, l2_normalize_scale
+from ssd_tensorflow_tpu_torch.models.layers import (
+    conv2d_bias_in,
+    conv_relu,
+    init_conv,
+    l2_normalize_scale,
+    widen_bias,
+)
 from ssd_tensorflow_tpu_torch.presets import SSDPreset, get_preset_by_name
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -211,12 +217,26 @@ def _feature_maps(params, images, config: ModelConfig):
     return _extra_maps(params, *_backbone(params, images, config), config)
 
 
+def stage_head_weights(params):
+    """Add to every ``classifier<i>`` entry of ``params`` (in place) its
+    filter with the bias folded in, ``"wb" = widen_bias(w, b)``, so that a
+    forward does not rebuild it per call. ``w`` must already be in the
+    compute dtype."""
+    for name, hp in params.items():
+        if name.startswith("classifier"):
+            hp["wb"] = widen_bias(hp["w"], hp["b"])
+    return params
+
+
 def _head_maps(params, maps, config: ModelConfig):
-    """Each map's multibox head conv: ``(B, h, w, ns * (K+5))`` NHWC."""
+    """Each map's multibox head conv: ``(B, h, w, ns * (K+5))`` NHWC,
+    ``dtype(conv_f32 + b_f32)`` rounded once (``layers.conv2d_bias_in``).
+    Uses the staged ``"wb"`` filter where ``stage_head_weights`` put one."""
     out = []
     for i, (fmap, m) in enumerate(zip(maps, config.preset.maps)):
         hp = params[f"classifier{i}"]
-        y = conv2d(fmap, hp["w"], hp["b"])
+        wb = hp["wb"] if "wb" in hp else widen_bias(hp["w"].to(fmap.dtype), hp["b"])
+        y = conv2d_bias_in(fmap, wb)
         if y.shape[1:3] != (m.size.h, m.size.w):
             raise AssertionError(f"map {i}: got {tuple(y.shape[1:3])}, preset says "
                                  f"{m.size.h}x{m.size.w}")

@@ -32,7 +32,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ssd_tensorflow_tpu_torch.models.layers import conv2d
+from ssd_tensorflow_tpu_torch.models.layers import conv2d, split_terms
 from ssd_tensorflow_tpu_torch.ops import _build
 
 _C = 64
@@ -82,10 +82,25 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+#: conv rows x conv columns of one output tile of the stem kernels
+TILE_ROWS, TILE_COLS = 8, 32
+
+
+def stem_tiles(b: int, h: int, w: int):
+    """The stem kernels' walk over a ``(b, h, w)`` conv1_2 output, as
+    ``csrc/stem_common.cuh`` (``tile_at``) computes it: tile ``i`` is
+    ``(image, first conv row, first conv column)``, images outermost, then
+    tile rows, then tile columns; ragged edges are whole tiles whose
+    out-of-image part the kernels mask."""
+    tiles_y, tiles_x = -(-h // TILE_ROWS), -(-w // TILE_COLS)
+    return [(i // (tiles_y * tiles_x), (i % (tiles_y * tiles_x)) // tiles_x * TILE_ROWS,
+             (i % tiles_x) * TILE_COLS) for i in range(b * tiles_y * tiles_x)]
+
+
 def _launch(name, device, pointers, b, h, w):
     """Launch ``csrc/<name>.cu`` on the current stream with one persistent
-    block per SM (at most one per 16 x 32 conv-pixel tile)."""
-    tiles = b * -(-h // 16) * -(-w // 32)
+    block per SM (at most one per 8 x 32 conv-pixel tile)."""
+    tiles = b * -(-h // TILE_ROWS) * -(-w // TILE_COLS)
     index = device.index if device.index is not None else torch.cuda.current_device()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -179,13 +194,24 @@ def fused_stem_uint8_plain(params, images, mean_bgr):
 
 
 def uint8_stem_weights(params):
-    """``(w1k, b1, w2t, b2)`` in ``csrc/stem_uint8.cu``'s layouts: w1k
-    ``(64, 32)`` bf16 [cout][(dy*3 + dx)*3 + c] zero-padded from K = 27,
-    w2t ``(9, 64, 64)`` bf16 [dy*3 + dx][cout][cin], float32 biases."""
+    """``(w1k, b1, w2t, b2)`` in ``csrc/stem_uint8.cu``'s layouts.
+
+    w1k ``(64, 48)`` bf16 is conv1_1's B operand, ``[cout][dy*16 + dx*4 +
+    c]``: one 16-wide K step per filter row, a filter row being 4 pixels of
+    4 channels in the kernel's image strip. conv1_1's weights sit at
+    ``dx < 3, c < 3``; the strip's fourth channel is 1.0, and b1 rides on
+    it as three bf16 terms (``layers.split_terms``) at ``dx = 0, c = 3`` of the
+    three rows (k = 3, 19, 35), so the float32 accumulator receives b1
+    exactly; every other slot is zero. w2t ``(9, 64, 64)`` bf16 is
+    ``[dy*3 + dx][cout][cin]``; the biases are float32.
+    """
     p1, p2 = params["conv1_1"], params["conv1_2"]
-    w1k = F.pad(p1["w"].to(torch.bfloat16).permute(0, 2, 3, 1).reshape(_C, 27), (0, 5))
+    b1 = p1["b"].float().contiguous()
+    w1k = torch.zeros((_C, 3, 4, 4), dtype=torch.bfloat16, device=p1["w"].device)
+    w1k[:, :, :3, :3] = p1["w"].to(torch.bfloat16).permute(0, 2, 3, 1)  # OIHW -> O, dy, dx, c
+    w1k[:, :, 0, 3] = torch.stack(split_terms(b1, torch.bfloat16), dim=1)
     w2t = p2["w"].to(torch.bfloat16).permute(2, 3, 0, 1).reshape(9, _C, _C).contiguous()
-    return w1k.contiguous(), p1["b"].float().contiguous(), w2t, p2["b"].float().contiguous()
+    return w1k.reshape(_C, 48), b1, w2t, p2["b"].float().contiguous()
 
 
 def fused_stem_uint8(params, images, mean_bgr, nine_taps: bool = False):
@@ -221,7 +247,7 @@ def fused_stem_uint8(params, images, mean_bgr, nine_taps: bool = False):
     _check_device("fused_stem_uint8", images, *weights)
     if not images.is_contiguous():
         raise ValueError("fused_stem_uint8: images must be contiguous NHWC")
-    if weights[0].shape != (_C, 32) or weights[2].shape != (9, _C, _C):
+    if weights[0].shape != (_C, 48) or weights[2].shape != (9, _C, _C):
         raise ValueError("fused_stem_uint8: expected conv1_1 (64, 3, 3, 3), conv1_2 (64, 64, 3, 3)")
     out = torch.empty((b, h // 2, w // 2, _C), dtype=torch.bfloat16, device=images.device)
     if out.numel() == 0:

@@ -9,7 +9,8 @@ bf16 step of the largest output (2^-7 relative): both sum exact bf16
 products in float32, in different orders. The fused conv + bias + ReLU
 of ``layers.conv_relu`` must round once: equal to
 ``bf16(relu(conv_f32 + b))`` on >= 99 % of elements and within one bf16
-step of the largest output.
+step of the largest output; the heads' ``layers.conv2d_bias_in`` likewise
+on >= 99.9 %.
 """
 
 import numpy as np
@@ -57,7 +58,13 @@ def test_nms_kernel_rejects_too_many_candidates(cuda):
         nms_cuda.nms_keep(corners, valid)
 
 
-@pytest.mark.parametrize("b,h,w", [(2, 32, 64), (1, 300, 300), (2, 18, 34), (4, 512, 512)])
+#: the original shapes, then a batch that does not divide the grid, exactly
+#: one tile, shapes narrower and shorter than one tile, and more tiles than SMs
+STEM_SHAPES = [(2, 32, 64), (1, 300, 300), (2, 18, 34), (4, 512, 512), (3, 96, 160), (1, 8, 32),
+               (1, 8, 10), (2, 2, 2), (5, 40, 30)]
+
+
+@pytest.mark.parametrize("b,h,w", STEM_SHAPES)
 def test_stem_kernel_matches_plain(cuda, b, h, w):
     params = init_params(ModelConfig(preset_name="vgg300"), seed=1)
     rng = np.random.default_rng(h)
@@ -87,7 +94,7 @@ def _one_step(got, want):
     assert float((got.float() - want.float()).abs().max()) <= scale * 2.0 ** -7
 
 
-@pytest.mark.parametrize("b,h,w", [(2, 32, 64), (1, 300, 300), (2, 18, 34), (4, 512, 512)])
+@pytest.mark.parametrize("b,h,w", STEM_SHAPES)
 def test_uint8_stem_kernel_matches_plain(cuda, b, h, w):
     params = {k: {n: v.to(cuda) for n, v in p.items()}
               for k, p in init_params(ModelConfig(preset_name="vgg300"), seed=2).items()
@@ -133,6 +140,38 @@ def test_lane_unflatten_sum_kernel_is_bit_exact(cuda):
     x = torch.randn((36, 1536), generator=torch.Generator(device=cuda).manual_seed(4),
                     device=cuda).to(torch.bfloat16)
     assert torch.equal(stem_probe.lane_unflatten_sum(x), stem_probe.lane_unflatten_sum_plain(x))
+
+
+#: the seven multibox head convs of vgg512, 21 classes: (H = W, cin, anchor shapes)
+VGG512_HEADS = [(64, 512, 4), (32, 1024, 6), (16, 512, 6), (8, 256, 6), (4, 256, 6), (2, 256, 4),
+                (1, 256, 4)]
+
+
+@pytest.mark.parametrize("hw,cin,shapes", VGG512_HEADS)
+def test_head_conv_rounds_once(cuda, hw, cin, shapes):
+    """``layers.conv2d_bias_in`` on the card rounds once: it equals
+    ``bf16(conv_f32 + b)`` on >= 99 % of elements and no more than 0.1 %
+    (or two elements of a small map) less often than cuDNN's bias-free
+    conv equals ``bf16(conv_f32)``, whose float32 accumulation on the
+    tensor cores is what is left of 100 %; the rest one bf16 step apart.
+    These zero-mean inputs cancel more than the model's maps, on which
+    ``chip_smoke.py`` holds the 256-channel heads to 99.9 %."""
+    g = torch.Generator(device=cuda).manual_seed(hw * cin + shapes)
+    cout = shapes * 25
+    x = (2 * torch.randn((2, hw, hw, cin), generator=g, device=cuda)).to(torch.bfloat16)
+    w = (torch.randn((cout, cin, 3, 3), generator=g, device=cuda) / (9 * cin) ** 0.5).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    b = torch.randn(cout, generator=g, device=cuda) * 0.5
+    got = layers.conv2d_bias_in(x, layers.widen_bias(w, b))
+    conv32 = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2).float(), w.float(), None, 1, 1)
+    want = (conv32 + b.view(1, -1, 1, 1)).to(torch.bfloat16).permute(0, 2, 3, 1)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    _one_step(got, want)
+    conv_only = layers.conv2d(x, w) == conv32.to(torch.bfloat16).permute(0, 2, 3, 1)
+    floor = max(0.99, float(conv_only.float().mean()) - max(0.001, 2.0 / want.numel()))
+    assert float((got == want).float().mean()) >= floor
+    # the route it replaced: a bf16 bias pass after the rounded conv
+    assert float((layers.conv2d(x, w, b) == want).float().mean()) < 0.95
 
 
 #: every conv + bias + ReLU shape of vgg512: (H = W, cin, cout, k, stride, padding, dilation)

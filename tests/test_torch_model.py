@@ -55,7 +55,9 @@ def test_conv2d_matches_jax(rng, size, k, stride, padding, dilation):
 
 def test_bf16_conv2d_matches_jax_f32_out(rng):
     """A bf16 conv with a bias bf16 cannot hold against the JAX package's
-    f32-accumulate conv: within one bf16 step of the largest output."""
+    f32-accumulate conv: within one bf16 step of the largest output. (No
+    bf16 layer of the model hands ``conv2d`` a bias; the heads' route is
+    held tighter in test_head_conv_rounds_once_like_jax_f32_out.)"""
     x = torch.tensor(rng.normal(0, 1, (2, 9, 10, 16)), dtype=torch.bfloat16)
     w = torch.tensor(rng.normal(0, 0.3, (8, 16, 3, 3)), dtype=torch.float32)
     b = torch.tensor(rng.normal(0, 1, (8,)), dtype=torch.float32)
@@ -67,6 +69,97 @@ def test_bf16_conv2d_matches_jax_f32_out(rng):
         f32_out=True), dtype=np.float32)
     err = np.abs(got.float().numpy() - want).max()
     assert err <= 2.0 ** -7 * np.abs(want).max()
+
+
+def _fine_bias(rng, n):
+    """float32 biases that bf16 cannot hold: eight more mantissa bits set."""
+    b = rng.normal(0, 1, (n,)).astype(np.float32)
+    b = (b.view(np.uint32) | np.uint32(0x5A5A)).view(np.float32)
+    assert not np.array_equal(torch.from_numpy(b).to(torch.bfloat16).float().numpy(), b)
+    return b
+
+
+@pytest.mark.parametrize("hw,cin,cout", [(8, 64, 32), (5, 48, 24), (1, 32, 16)])
+def test_head_conv_rounds_once_like_jax_f32_out(rng, hw, cin, cout):
+    """The multibox heads' route (the bias carried in as input channels)
+    against the JAX package's ``conv2d(..., f32_out=True)`` in bf16, with
+    nonzero float32 biases too fine for bf16: equal on >= 99.9 % of
+    elements, the rest one bf16 step (2^-7 of the largest output) apart
+    (float32 sums in another order may round the other way)."""
+    x = torch.tensor(rng.normal(0, 1, (2, hw, hw + 1, cin)), dtype=torch.bfloat16)
+    w = torch.tensor(rng.normal(0, 0.2, (cout, cin, 3, 3)), dtype=torch.float32)
+    b = _fine_bias(rng, cout)
+    got = layers.conv2d_bias_in(x, layers.widen_bias(w.to(torch.bfloat16), torch.from_numpy(b)))
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(jax_layers.conv2d(
+        jnp.asarray(x.float().numpy(), jnp.bfloat16), w.permute(2, 3, 1, 0).numpy(), b,
+        f32_out=True), dtype=np.float32)
+    got = got.float().numpy()
+    assert got.shape == want.shape
+    assert float((got == want).mean()) >= 0.999
+    assert np.abs(got - want).max() <= 2.0 ** -7 * np.abs(want).max()
+    # the route it replaces, a bf16 bias pass after the rounded conv, does not hold
+    twice = (layers.conv2d(x, w) + torch.from_numpy(b).to(torch.bfloat16)).float().numpy()
+    assert float((twice == want).mean()) < 0.999
+
+
+def test_head_conv_float32_matches_jax(rng):
+    """In float32 the bias channels carry b whole (b_lo is zero)."""
+    x = rng.normal(0, 1, (2, 6, 7, 10)).astype(np.float32)
+    w = rng.normal(0, 0.3, (3, 3, 10, 12)).astype(np.float32)
+    b = rng.normal(0, 0.3, (12,)).astype(np.float32)
+    wb = layers.widen_bias(torch.from_numpy(w.transpose(3, 2, 0, 1).copy()), torch.from_numpy(b))
+    assert not wb[:, 11:].any()
+    _close(layers.conv2d_bias_in(torch.from_numpy(x), wb), jax_layers.conv2d(x, w, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_widen_bias_layout(rng, dtype):
+    """``widen_bias``: the filter untouched, eight more input channels,
+    the bias's three terms at the centre tap of the first three and zero
+    elsewhere, channels-last contiguous; b_hi + b_lo within 2^-16 relative
+    of b, and the three terms add up to b exactly."""
+    w = torch.tensor(rng.normal(0, 0.2, (24, 40, 3, 3)), dtype=dtype)
+    b = torch.from_numpy(_fine_bias(rng, 24))
+    for fmt in (torch.contiguous_format, torch.channels_last):
+        wb = layers.widen_bias(w.contiguous(memory_format=fmt), b)
+        assert wb.shape == (24, 48, 3, 3) and wb.dtype == dtype
+        assert wb.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(wb[:, :40], w)
+        extra = wb[:, 40:].float()
+        hi, lo, rest = extra[:, 0, 1, 1], extra[:, 1, 1, 1], extra[:, 2, 1, 1]
+        assert torch.equal(hi, b.to(dtype).float())
+        assert float(((hi + lo - b).abs() / b.abs()).max()) <= 2.0 ** -16
+        assert torch.equal(hi + lo + rest, b)
+        extra[:, :3, 1, 1] = 0
+        assert not extra.any()
+    with pytest.raises(ValueError, match="centre"):
+        layers.widen_bias(torch.zeros((4, 4, 2, 2)), torch.zeros(4))
+    with pytest.raises(ValueError, match="widen_bias"):
+        layers.conv2d_bias_in(torch.zeros((1, 4, 4, 40)), torch.zeros((24, 40, 3, 3)))
+
+
+def test_head_weights_are_staged_once():
+    """``InferenceModel`` stages each head's widened filter; the forward
+    uses it, and gives what the unstaged parameters give."""
+    from ssd_tensorflow_tpu_torch.inference import InferenceModel
+
+    cfg = ssd_vgg.ModelConfig(preset_name="test64", num_classes=3)
+    params = ssd_vgg.init_params(cfg, seed=3)
+    rng = np.random.default_rng(3)
+    for i in range(len(cfg.preset.maps)):
+        hp = params[f"classifier{i}"]
+        hp["b"] = torch.from_numpy(_fine_bias(rng, hp["b"].shape[0]))
+    model = InferenceModel(params, cfg, device="cpu")
+    for i in range(len(cfg.preset.maps)):
+        hp = model.params[f"classifier{i}"]
+        assert torch.equal(hp["wb"], layers.widen_bias(hp["w"], hp["b"]))
+        assert "wb" not in params[f"classifier{i}"]
+    img = torch.from_numpy(rng.integers(0, 255, (1, 64, 64, 3), dtype=np.uint8))
+    with mock.patch.object(ssd_vgg, "widen_bias", side_effect=AssertionError("not staged")):
+        staged = ssd_vgg.apply_scores(model.params, img, cfg)
+    for got, want in zip(staged, ssd_vgg.apply_scores(params, img, cfg)):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("size,window,stride", [(75, 2, 2), (64, 2, 2), (19, 3, 1), (5, 2, 2)])

@@ -4,9 +4,11 @@ on (interpret mode), the port's InferenceModel on the CPU; once with the
 split stem ("dma") and once with the whole uint8 stem (both sides'
 ``overrides`` choose ``pallas_stem_variant="uint8"``).
 
-Pre-NMS scores: conf within 0.02, argmax class equal on >= 99 % of the
-anchors, locs within 0.05 (tests/test_stem_pallas.py's bounds for two
-bf16 stems that differ in summation order only).
+Pre-NMS scores: conf within 0.01, argmax class equal on >= 99.5 % of the
+anchors, locs within 0.04 (one bf16 step of a loc of magnitude 4 to 8):
+half of tests/test_stem_pallas.py's bounds for two bf16 stems that differ
+in summation order only, which the heads' one-rounding bias now allows.
+The head biases are nonzero and seeded (the JAX init gives zeros).
 
 Detections: a bf16 rounding step apart in conf reorders near-tied
 candidates (random weights make many), which changes the top-200 set and
@@ -42,6 +44,12 @@ def models(request):
     seed, variant = request.param
     jcfg = jax_ssd.ModelConfig(**CFG)
     jp = jax_ssd.init_params(jax.random.PRNGKey(seed), jcfg)
+    # nonzero float32 head biases (init gives zeros), so that where the bias
+    # joins the head convs' sums is part of what the slice holds
+    rng = np.random.default_rng(100 + seed)
+    for i in range(len(jcfg.preset.maps)):
+        hp = jp[f"classifier{i}"]
+        jp[f"classifier{i}"] = dict(hp, b=rng.normal(0, 0.5, hp["b"].shape).astype(np.float32))
     jm = jax_inference.InferenceModel(
         jp, jcfg, overrides={"pallas_stem": True, "pallas_stem_variant": variant},
         detection=JaxDetectionConfig(top_k=200, confidence_threshold=0.01, use_pallas_nms=True),
@@ -57,9 +65,9 @@ def test_pre_nms_scores(models):
     jp, jm, tm, img = models
     jconf, jcls, jlocs = jax_ssd.apply_scores(jp, img, jm.config)
     tconf, tcls, tlocs = ssd_vgg.apply_scores(tm.params, torch.from_numpy(img), tm.config)
-    assert float(np.abs(tconf.numpy() - np.asarray(jconf)).max()) < 0.02
-    assert float(np.mean(tcls.numpy() == np.asarray(jcls))) >= 0.99
-    assert float(np.abs(tlocs.numpy() - np.asarray(jlocs)).max()) < 0.05
+    assert float(np.abs(tconf.numpy() - np.asarray(jconf)).max()) < 0.01
+    assert float(np.mean(tcls.numpy() == np.asarray(jcls))) >= 0.995
+    assert float(np.abs(tlocs.numpy() - np.asarray(jlocs)).max()) < 0.04
 
 
 def _matched_share(a, b):

@@ -75,3 +75,19 @@ def test_wrapper_rejects_other_devices(params):
     c1 = torch.zeros((1, 4, 4, 64), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         stem_cuda.fused_stem(c1, tp["conv1_1"]["b"], tp["conv1_2"]["w"], tp["conv1_2"]["b"])
+
+
+@pytest.mark.parametrize("b,h,w", [(1, 8, 32), (2, 18, 34), (3, 300, 300), (1, 6, 10), (2, 64, 64)])
+def test_stem_tile_walk_covers_every_pixel_once(b, h, w):
+    """``stem_tiles`` mirrors the kernels' tile walk: over ragged shapes
+    every conv pixel lies in exactly one tile (a numpy count), tiles never
+    start outside the image, and the count is the launch grid's bound."""
+    tiles = stem_cuda.stem_tiles(b, h, w)
+    assert len(tiles) == b * -(-h // stem_cuda.TILE_ROWS) * -(-w // stem_cuda.TILE_COLS)
+    count = np.zeros((b, h, w), dtype=np.int64)
+    for n, y0, x0 in tiles:
+        assert 0 <= n < b and 0 <= y0 < h and 0 <= x0 < w
+        assert y0 % stem_cuda.TILE_ROWS == 0 and x0 % stem_cuda.TILE_COLS == 0
+        count[n, y0:y0 + stem_cuda.TILE_ROWS, x0:x0 + stem_cuda.TILE_COLS] += 1
+    assert (count == 1).all()
+    assert tiles == sorted(tiles)  # images outermost, then tile rows, then tile columns

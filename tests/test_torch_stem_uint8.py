@@ -19,7 +19,7 @@ from ssd_tensorflow_tpu.models.ssd_vgg import ModelConfig as JaxModelConfig
 from ssd_tensorflow_tpu.models.ssd_vgg import init_params as jax_init_params
 from ssd_tensorflow_tpu.ops.stem_pallas import fused_stem_pallas as jax_fused_stem_pallas
 from ssd_tensorflow_tpu.ops.stem_pallas import fused_stem_uint8 as jax_fused_stem_uint8
-from ssd_tensorflow_tpu_torch.models import vgg16
+from ssd_tensorflow_tpu_torch.models import layers, vgg16
 from ssd_tensorflow_tpu_torch.ops import stem_cuda
 from ssd_tensorflow_tpu_torch.weights import params_from_jax
 
@@ -100,21 +100,33 @@ def test_uint8_stem_zero_border(params):
 
 
 def test_uint8_kernel_weight_layout(params):
-    """``uint8_stem_weights`` stages w1 as [cout][(dy*3 + dx)*3 + c], which
-    the kernel's im2col of the preprocessed strip multiplies: the same
-    product on the CPU equals the float32 conv1_1."""
+    """``uint8_stem_weights`` stages w1 as [cout][dy*16 + dx*4 + c] with b1
+    riding on the strip's fourth channel (1.0): the kernel's K steps are
+    the window's rows of 4 pixels x 4 channels. The same product on the
+    CPU, gathered with numpy-style slices, equals the float32 conv1_1 + b1."""
     _, tp = params
+    tp = {k: dict(v) for k, v in tp.items()}
+    tp["conv1_1"]["b"] = torch.tensor(np.random.default_rng(7).normal(0, 2, 64), dtype=torch.float32)
     img = torch.from_numpy(_image(1, 8, 10, seed=5))
     x = (img.float() - torch.tensor(MEAN)).to(torch.bfloat16).float()  # (1, 8, 10, 3)
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
-    cols = torch.stack([xp[:, dy:dy + 8, dx:dx + 10, :] for dy in range(3) for dx in range(3)],
-                       dim=3).reshape(1, 8, 10, 27)
+    # the strip: zero SAME padding (one more column on the right for the
+    # fourth, zero-weighted pixel of a row), then the channel of ones everywhere
+    xp = F.pad(F.pad(x, (0, 0, 1, 2, 1, 1)), (0, 1), value=1.0)
+    cols = torch.stack([xp[:, dy:dy + 8, dx:dx + 10, :] for dy in range(3) for dx in range(4)],
+                       dim=3).reshape(1, 8, 10, 48)
     w1k, b1, w2t, b2 = stem_cuda.uint8_stem_weights(tp)
-    assert w1k.shape == (64, 32) and not w1k[:, 27:].any()
-    got = cols @ w1k[:, :27].float().t()
+    assert w1k.shape == (64, 48) and w1k.dtype == torch.bfloat16
+    got = cols @ w1k.float().t()
     want = F.conv2d(x.permute(0, 3, 1, 2), tp["conv1_1"]["w"].to(torch.bfloat16).float(),
-                    padding=1).permute(0, 2, 3, 1)
+                    tp["conv1_1"]["b"], padding=1).permute(0, 2, 3, 1)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-3)
+    # every slot that is neither a weight nor a bias term is zero
+    slots = w1k.reshape(64, 3, 4, 4)
+    assert not slots[:, :, 3, :].any() and not slots[:, :, 1:3, 3].any()
+    # b1 arrives exactly: three bf16 terms cover float32's 24 bits
+    assert torch.equal(slots[:, 0, 0, 3].float() + slots[:, 1, 0, 3].float()
+                       + slots[:, 2, 0, 3].float(), tp["conv1_1"]["b"])
+    assert torch.equal(b1, tp["conv1_1"]["b"])
     assert w2t.shape == (9, 64, 64)
     # the kernel reads every operand as a contiguous array, whatever the
     # parameters' memory format (InferenceModel stages channels-last)
@@ -123,6 +135,14 @@ def test_uint8_kernel_weight_layout(params):
         assert all(t.is_contiguous() for t in stem_cuda.uint8_stem_weights(staged))
     torch.testing.assert_close(w2t[1 * 3 + 2].float(),
                                tp["conv1_2"]["w"][:, :, 1, 2].to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 300.0])
+def test_split_bf16_is_exact(scale):
+    x = torch.tensor(np.random.default_rng(3).normal(0, scale, 257), dtype=torch.float32)
+    parts = layers.split_terms(x, torch.bfloat16)
+    assert len(parts) == 3 and all(p.dtype == torch.bfloat16 for p in parts)
+    assert torch.equal(parts[0].float() + parts[1].float() + parts[2].float(), x)
 
 
 def test_uint8_stem_rejects_bad_input(params):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Per-layer cost and rounding of the conv + bias + ReLU routes, on one GPU.
+"""Per-layer cost and rounding of the conv + bias (+ ReLU) routes, on one GPU.
 
     python3 tools/torch_conv_epilogue.py [--seed 0] [--batch 64] [--out runs/torch_conv_epilogue.json]
 
@@ -15,6 +15,16 @@ a float32 bias from the seed, and prints one JSON line per layer:
   one-rounding reference ``bf16(relu(conv_f32 + b))`` (TF32 off);
 * ``fused_bf16_bias_equal``: the same share when the fused op is handed
   the bias in bf16 (why the port passes it in float32).
+
+Each of the seven multibox head convs (no ReLU) gets a line too, with the
+time and the equal share of three routes: ``bias_in`` (the port's
+``layers.conv2d_bias_in``: the bias as two input channels), ``relu_halves``
+(cuDNN's fused op on ``[w, -w]`` with bias ``[b, -b]``, then the
+difference of the halves) and ``unfused`` (bf16 conv + bf16 bias pass, the
+route before). ``*_equal`` is the share equal to the float32 reference,
+``*_equal_exact`` the share equal to ``bf16(conv_f64 + b)``, the one
+rounding of the exact sum; ``reference_equal_exact`` says how often the
+float32 reference itself lands on it.
 
 Times are CUDA events over chained calls. The last line sums them.
 Imports nothing of JAX or of the JAX package.
@@ -59,13 +69,64 @@ def main(argv=None) -> int:
     images = torch.from_numpy(np.random.default_rng(args.seed).integers(
         0, 256, (args.batch, size.h, size.w, 3), dtype=np.uint8)).cuda()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    rows = []
+    def head_row(call, bias, ref):
+        """One multibox head conv (no ReLU): the port's route, the route it
+        replaced and the other candidate, each timed and held to ``ref``."""
+        x, w = call["x"], call["w"]
+        wb = layers.widen_bias(w, bias)
+        w2 = torch.cat([w, -w]).contiguous(memory_format=torch.channels_last)
+        b2 = torch.cat([bias, -bias])
+        xn = x.permute(0, 3, 1, 2)
+        cout = w.shape[0]
+
+        def bias_in():
+            return layers.conv2d_bias_in(x, wb)
+
+        def relu_halves():  # relu(y) - relu(-y) = y, each half rounded once
+            y = torch.cudnn_convolution_relu(xn, w2, b2, [1, 1], [1, 1], [1, 1], 1)
+            return (y[:, :cout] - y[:, cout:]).permute(0, 2, 3, 1)
+
+        # the nine taps as GEMMs over the zero-padded map read flat (a tap is
+        # a row offset), accumulated in a float32 matrix that starts as b
+        n, h, wd, cin = x.shape
+        m = n * (h + 2) * (wd + 2)
+        cpad = -(-cout // 8) * 8
+        wt = torch.zeros((9, cin, cpad), dtype=w.dtype, device=w.device)
+        wt[:, :, :cout] = w.permute(2, 3, 1, 0).reshape(9, cin, cout)
+        bpad = torch.zeros(cpad, device=w.device)
+        bpad[:cout] = bias
+
+        def tap_gemms():
+            flat = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1)).reshape(m, cin)
+            flat = torch.nn.functional.pad(flat, (0, 0, 0, 2 * (wd + 2) + 2))
+            acc = bpad.expand(m, cpad).contiguous()
+            for tap in range(9):
+                off = (tap // 3) * (wd + 2) + tap % 3
+                acc = torch.addmm(acc, flat[off:off + m], wt[tap], out_dtype=torch.float32)
+            return acc.to(torch.bfloat16).view(n, h + 2, wd + 2, cpad)[:, :h, :wd, :cout]
+
+        routes = {"bias_in": bias_in, "relu_halves": relu_halves, "tap_gemms": tap_gemms,
+                  "unfused": lambda: unfused(call, bias)}
+        # the same sum taken in float64: what one rounding of the exact value gives
+        exact = (torch.nn.functional.conv2d(xn.double(), w.double(), bias.double(), 1, 1)
+                 .to(torch.bfloat16).permute(0, 2, 3, 1))
+        row = {"kind": "head", "x": list(x.shape), "w": list(w.shape),
+               "reference_equal_exact": float((ref == exact).float().mean())}
+        for name, fn in routes.items():
+            row[f"{name}_ms"] = cuda_event_ms(fn, iters=10)
+            row[f"{name}_equal"] = float((fn() == ref).float().mean())
+            row[f"{name}_equal_exact"] = float((fn() == exact).float().mean())
+        return row
+
+    rows, head_rows = [], []
     with torch.inference_mode():
         for call in conv_calls(model, images):
-            if call["kind"] != "conv_relu":
-                continue
             bias = torch.randn(call["w"].shape[0], generator=gen, device="cuda") * 0.5
             ref = one_rounding_reference(call, bias)
+            if call["kind"] == "head":
+                head_rows.append(head_row(call, bias, ref))
+                print(json.dumps(head_rows[-1]), flush=True)
+                continue
             pad = layers._same_input(call["x"], call["w"], call["stride"], call["padding"],
                                      call["dilation"])
 
@@ -89,10 +150,19 @@ def main(argv=None) -> int:
             del ref, bf16_bias
     total = {"card": card, "batch": args.batch, "layers": len(rows),
              "fused_ms_sum": sum(r["fused_ms"] for r in rows),
-             "unfused_ms_sum": sum(r["unfused_ms"] for r in rows)}
+             "unfused_ms_sum": sum(r["unfused_ms"] for r in rows),
+             "heads": len(head_rows),
+             **{f"heads_{k}_ms_sum": sum(r[f"{k}_ms"] for r in head_rows)
+                for k in ("bias_in", "relu_halves", "tap_gemms", "unfused")},
+             **{f"heads_{k}_equal_min": min(r[f"{k}_equal"] for r in head_rows)
+                for k in ("bias_in", "relu_halves", "tap_gemms", "unfused")},
+             **{f"heads_{k}_equal_exact_min": min(r[f"{k}_equal_exact"] for r in head_rows)
+                for k in ("bias_in", "relu_halves", "tap_gemms", "unfused")},
+             "heads_reference_equal_exact_min": min(r["reference_equal_exact"]
+                                                    for r in head_rows)}
     print(json.dumps(total), flush=True)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    Path(args.out).write_text("".join(json.dumps(r) + "\n" for r in rows + [total]))
+    Path(args.out).write_text("".join(json.dumps(r) + "\n" for r in rows + head_rows + [total]))
     return 0
 
 
