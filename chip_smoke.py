@@ -432,7 +432,7 @@ def check_probes(seed: int, device):
         else:
             err, tol = _within_a_step(f"stem_probe({variant})", got, want)
         del got, want
-        times = _times(fn, "probe_kernel", iters=5)
+        times = _times(fn, "probe_", iters=5)
         plain_ms = _plain_ms(lambda v=variant: stem_probe.stem_probe_plain(a1, w1, w2, v))
         library_ms = None
         if probe_library(a1, w1, w2, variant) is not None:

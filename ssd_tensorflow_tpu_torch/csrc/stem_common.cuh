@@ -203,10 +203,11 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t smem_addr) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
 }
 
-// d (+)= a (64 x 16, registers) x b (16 x 64, shared memory by descriptor).
+// d (+)= a (64 x 16, registers) x b (16 x 64, shared memory by descriptor);
+// with accumulate = 0, d = a x b whatever d held.
 // a[0] / a[1]: rows g / g + 8 at k 2t, 2t + 1; a[2] / a[3]: the same rows at k + 8.
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
-                                                uint64_t desc_b) {
+                                                uint64_t desc_b, int accumulate = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -221,7 +222,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
 // ---- tiles ----

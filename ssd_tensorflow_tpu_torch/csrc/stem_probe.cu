@@ -1,13 +1,14 @@
 // Hopper (sm_90a) counterparts of the two stem probe tools' Pallas kernels.
 //
-// 1. probe_kernel<V> replaces tools/stem_kernel_probe.py's make_call and
-//    its bodies k_copy, k_conv11, k_conv11_store, k_taps and
-//    k_taps_aligned: the stripped variants that bisect the split stem's
-//    cost on the probe's own shapes. Per tile (b, t) of
-//    a1 (B, T, 34, WP, 64) bf16, with w1 (64, 128) and w2 (3, 3, 128, 128):
+// 1. probe_copy_kernel and probe_kernel<V> replace
+//    tools/stem_kernel_probe.py's make_call and its bodies k_copy,
+//    k_conv11, k_conv11_store, k_taps and k_taps_aligned: the stripped
+//    variants that bisect the split stem's cost on the probe's own shapes.
+//    Per tile (b, t) of a1 (B, T, 34, WP, 64) bf16, with w1 (64, 128) and
+//    w2 (3, 3, 128, 128):
 //      copy          out = a1[:16]
 //      conv1_1       out = bf16(relu(a1[:16] @ w1))[..., :64]
-//      conv1_1_store the same, through a zero-bordered shared-memory tile
+//      conv1_1_store the same, through a shared-memory tile
 //      taps n        y1 = bf16(relu(a1 @ w1)) (34 rows, zero column border),
 //                    acc = the first n of the 9 packed 3x3 taps of y1 over
 //                    128 channels, relu, max of row pairs, max of the
@@ -18,15 +19,62 @@
 //                    the zero border, so the result is defined).
 //    The 128 lanes are the TPU's width packing of two pixels; the port
 //    keeps the probe's function, not the packing's purpose.
+//
 //    Bound: taps 9 is 2.6 TFLOP at full shape (operations, ~2.6 ms at the
 //    bf16 peak); copy and conv1_1 move 1.07 GB (bytes, ~0.32 ms).
-//    Design: one 256-thread block per SM walks tiles of 16 conv rows x 16
-//    packed columns. It stages the a1 pixels it needs in shared memory,
-//    runs conv1_1 as an mma.sync GEMM (K = 64) into an 18 x 18 pixel y1
-//    halo of 128 channels, then each tap's 128 x 128 weights (34 KB) are
-//    loaded into shared memory in turn and warp w accumulates conv rows
-//    2w and 2w+1 x 16 columns x 128 channels (128 f32 registers); the
-//    pools run in registers. Nothing is pipelined.
+//
+//    What is scarce: all nine taps' weights are 288 KB and do not fit a
+//    block's 227 KB of shared memory beside a y1 halo at 272 B a pixel, so
+//    they stream from L2 once per tile; and the shared-memory pipe (128
+//    B/clock) carries 64 B/clock of B for wgmma at full rate, whatever N
+//    is, before A and the weight stream are counted.
+//
+//    Design of probe_kernel<V>: one persistent block per SM, 384 threads,
+//    roles split after set-up (setmaxnreg: 232 registers a consumer
+//    thread, 40 a producer thread) and meeting only on mbarriers:
+//      warps 8, 10, 11 stage the a1 pixels of the next tile with 16-byte
+//               cp.async (zero-filled outside [0, WP), which makes the
+//               zero border of y1, as conv1_1 has no bias), rows of 128 B
+//               with 16-byte chunk c of pixel p at chunk c ^ (p & 7), so
+//               that ldmatrix reads are free of bank conflicts without
+//               padding. It is asked for the next tile as soon as the
+//               consumers have read this tile's pixels, i.e. before the
+//               first tap, so conv1_1's operand is there when the taps end.
+//      warp 9   streams the weights: ops/stem_probe.py lays w1 and each
+//               tap's two 64-channel K halves out once as 19 "slots" of
+//               [128 cout][64 cin] bf16 rows of 128 B, already in the
+//               128-byte swizzle the wgmma descriptor reads, so one lane
+//               lands a slot with one 16 KB cp.async.bulk that completes
+//               on the slot's "full" mbarrier. A ring of five slots keeps
+//               two taps in flight under the MMAs; consumers hand a slot
+//               back on its "empty" mbarrier once the wgmmas that read it
+//               have completed. No block barrier stands around a copy.
+//      warpgroups 0, 1 (consumers) run conv1_1 of the staged pixels on
+//               wgmma (K = 64, A by ldmatrix from the stage, B the w1
+//               slot, as groups of N = 64 with two in flight, so that the
+//               wgmmas of one run under the epilogue of the other) and
+//               write relu, rounded to bf16, with stmatrix into the y1
+//               halo (10 x 34 pixels x 128 channels, pixel rows padded to
+//               272 B for ldmatrix); then the taps as wgmma.m64n128k16
+//               with A by ldmatrix from the halo (a tap is only another
+//               start address) and B by descriptor from the slot,
+//               fragments double buffered so that the loads of step s + 1
+//               run under the wgmmas of step s. A tile is 8 conv rows x 32
+//               columns; each warpgroup owns two M tiles of two conv rows
+//               each (128 f32 accumulators a thread), a warp's 16 rows
+//               being 8 columns of a row pair, so that both pools (row
+//               pairs, channel halves c and c + 64) are maxima inside a
+//               thread; a 4 x 4 transpose across each quad of lanes then
+//               makes every store 16 bytes. Two consumer-only named
+//               barriers a tile fence the halo.
+//    Alternatives reckoned: a 16 x 32 tile would halve the weight stream
+//    but needs 512 accumulators' worth of registers or a 166 KB halo; six
+//    slots (three taps, which would let the dy taps share fragments as the
+//    stems do) miss the budget by 2 KB with the padded halo; a cluster
+//    with multicast halves L2 reads (9.9 TB in all at the probe's shape)
+//    but not the shared-memory writes, and L2 serves the ~3 TB/s this takes.
+//    The conv1_1 variants use the same staging (three 32 KB stages in
+//    flight, as they are bound by bytes) and conv1_1 on wgmma with N = 64.
 // 2. lane_unflatten_sum_kernel replaces tools/stem_uint8_probe.py's
 //    probe_reshape kernel: (R, 6N) bf16 -> (R, N) bf16, each output the
 //    float32 sum of its group of 6 in order, rounded once. One thread per
@@ -36,192 +84,479 @@
 
 namespace {
 
+using stem::desc_sw128;
+using stem::keep;
 using stem::kMaxDevices;
-using stem::lds32;
-using stem::mma_bf16;
+using stem::ldmatrix_x4;
+using stem::mbar_arrive;
+using stem::mbar_init;
+using stem::mbar_wait;
+using stem::smem_u32;
+using stem::wgmma_commit;
+using stem::wgmma_fence;
+using stem::wgmma_wait;
 
 constexpr int kRowsIn = 34;
 constexpr int kRowsOut = 16;
 constexpr int kCin = 64;
 constexpr int kCmid = 128;
-constexpr int kColT = 16;      // packed columns per tile
-constexpr int kHalo = 18;      // y1 halo rows and columns of a taps tile
-constexpr int kThreads = 256;
-constexpr int kAStride = 72;   // a1 pixel row in shared memory
-constexpr int kCStride = 136;  // y1 pixel row / weight row in shared memory
-constexpr size_t kSmemBytes =
-    (kHalo * kHalo * kAStride + kHalo * kHalo * kCStride + kCmid * kAStride + kCmid * kCStride) *
-    sizeof(__nv_bfloat16);
+constexpr int kTileR = 8;      // rows of a tile (conv rows for the taps, pixel rows for conv1_1)
+constexpr int kTileC = 32;     // packed columns of a tile
+constexpr int kTilePix = kTileR * kTileC;
+constexpr int kHaloR = kTileR + 2;
+constexpr int kHaloC = kTileC + 2;
+constexpr int kHaloPix = kHaloR * kHaloC;  // 340
+constexpr int kYStride = 136;  // bf16 per y1 pixel in shared memory (272 B)
+constexpr int kConsumers = 256;
+constexpr int kThreads = 384;
+constexpr int kStagers = 96;    // threads that stage a1 pixels
+constexpr int kSlotBytes = kCmid * kCin * 2;  // 16,384: [128 cout][64 cin]
+constexpr int kCopyThreads = 256;
+constexpr int kCopyC = 16;     // packed columns of a copy tile
 
 enum Variant { kCopy = 0, kConv11 = 1, kConv11Store = 2, kTaps = 3, kTapsAligned = 4 };
 
+// Dynamic shared memory of probe_kernel<V>, from a 1024-byte aligned base.
 template <int V>
-__global__ void __launch_bounds__(kThreads, 1)
-probe_kernel(const __nv_bfloat16* __restrict__ a1, const __nv_bfloat16* __restrict__ w1t,
-             const __nv_bfloat16* __restrict__ w2t, __nv_bfloat16* __restrict__ out, int bts,
-             int wp, int n_taps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* c1s = as + kHalo * kHalo * kAStride;
-  __nv_bfloat16* w1s = c1s + kHalo * kHalo * kCStride;
-  __nv_bfloat16* wtap = w1s + kCmid * kAStride;
+struct Layout {
+  static constexpr bool kIsTaps = V == kTaps || V == kTapsAligned;
+  static constexpr int kSlots = kIsTaps ? 5 : 1;
+  static constexpr int kStages = kIsTaps ? 1 : 3;
+  static constexpr int kStagePix = kIsTaps ? kHaloPix : kTilePix;
+  static constexpr int kStageC = kIsTaps ? kHaloC : kTileC;  // pixels per stage row
+  static constexpr int kStageBytes = kStagePix * kCin * 2;
+  static constexpr int kMTiles = (kStagePix + 63) / 64;
+  static constexpr int kOffStage = kSlots * kSlotBytes;
+  static constexpr int kOffY = kOffStage + kStages * kStageBytes;
+  static constexpr int kYBytes = V == kConv11 ? 0 : kMTiles * 64 * kYStride * 2;  // whole M tiles
+  static constexpr int kOffBars = kOffY + kYBytes;  // full, empty per slot; full, empty per stage
+  static constexpr int kBytes = kOffBars + 2 * (kSlots + kStages) * 8;
+  static_assert(kOffBars % 8 == 0 && kOffY % 16 == 0 && kBytes <= 232448, "shared-memory layout");
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int cbs = wp / kColT;
-  const int tiles = bts * 2 * cbs;
-
-  if (V != kCopy) {
-    // w1t: (128, 64) bf16 [cout][cin]
-    for (int i = tid; i < kCmid * 8; i += kThreads)
-      reinterpret_cast<uint4*>(w1s + (i >> 3) * kAStride)[i & 7] =
-          reinterpret_cast<const uint4*>(w1t + (i >> 3) * kCin)[i & 7];
+  static __device__ __forceinline__ uint32_t bar(unsigned char* smem, int i) {
+    return smem_u32(smem + kOffBars) + 8 * i;
   }
+  static __device__ __forceinline__ uint32_t slot_full(unsigned char* s, int i) { return bar(s, i); }
+  static __device__ __forceinline__ uint32_t slot_empty(unsigned char* s, int i) {
+    return bar(s, kSlots + i);
+  }
+  static __device__ __forceinline__ uint32_t stage_full(unsigned char* s, int i) {
+    return bar(s, 2 * kSlots + i);
+  }
+  static __device__ __forceinline__ uint32_t stage_empty(unsigned char* s, int i) {
+    return bar(s, 2 * kSlots + kStages + i);
+  }
+};
 
+// A position in a ring of N buffers: `round` is the parity its consumer
+// waits for on "full"; its producer waits for round ^ 1 on "empty" (the
+// first round passes at once).
+template <int N>
+struct Ring {
+  int idx = 0;
+  uint32_t round = 0;
+  __device__ __forceinline__ void next() {
+    if (++idx == N) {
+      idx = 0;
+      round ^= 1u;
+    }
+  }
+};
+
+struct Tile {
+  int bt, r0, c0, x0;  // (b, t) tile; first a1 row and column staged; first output column
+};
+
+template <int V>
+__host__ __device__ __forceinline__ int tile_count(int bts, int wp) {
+  return bts * (Layout<V>::kIsTaps ? 4 : 2) * ((wp + kTileC - 1) / kTileC);
+}
+
+template <int V>
+__device__ __forceinline__ Tile tile_at(int tile, int wp) {
+  const int cts = (wp + kTileC - 1) / kTileC;
+  const int per_bt = (Layout<V>::kIsTaps ? 4 : 2) * cts;
+  const int bt = tile / per_bt, rem = tile - bt * per_bt;
+  const int rt = rem / cts, x0 = (rem - rt * cts) * kTileC;
+  return Tile{bt, rt * kTileR, Layout<V>::kIsTaps ? x0 - 1 : x0, x0};
+}
+
+__device__ __forceinline__ void consumer_barrier() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+__device__ __forceinline__ void keep(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define PROBE_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define PROBE_D16(i) PROBE_D4(i), PROBE_D4(i + 4), PROBE_D4(i + 8), PROBE_D4(i + 12)
+
+// d += a (64 x 16, registers) x b (16 x 128, shared memory by descriptor);
+// the fragment layouts are those of stem::wgmma_m64n64k16 with 16 N blocks.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : PROBE_D16(0), PROBE_D16(16), PROBE_D16(32), PROBE_D16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+#undef PROBE_D16
+#undef PROBE_D4
+
+// relu of two floats, rounded to bf16 and packed (x in the low half)
+__device__ __forceinline__ uint32_t relu_bf162(float x, float y) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(fmaxf(x, 0.0f), fmaxf(y, 0.0f));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// In an accumulator fragment the four lanes t of a quad hold channels
+// 2t, 2t + 1 of each 8-channel N block. v[k] being this lane's pair of N
+// block k of four, returns N block t whole (16 bytes: the pairs of lanes
+// 0..3 in order), a 4 x 4 transpose across the quad in two butterfly steps.
+__device__ __forceinline__ uint4 quad_transpose(const uint32_t (&v)[4], int t) {
+  const bool odd = t & 1, high = t & 2;
+  const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? v[0] : v[1], 1);
+  const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? v[2] : v[3], 1);
+  const uint32_t z0 = odd ? r0 : v[0], z1 = odd ? v[1] : r0;
+  const uint32_t z2 = odd ? r1 : v[2], z3 = odd ? v[3] : r1;
+  const uint32_t s0 = __shfl_xor_sync(0xffffffffu, high ? z0 : z2, 2);
+  const uint32_t s1 = __shfl_xor_sync(0xffffffffu, high ? z1 : z3, 2);
+  return high ? make_uint4(s0, s1, z2, z3) : make_uint4(z0, z1, s0, s1);
+}
+
+// ---- producers ----
+
+// Warps 8, 10 and 11 (thread `lane` of their kStagers): the a1 pixels of
+// each tile of this block into the stage ring.
+template <int V>
+__device__ __forceinline__ void stage_pixels(unsigned char* smem,
+                                             const __nv_bfloat16* __restrict__ a1, int bts,
+                                             int wp, int lane) {
+  using L = Layout<V>;
+  const int tiles = tile_count<V>(bts, wp);
+  Ring<L::kStages> st;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, st.next()) {
+    const Tile tl = tile_at<V>(tile, wp);
+    const __nv_bfloat16* src =
+        a1 + (static_cast<size_t>(tl.bt) * kRowsIn + tl.r0) * wp * kCin;
+    const uint32_t dst = smem_u32(smem + L::kOffStage) + st.idx * L::kStageBytes;
+    mbar_wait(L::stage_empty(smem, st.idx), st.round ^ 1u);
+    for (int i = lane; i < L::kStagePix * 8; i += kStagers) {
+      const int p = i >> 3, c = i & 7;
+      const int r = p / L::kStageC, gc = tl.c0 + p - r * L::kStageC;
+      const bool inside = gc >= 0 && gc < wp;
+      const __nv_bfloat16* q = src + (static_cast<size_t>(r) * wp + (inside ? gc : 0)) * kCin + c * 8;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       dst + p * 128 + ((c ^ (p & 7)) << 4)),
+                   "l"(q), "r"(inside ? 16 : 0)
+                   : "memory");
+    }
+    // arrives once this thread's copies have landed (the barrier counts kStagers)
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                     L::stage_full(smem, st.idx))
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void load_slot(uint32_t dst, const unsigned char* src, uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(kSlotBytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(kSlotBytes), "r"(bar)
+      : "memory");
+}
+
+// One lane of warp 9: the weight slots in the order the consumers read
+// them. Taps: per tile w1 (slot 0), then the K halves of taps 0 .. n - 1
+// (slots 1 .. 2n). The conv1_1 variants: w1 once.
+template <int V>
+__device__ __forceinline__ void stream_weights(unsigned char* smem,
+                                               const unsigned char* __restrict__ wslots, int bts,
+                                               int wp, int n_taps) {
+  using L = Layout<V>;
+  const uint32_t base = smem_u32(smem);
+  if (!L::kIsTaps) {
+    load_slot(base, wslots, L::slot_full(smem, 0));
+    return;
+  }
+  const int tiles = tile_count<V>(bts, wp);
+  Ring<L::kSlots> ring;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int bt = tile / (2 * cbs);
-    const int rem = tile - bt * 2 * cbs;
-    const int half = rem / cbs, x0 = (rem - half * cbs) * kColT;
-    const __nv_bfloat16* a = a1 + static_cast<size_t>(bt) * kRowsIn * wp * kCin;
-    __nv_bfloat16* o = out + static_cast<size_t>(bt) * kRowsOut * wp * kCin;
-
-    if (V == kCopy) {  // out rows half*8 + [0, 8), columns x0 + [0, 16)
-      for (int i = tid; i < 8 * kColT * 8; i += kThreads) {
-        const int pix = i >> 3, r = half * 8 + pix / kColT, c = x0 + pix % kColT;
-        reinterpret_cast<uint4*>(o + (static_cast<size_t>(r) * wp + c) * kCin)[i & 7] =
-            reinterpret_cast<const uint4*>(a + (static_cast<size_t>(r) * wp + c) * kCin)[i & 7];
-      }
-      continue;
+    for (int s = 0; s <= 2 * n_taps; ++s, ring.next()) {
+      mbar_wait(L::slot_empty(smem, ring.idx), ring.round ^ 1u);
+      load_slot(base + ring.idx * kSlotBytes, wslots + static_cast<size_t>(s) * kSlotBytes,
+                L::slot_full(smem, ring.idx));
     }
+  }
+}
 
-    // a1 pixels of the tile: conv1_1 variants need rows half*8 + [0, 8) x
-    // columns x0 + [0, 16); the taps need the y1 halo, rows half*16 +
-    // [0, 18) x columns x0 - 1 + [0, 18), zero outside [0, WP).
-    constexpr bool kSmall = V == kConv11 || V == kConv11Store;
-    constexpr int nr = kSmall ? 8 : kHalo;
-    constexpr int nc = kSmall ? kColT : kHalo;
-    constexpr int npix = nr * nc;
-    const int r0 = kSmall ? half * 8 : half * 16;
-    const int c0 = kSmall ? x0 : x0 - 1;
-    __syncthreads();  // the previous tile is done with the shared tiles
-    for (int i = tid; i < npix * 8; i += kThreads) {
-      const int pix = i >> 3, gc = c0 + pix % nc;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gc >= 0 && gc < wp)
-        v = reinterpret_cast<const uint4*>(
-            a + (static_cast<size_t>(r0 + pix / nc) * wp + gc) * kCin)[i & 7];
-      reinterpret_cast<uint4*>(as + pix * kAStride)[i & 7] = v;
+// ---- consumers ----
+
+template <int V>
+__device__ __forceinline__ void consume_tiles(unsigned char* smem, __nv_bfloat16* __restrict__ out,
+                                              int bts, int wp, int n_taps) {
+  using L = Layout<V>;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, wi = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // ldmatrix: lane l gives the row address of matrix j = l >> 3, row r =
+  // l & 7; matrices 0 / 1 are fragment rows 0..7 / 8..15 at k 0..7,
+  // matrices 2 / 3 the same rows at k 8..15.
+  const int j = lane >> 3, r = lane & 7;
+  const int tiles = tile_count<V>(bts, wp);
+  __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem + L::kOffY);
+
+  // conv1_1 is a plain GEMM over the staged pixels in their linear order:
+  // row i of M tile mt is pixel 64 mt + i of the stage (and of the halo).
+  const int p_lane = 16 * wi + 8 * (j & 1) + r;
+  // taps: M tile m of this warpgroup is conv rows 4 wg + 2 m + {0, 1} of
+  // the tile; this warp's 16 rows are columns 8 wi + [0, 8) of the two.
+  const uint32_t y_lane = smem_u32(ys) +
+      (((4 * wg + (j & 1)) * kHaloC + 8 * wi + r) * kYStride + 8 * (j >> 1)) * 2;
+  constexpr uint32_t kRowPair = 2 * kHaloC * kYStride * 2;  // two halo rows down
+
+  Ring<L::kStages> st;
+  Ring<L::kSlots> ring;
+  if (!L::kIsTaps) mbar_wait(L::slot_full(smem, 0), 0);  // w1, once
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, st.next()) {
+    const Tile tl = tile_at<V>(tile, wp);
+    __nv_bfloat16* o = out + static_cast<size_t>(tl.bt) * kRowsOut * wp * kCin;
+
+    // ---- conv1_1 of the staged pixels ----
+    const uint32_t a_base = smem_u32(smem + L::kOffStage) + st.idx * L::kStageBytes;
+    const int w1_slot = ring.idx;
+    mbar_wait(L::stage_full(smem, st.idx), st.round);
+    if (L::kIsTaps) {
+      mbar_wait(L::slot_full(smem, ring.idx), ring.round);
+      ring.next();
     }
-    __syncthreads();
-
-    // conv1_1: y1[pix][n] = relu(sum_k a1[pix][k] w1[k][n]), K = 64
-    constexpr int NT = kSmall ? 8 : 16;  // 8-channel N tiles computed
-    for (int mt = warp; mt < (npix + 15) / 16; mt += kThreads / 32) {
-      const int p0 = min(mt * 16 + g, npix - 1), p1 = min(mt * 16 + g + 8, npix - 1);
-      float acc[NT][4];
+    const uint64_t desc_w1 = desc_sw128(smem_u32(smem) + w1_slot * kSlotBytes);
+    // M tiles wg, wg + 2, ... of this warpgroup, each as kHalves wgmma
+    // groups of N = 64 (the taps need all 128 channels of y1, the conv1_1
+    // variants the first 64), two groups in flight: the wgmmas of the next
+    // run under the epilogue of this one, at 64 accumulators a thread.
+    constexpr int kHalves = L::kIsTaps ? 2 : 1;
+    constexpr int kItems = (L::kMTiles / 2) * kHalves;
+    float c[2][32];
+    uint32_t a1f[2][4][4];  // the fragments of an M tile, shared by its halves
+    auto issue = [&](int mt, int half, float(&cc)[32], uint32_t(&af)[4][4]) {
+      if (half == 0) {
+        const int p = min(64 * mt + p_lane, L::kStagePix - 1);
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[nt][k] = 0.0f;
-#pragma unroll
-      for (int ks = 0; ks < kCin / 16; ++ks) {
-        const __nv_bfloat16* q0 = as + p0 * kAStride + ks * 16 + 2 * t;
-        const __nv_bfloat16* q1 = as + p1 * kAStride + ks * 16 + 2 * t;
-        const uint32_t af[4] = {lds32(q0), lds32(q1), lds32(q0 + 8), lds32(q1 + 8)};
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const __nv_bfloat16* q = w1s + (nt * 8 + g) * kAStride + ks * 16 + 2 * t;
-          mma_bf16(acc[nt], af, lds32(q), lds32(q + 8));
-        }
+        for (int kc = 0; kc < 4; ++kc)
+          ldmatrix_x4(af[kc], a_base + p * 128 + (((2 * kc + (j >> 1)) ^ (p & 7)) << 4));
       }
+      wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int p = mt * 16 + g + 8 * i;
-        if (p >= npix) continue;
+      for (int kc = 0; kc < 4; ++kc)  // couts 64 half + [0, 64) are 8192 B on, a k step 32 B
+        stem::wgmma_m64n64k16(cc, af[kc], desc_w1 + ((half * 8192 + kc * 32) >> 4), kc > 0);
+      wgmma_commit();
+    };
+    issue(wg, 0, c[0], a1f[0]);
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int ch = nt * 8 + 2 * t;
-          const __nv_bfloat162 v = __floats2bfloat162_rn(fmaxf(acc[nt][2 * i], 0.0f),
-                                                         fmaxf(acc[nt][2 * i + 1], 0.0f));
-          if (V == kConv11)
-            *reinterpret_cast<__nv_bfloat162*>(
-                o + (static_cast<size_t>(r0 + p / nc) * wp + x0 + p % nc) * kCin + ch) = v;
-          else
-            *reinterpret_cast<__nv_bfloat162*>(c1s + p * kCStride + ch) = v;
+    for (int i = 0; i < kItems; ++i) {
+      const int km = i / kHalves, half = i % kHalves, mt = wg + 2 * km;
+      if (i + 1 < kItems) {
+        issue(wg + 2 * ((i + 1) / kHalves), (i + 1) % kHalves, c[(i + 1) & 1],
+              a1f[((i + 1) / kHalves) & 1]);
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();  // this thread is done with the stage and w1
+        mbar_arrive(L::stage_empty(smem, st.idx));
+        if (L::kIsTaps) mbar_arrive(L::slot_empty(smem, w1_slot));
+      }
+      if (half == kHalves - 1) {
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) keep(a1f[km & 1][kc]);
+      }
+      keep(c[i & 1]);
+      const float(&ck)[32] = c[i & 1];
+      if (V == kConv11) {  // relu, rounded, straight to out
+#pragma unroll
+        for (int row = 0; row < 2; ++row) {
+          const int pp = 64 * mt + 16 * wi + g + 8 * row;
+          const int pr = pp / kTileC, pc = pp - pr * kTileC;
+          __nv_bfloat16* dst = o + (static_cast<size_t>(tl.r0 + pr) * wp + tl.x0 + pc) * kCin;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            uint32_t v[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              v[k] = relu_bf162(ck[4 * (4 * q + k) + 2 * row], ck[4 * (4 * q + k) + 2 * row + 1]);
+            const uint4 chunk = quad_transpose(v, t);
+            if (tl.x0 + pc < wp) reinterpret_cast<uint4*>(dst)[4 * q + t] = chunk;
+          }
         }
+        continue;
+      }
+      // every consumer is done with the shared y1 tile of the tile before
+      if (i == 0) consumer_barrier();
+      // relu, rounded, into the y1 tile: one stmatrix.x4 stores rows g and
+      // g + 8 of two N blocks, lane l giving the address of matrix l >> 3
+      // (bit 0: the row half, bit 1: the N block), row l & 7
+      const uint32_t y_row = smem_u32(ys) +
+          ((64 * mt + 16 * wi + 8 * (j & 1) + r) * kYStride + 64 * half + 8 * (j >> 1)) * 2;
+#pragma unroll
+      for (int nb = 0; nb < 8; nb += 2) {
+        uint32_t v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          v[q] = relu_bf162(ck[4 * (nb + (q >> 1)) + 2 * (q & 1)],
+                            ck[4 * (nb + (q >> 1)) + 2 * (q & 1) + 1]);
+        asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                         y_row + nb * 16),
+                     "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
+                     : "memory");
       }
     }
     if (V == kConv11) continue;
-    __syncthreads();
+    consumer_barrier();  // the shared y1 tile is whole
 
-    if (V == kConv11Store) {  // the bordered tile's first 64 channels -> out
-      for (int i = tid; i < npix * 8; i += kThreads) {
-        const int pix = i >> 3;
-        reinterpret_cast<uint4*>(
-            o + (static_cast<size_t>(r0 + pix / nc) * wp + x0 + pix % nc) * kCin)[i & 7] =
-            reinterpret_cast<const uint4*>(c1s + pix * kCStride)[i & 7];
+    if (V == kConv11Store) {  // its 64 channels -> out, 16 bytes a thread
+      for (int i = tid; i < kTilePix * 8; i += kConsumers) {
+        const int pp = i >> 3, pr = pp / kTileC, pc = pp - pr * kTileC;
+        if (tl.x0 + pc < wp)
+          reinterpret_cast<uint4*>(
+              o + (static_cast<size_t>(tl.r0 + pr) * wp + tl.x0 + pc) * kCin)[i & 7] =
+              reinterpret_cast<const uint4*>(ys + pp * kYStride)[i & 7];
       }
       continue;
     }
 
-    // taps: conv rows half*16 + 2*warp + {0, 1}, columns x0 + [0, 16)
-    float acc[2][16][4];
+    // ---- the taps ----
+    // (zeroed here: a first wgmma that overwrites them instead makes ptxas
+    // serialise the loop's wgmmas, warning C7512)
+    float acc[2][64];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int nt = 0; nt < 16; ++nt)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[i][nt][k] = 0.0f;
+    for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.0f;
+    uint32_t a[2][2][4] = {};  // [buffer][M tile][register]
+    int prev_slot = -1;
 #pragma unroll 1
     for (int tap = 0; tap < n_taps; ++tap) {
-      const int dy = tap / 3, dx = V == kTapsAligned ? 0 : tap - (tap / 3) * 3;
-      __syncthreads();  // the previous tap's MMAs are done with wtap
-      // w2t: (9, 128, 128) bf16 [tap][cout][cin]
-      for (int i = tid; i < kCmid * 16; i += kThreads)
-        reinterpret_cast<uint4*>(wtap + (i >> 4) * kCStride)[i & 15] =
-            reinterpret_cast<const uint4*>(w2t + (static_cast<size_t>(tap) * kCmid + (i >> 4)) * kCmid)[i & 15];
-      __syncthreads();
-#pragma unroll 2
-      for (int ks = 0; ks < kCmid / 16; ++ks) {
-        uint32_t af[2][4];
+      const int dy = tap / 3, dx = V == kTapsAligned ? 0 : tap - 3 * dy;
+      const uint32_t a_tap = y_lane + ((dy * kHaloC + dx) * kYStride) * 2;
+#pragma unroll 1
+      for (int kh = 0; kh < 2; ++kh, ring.next()) {
+        mbar_wait(L::slot_full(smem, ring.idx), ring.round);
+        const uint64_t desc = desc_sw128(smem_u32(smem) + ring.idx * kSlotBytes);
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const __nv_bfloat16* q0 =
-              c1s + ((2 * warp + i + dy) * kHalo + g + dx) * kCStride + ks * 16 + 2 * t;
-          const __nv_bfloat16* q1 = q0 + 8 * kCStride;
-          af[i][0] = lds32(q0);
-          af[i][1] = lds32(q1);
-          af[i][2] = lds32(q0 + 8);
-          af[i][3] = lds32(q1 + 8);
-        }
+        for (int kc = 0; kc < 4; ++kc) {
+          const int buf = kc & 1;
 #pragma unroll
-        for (int nt = 0; nt < 16; ++nt) {
-          const __nv_bfloat16* q = wtap + (nt * 8 + g) * kCStride + ks * 16 + 2 * t;
-          const uint32_t b0 = lds32(q), b1 = lds32(q + 8);
-          mma_bf16(acc[0][nt], af[0], b0, b1);
-          mma_bf16(acc[1][nt], af[1], b0, b1);
+          for (int m = 0; m < 2; ++m)
+            ldmatrix_x4(a[buf][m], a_tap + m * kRowPair + (kh * 64 + kc * 16) * 2);
+          wgmma_fence();
+#pragma unroll
+          for (int m = 0; m < 2; ++m) wgmma_m64n128k16(acc[m], a[buf][m], desc + ((kc * 32) >> 4));
+          wgmma_commit();
+          wgmma_wait<1>();  // the step before is done with its fragments
+#pragma unroll
+          for (int m = 0; m < 2; ++m) keep(a[buf ^ 1][m]);
+          // ... and, at a slot's first step, with the slot before
+          if (kc == 0 && prev_slot >= 0) mbar_arrive(L::slot_empty(smem, prev_slot));
         }
+        prev_slot = ring.idx;
       }
     }
-    // relu, max of the row pair (acc[0], acc[1]) and of the channel halves
-    // (N tiles nt and nt + 8); pixel column g holds [0..1], g + 8 [2..3]
-    const int prow = half * 8 + warp;
+    wgmma_wait<0>();
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int m = 0; m < 2; ++m) {
+      keep(a[0][m]);
+      keep(a[1][m]);
+      keep(acc[m]);
+    }
+    if (prev_slot >= 0) mbar_arrive(L::slot_empty(smem, prev_slot));
+
+    // relu, max of the row pair (fragment rows g and g + 8) and of the
+    // channel halves (N blocks nb and nb + 8); 16 bytes a store
+    const int pcol = tl.x0 + 8 * wi + g;
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float v[2];
+    for (int m = 0; m < 2; ++m) {
+      const int prow = tl.r0 / 2 + 2 * wg + m;
+      __nv_bfloat16* dst = o + (static_cast<size_t>(prow) * wp + pcol) * kCin;
 #pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          const int e = 2 * i + k;
-          v[k] = fmaxf(fmaxf(fmaxf(acc[0][nt][e], acc[1][nt][e]),
-                             fmaxf(acc[0][nt + 8][e], acc[1][nt + 8][e])),
-                       0.0f);
+      for (int q = 0; q < 2; ++q) {
+        uint32_t v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int nb = 4 * q + k;
+          v[k] = relu_bf162(fmaxf(fmaxf(acc[m][4 * nb], acc[m][4 * nb + 2]),
+                                  fmaxf(acc[m][4 * (nb + 8)], acc[m][4 * (nb + 8) + 2])),
+                            fmaxf(fmaxf(acc[m][4 * nb + 1], acc[m][4 * nb + 3]),
+                                  fmaxf(acc[m][4 * (nb + 8) + 1], acc[m][4 * (nb + 8) + 3])));
         }
-        *reinterpret_cast<__nv_bfloat162*>(
-            o + (static_cast<size_t>(prow) * wp + x0 + g + 8 * i) * kCin + nt * 8 + 2 * t) =
-            __floats2bfloat162_rn(v[0], v[1]);
+        const uint4 chunk = quad_transpose(v, t);
+        if (pcol < wp) reinterpret_cast<uint4*>(dst)[4 * q + t] = chunk;
       }
+    }
+  }
+}
+
+template <int V>
+__global__ void __launch_bounds__(kThreads, 1)
+probe_kernel(const __nv_bfloat16* __restrict__ a1, const unsigned char* __restrict__ wslots,
+             __nv_bfloat16* __restrict__ out, int bts, int wp, int n_taps) {
+  using L = Layout<V>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = stem::aligned_smem(smem_raw);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kSlots; ++s) {
+      mbar_init(L::slot_full(smem, s), 1);  // the streaming lane's expect_tx arrival
+      mbar_init(L::slot_empty(smem, s), kConsumers);
+    }
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(L::stage_full(smem, s), kStagers);
+      mbar_init(L::stage_empty(smem, s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < kConsumers) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    consume_tiles<V>(smem, out, bts, wp, n_taps);
+  } else {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    const int warp = (threadIdx.x - kConsumers) >> 5;
+    const int lane = threadIdx.x & 31;
+    if (warp != 1)
+      stage_pixels<V>(smem, a1, bts, wp, (warp == 0 ? 0 : warp - 1) * 32 + lane);
+    else if (lane == 0)
+      stream_weights<V>(smem, wslots, bts, wp, n_taps);
+  }
+}
+
+// out rows half * 8 + [0, 8), columns x0 + [0, 16) of each (b, t) tile
+__global__ void __launch_bounds__(kCopyThreads)
+probe_copy_kernel(const __nv_bfloat16* __restrict__ a1, __nv_bfloat16* __restrict__ out, int bts,
+                  int wp) {
+  const int cbs = wp / kCopyC;
+  const int tiles = bts * 2 * cbs;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int bt = tile / (2 * cbs);
+    const int rem = tile - bt * 2 * cbs;
+    const int half = rem / cbs, x0 = (rem - half * cbs) * kCopyC;
+    const __nv_bfloat16* a = a1 + static_cast<size_t>(bt) * kRowsIn * wp * kCin;
+    __nv_bfloat16* o = out + static_cast<size_t>(bt) * kRowsOut * wp * kCin;
+    for (int i = threadIdx.x; i < 8 * kCopyC * 8; i += kCopyThreads) {
+      const int pix = i >> 3, r = half * 8 + pix / kCopyC, c = x0 + pix % kCopyC;
+      reinterpret_cast<uint4*>(o + (static_cast<size_t>(r) * wp + c) * kCin)[i & 7] =
+          reinterpret_cast<const uint4*>(a + (static_cast<size_t>(r) * wp + c) * kCin)[i & 7];
     }
   }
 }
@@ -240,37 +575,42 @@ __global__ void lane_unflatten_sum_kernel(const __nv_bfloat16* __restrict__ x,
 bool g_smem_allowed[5][kMaxDevices] = {};
 
 template <int V>
-int launch(const void* a1, const void* w1t, const void* w2t, void* out, int bts, int wp,
-           int n_taps, int grid, cudaStream_t stream) {
-  const size_t smem = V == kCopy ? 0 : kSmemBytes;
-  if (smem) {
-    const cudaError_t err = stem::smem_opt_in(g_smem_allowed[V], probe_kernel<V>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  probe_kernel<V><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(a1), static_cast<const __nv_bfloat16*>(w1t),
-      static_cast<const __nv_bfloat16*>(w2t), static_cast<__nv_bfloat16*>(out), bts, wp, n_taps);
+int launch(const void* a1, const void* wslots, void* out, int bts, int wp, int n_taps,
+           int max_blocks, cudaStream_t stream) {
+  const int grid = min(tile_count<V>(bts, wp), max_blocks);
+  const cudaError_t err =
+      stem::smem_opt_in(g_smem_allowed[V], probe_kernel<V>, Layout<V>::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  probe_kernel<V><<<grid, kThreads, Layout<V>::kBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(a1), static_cast<const unsigned char*>(wslots),
+      static_cast<__nv_bfloat16*>(out), bts, wp, n_taps);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // variant: 0 copy, 1 conv1_1, 2 conv1_1_store, 3 taps (n_taps of 9),
-// 4 aligned (9 taps). a1: (B*T, 34, WP, 64) bf16; w1t: (128, 64) bf16
-// [cout][cin]; w2t: (9, 128, 128) bf16 [dy*3+dxp][cout][cin]; out:
-// (B*T, 16, WP, 64) bf16. All contiguous, WP a multiple of 16. `grid`
-// persistent blocks. Returns cudaGetLastError() after the launch.
-extern "C" int stem_probe_launch(int variant, const void* a1, const void* w1t, const void* w2t,
-                                 void* out, int bts, int wp, int n_taps, int grid, void* stream) {
-  if (bts <= 0 || wp <= 0 || wp % kColT || grid <= 0 || n_taps < 0 || n_taps > 9)
+// 4 aligned (9 taps). a1: (B*T, 34, WP, 64) bf16; wslots: (19, 128, 64)
+// bf16, slot 0 w1 and slot 1 + 2 tap + h the K half h of tap dy*3+dxp, each
+// [cout][cin] with 16-byte chunk c of row r stored at chunk c ^ (r & 7)
+// (ops/stem_probe.probe_weight_slots); out: (B*T, 16, WP, 64) bf16. All
+// contiguous and 16-byte aligned, WP a multiple of 16. At most
+// `max_blocks` persistent blocks, no more than there are tiles. Returns
+// cudaGetLastError() after the launch.
+extern "C" int stem_probe_launch(int variant, const void* a1, const void* wslots, void* out,
+                                 int bts, int wp, int n_taps, int max_blocks, void* stream) {
+  if (bts <= 0 || wp <= 0 || wp % kCopyC || max_blocks <= 0 || n_taps < 0 || n_taps > 9)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (variant) {
-    case kCopy: return launch<kCopy>(a1, w1t, w2t, out, bts, wp, n_taps, grid, s);
-    case kConv11: return launch<kConv11>(a1, w1t, w2t, out, bts, wp, n_taps, grid, s);
-    case kConv11Store: return launch<kConv11Store>(a1, w1t, w2t, out, bts, wp, n_taps, grid, s);
-    case kTaps: return launch<kTaps>(a1, w1t, w2t, out, bts, wp, n_taps, grid, s);
-    case kTapsAligned: return launch<kTapsAligned>(a1, w1t, w2t, out, bts, wp, 9, grid, s);
+    case kCopy:
+      probe_copy_kernel<<<min(bts * 2 * (wp / kCopyC), max_blocks), kCopyThreads, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(a1), static_cast<__nv_bfloat16*>(out), bts, wp);
+      return static_cast<int>(cudaGetLastError());
+    case kConv11: return launch<kConv11>(a1, wslots, out, bts, wp, 0, max_blocks, s);
+    case kConv11Store: return launch<kConv11Store>(a1, wslots, out, bts, wp, 0, max_blocks, s);
+    case kTaps: return launch<kTaps>(a1, wslots, out, bts, wp, n_taps, max_blocks, s);
+    case kTapsAligned: return launch<kTapsAligned>(a1, wslots, out, bts, wp, 9, max_blocks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -87,11 +87,35 @@ def lane_unflatten_sum_plain(x):
     return s.to(torch.bfloat16)
 
 
+#: weight slots of the kernel: w1, then the two K halves of each of the 9 taps
+WEIGHT_SLOTS = 19
+
+
+def probe_weight_slots(w1, w2):
+    """The kernel's weight stream: ``(19, 128, 64)`` bf16, contiguous.
+
+    Slot 0 is w1 and slot ``1 + 2 * (3 * dy + dx) + h`` the input channels
+    ``64 h .. 64 h + 63`` of tap ``w2[dy, dx]``, each as ``[cout][cin]``
+    rows of 128 bytes in the 128-byte swizzle that ``wgmma``'s matrix
+    descriptor reads: the 16-byte chunk ``c`` of row ``r`` sits at chunk
+    ``c ^ (r & 7)``. A slot then needs no rearranging on the card: one
+    bulk copy lands it in shared memory. ``w1`` ``(64, 128)`` and ``w2``
+    ``(3, 3, 128, 128)`` may be any views."""
+    w1t = w1.to(torch.bfloat16).t()  # [cout][cin]
+    w2t = w2.to(torch.bfloat16).permute(0, 1, 3, 2).reshape(9, _CMID, 2, _CIN)  # [tap][cout][h][cin]
+    slots = torch.cat([w1t[None], w2t.permute(0, 2, 1, 3).reshape(18, _CMID, _CIN)])
+    row = torch.arange(_CMID, device=slots.device)[:, None]
+    chunk = torch.arange(8, device=slots.device)[None, :]
+    # the chunk stored at position c is the row's chunk c ^ (r & 7)
+    swizzled = slots.reshape(WEIGHT_SLOTS, _CMID, 8, 8)[:, row, chunk ^ (row & 7)]
+    return swizzled.reshape(WEIGHT_SLOTS, _CMID, _CIN).contiguous()
+
+
 @functools.cache
 def _launchers():
     lib = _build.libraries()["stem_probe"]
     probe, unflatten = lib.stem_probe_launch, lib.lane_unflatten_sum_launch
-    probe.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    probe.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                       + [ctypes.c_void_p])
     unflatten.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     probe.restype = unflatten.restype = ctypes.c_int
@@ -127,15 +151,12 @@ def stem_probe(a1, w1, w2, variant: str):
     if out.numel() == 0:
         return out
     code, n_taps = PROBE_VARIANTS[variant]
-    w1t = w1.to(torch.bfloat16).t().contiguous()  # [cout][cin]
-    w2t = w2.to(torch.bfloat16).permute(0, 1, 3, 2).reshape(9, _CMID, _CMID).contiguous()
-    n_tiles = bsz * tiles * 2 * (wp // 16)
+    wslots = probe_weight_slots(w1, w2)
     per_sm = 8 if code == 0 else 1  # the copy needs no shared memory
     sms = torch.cuda.get_device_properties(a1.device).multi_processor_count
     with torch.cuda.device(a1.device):
-        rc = _launchers()[0](code, a1.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), out.data_ptr(),
-                             bsz * tiles, wp, n_taps, min(n_tiles, sms * per_sm),
-                             _stream(a1.device))
+        rc = _launchers()[0](code, a1.data_ptr(), wslots.data_ptr(), out.data_ptr(), bsz * tiles,
+                             wp, n_taps, sms * per_sm, _stream(a1.device))
     _build.check(rc, f"stem_probe({variant})")
     stem_probe.launches += 1
     return out

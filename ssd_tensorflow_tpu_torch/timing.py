@@ -40,11 +40,19 @@ def device_kernels(prof, iters: int = 1):
     return kernels
 
 
+def per_call_ms(kernels) -> float:
+    """Device ms per call summed over ``kernels`` (rows of
+    :func:`device_kernels`): each kernel counts as its mean recorded
+    launch times its launches per call, so that a record the profiler
+    dropped does not shorten the result."""
+    return sum(ms / per_call * max(1, round(per_call)) for _, ms, per_call in kernels)
+
+
 def kernel_device_ms(fn, kernel_name: str, iters: int = 20, warmup: int = 2) -> float:
     """Mean device time (ms) per call of ``fn`` spent in the kernels whose
     name contains ``kernel_name``, from a ``torch.profiler`` window over
-    ``iters`` calls; host launch cost is not in it. Raises when the
-    profiler saw no such kernel."""
+    ``iters`` calls (see :func:`per_call_ms`); host launch cost is not in
+    it. Raises when the profiler saw no such kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -58,4 +66,4 @@ def kernel_device_ms(fn, kernel_name: str, iters: int = 20, warmup: int = 2) -> 
     hits = [k for k in device_kernels(prof, iters) if kernel_name in k[0]]
     if not hits:
         raise RuntimeError(f"the profiler recorded no device time for {kernel_name!r}")
-    return sum(k[1] for k in hits)
+    return per_call_ms(hits)

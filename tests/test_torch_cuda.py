@@ -23,7 +23,11 @@ from ssd_tensorflow_tpu_torch.ops import nms_cuda, stem_cuda, stem_probe
 from ssd_tensorflow_tpu_torch.ops.boxes import box_canvas_corners
 from ssd_tensorflow_tpu_torch.ops.nms import class_shifted
 
+from torch_nms_cases import nms_cases
+
 pytestmark = pytest.mark.cuda
+
+NMS_CASES = nms_cases()
 
 
 @pytest.fixture
@@ -49,6 +53,54 @@ def test_nms_kernel_matches_plain(cuda, b, d):
     got = nms_cuda.nms_keep(shifted.to(cuda), valid.to(cuda))
     assert nms_cuda.nms_keep.launches == before + 1
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", list(NMS_CASES))
+def test_nms_kernel_matches_plain_on_block_scan_cases(cuda, name):
+    corners, valid, threshold, expected = NMS_CASES[name]
+    corners, valid = torch.from_numpy(corners), torch.from_numpy(valid)
+    want = nms_cuda.nms_keep_plain(corners, valid, threshold)
+    got = nms_cuda.nms_keep(corners.to(cuda), valid.to(cuda), threshold)
+    assert torch.equal(got.cpu(), want)
+    if expected is not None:
+        assert torch.equal(want, torch.from_numpy(expected))
+
+
+@pytest.mark.parametrize("threshold", [0.45, 0.5, 0.0, 1.0, -0.25, 1e-3, 0.999])
+def test_nms_kernel_thresholds_and_fractional_corners(cuda, threshold):
+    """The kernel divides only where the rounding of the quotient could
+    decide: many IoUs of nested boxes are simple fractions (k / 100) that
+    sit exactly at or one ulp from such thresholds; fractional corners,
+    zero and negative areas and infinities take every other branch."""
+    rng = np.random.default_rng(17)
+    b, d = 4, 200
+    nested = np.zeros((b, d, 4), dtype=np.float32)  # x in [0, 99], rows [0, k): IoU k / 100
+    nested[..., 1] = 99
+    nested[..., 3] = rng.integers(0, 100, (b, d))
+    frac = rng.uniform(0, 300, (b, d, 4)).astype(np.float32)
+    frac[..., 1] += frac[..., 0]
+    frac[..., 3] = frac[..., 2] + rng.uniform(-2, 200, (b, d))  # some areas <= 0
+    frac[0, 3, 1] = np.inf
+    frac[1, 9, :] = 1e30
+    frac[2, 5, 2] = -np.inf
+    valid = torch.from_numpy(rng.uniform(0, 1, (b, d)) > 0.1)
+    for corners in (nested, frac):
+        corners = torch.from_numpy(corners)
+        want = nms_cuda.nms_keep_plain(corners, valid, threshold)
+        got = nms_cuda.nms_keep(corners.to(cuda), valid.to(cuda), threshold)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_nms_kernel_alternating_chain_at_the_largest_d(cuda):
+    """D = 1024, 32 blocks: every candidate overlaps only its predecessor,
+    so each block's first live bit depends on the block before."""
+    d = nms_cuda.MAX_CANDIDATES
+    idx = torch.arange(d, dtype=torch.float32)
+    corners = torch.stack([30 * idx, 30 * idx + 99, torch.zeros(d), torch.full((d,), 99.0)], -1)[None]
+    valid = torch.ones((1, d), dtype=torch.bool)
+    got = nms_cuda.nms_keep(corners.to(cuda), valid.to(cuda))
+    assert torch.equal(got.cpu()[0], torch.arange(d) % 2 == 0)
+    assert torch.equal(got.cpu(), nms_cuda.nms_keep_plain(corners, valid))
 
 
 def test_nms_kernel_rejects_too_many_candidates(cuda):
@@ -134,6 +186,30 @@ def test_stem_probe_kernel_matches_plain(cuda, variant):
         assert torch.equal(got, want)
     else:
         _one_step(got, want)
+
+
+#: one column tile narrower than 32, exactly one, a ragged second one, fewer
+#: tiles than SMs and more, a single (b, t) tile
+PROBE_SHAPES = [(1, 1, 16), (1, 2, 32), (3, 1, 80), (2, 5, 64), (1, 1, 256)]
+
+
+@pytest.mark.parametrize("shape", PROBE_SHAPES)
+@pytest.mark.parametrize("variant", ["conv1_1", "conv1_1_store", "taps3", "taps9", "taps9_aligned"])
+def test_stem_probe_kernel_shapes(cuda, variant, shape):
+    a1, w1, w2 = stem_probe.probe_inputs(sum(shape), cuda, shape=shape)
+    got = stem_probe.stem_probe(a1, w1, w2, variant)
+    want = stem_probe.stem_probe_plain(a1, w1, w2, variant)
+    assert got.shape == want.shape == (*shape[:2], 16, shape[2], 64)
+    _one_step(got, want)
+    assert float((got == want).float().mean()) > 0.98
+
+
+def test_stem_probe_kernel_takes_weight_views(cuda):
+    a1, w1, w2 = stem_probe.probe_inputs(5, cuda, shape=(1, 2, 32))
+    want = stem_probe.stem_probe(a1, w1, w2, "taps9")
+    got = stem_probe.stem_probe(a1, w1.t().contiguous().t(),
+                                w2.permute(0, 1, 3, 2).contiguous().permute(0, 1, 3, 2), "taps9")
+    assert torch.equal(got, want)
 
 
 def test_lane_unflatten_sum_kernel_is_bit_exact(cuda):

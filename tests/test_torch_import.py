@@ -11,7 +11,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "ssd_tensorflow_tpu_torch"
-TOOLS = [ROOT / "tools" / f"torch_{name}.py" for name in ("profile", "stem_probe", "conv_epilogue")]
+TOOLS = [ROOT / "tools" / f"torch_{name}.py" for name in ("profile", "stem_probe", "conv_epilogue", "stem_bench", "kernel_bench")]
 _JAX_PACKAGE = re.compile(r"^\s*(from|import)\s+(ssd_tensorflow_tpu|jax)(\.|\s|$)", re.M)
 
 

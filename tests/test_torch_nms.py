@@ -17,6 +17,9 @@ from ssd_tensorflow_tpu.ops.postprocess import decode_scores as jax_decode_score
 from ssd_tensorflow_tpu_torch.ops import nms, nms_cuda, postprocess
 
 from reference_impl import random_boxes
+from torch_nms_cases import nms_cases
+
+NMS_CASES = nms_cases()
 
 
 def _candidates(rng, b, d, num_classes=4):
@@ -51,6 +54,20 @@ def test_keep_bit_exact(seed, d):
     for i in range(b):
         want = np.asarray(jax_class_aware_keep(corners[i], classes[i], valid[i], 0.45))
         np.testing.assert_array_equal(got[i], want)
+
+
+@pytest.mark.parametrize("name", list(NMS_CASES))
+def test_keep_bit_exact_on_block_scan_cases(name):
+    """Inputs that stress a scan in 32-candidate blocks (block-edge sizes,
+    suppression chains across blocks, identical boxes, valid holes, a NaN
+    corner, an IoU equal to the threshold): the plain version equals the
+    JAX package's kernel, run in interpret mode, bit for bit."""
+    corners, valid, threshold, expected = NMS_CASES[name]
+    got = nms_cuda.nms_keep(torch.from_numpy(corners), torch.from_numpy(valid), threshold).numpy()
+    pallas = np.asarray(nms_keep_pallas(corners, valid, threshold=threshold, interpret=True))
+    np.testing.assert_array_equal(got, pallas)
+    if expected is not None:
+        np.testing.assert_array_equal(got, expected)
 
 
 def test_all_invalid_keeps_nothing():

@@ -84,7 +84,7 @@ def main(argv=None) -> int:
             scale = float(want.float().abs().max())
             del want
             emit({"row": f"[2] stem_probe {variant}", "shape": list(a1.shape),
-                  "max_abs_err": err, "max_ref": scale, **_times(fn, "probe_kernel")})
+                  "max_abs_err": err, "max_ref": scale, **_times(fn, "probe_")})
         del a1
 
         cfg = ssd_vgg.ModelConfig(preset_name="vgg512", num_classes=20)
