@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's float detection paths on one NVIDIA GPU.
+"""Drive the PyTorch port's detection paths on one NVIDIA GPU.
 
 Run from the repository root:
 
@@ -41,6 +41,17 @@ non-zero, and the final line is printed only when every phase passed:
    same model run through its stem's plain version (conf within 0.02,
    argmax class on >= 99 % of anchors, locs within 0.05); it reports the
    peak device memory of that one run and images/s over chained batches.
+5. int8_path: the shipped int8 W8A8 bundle
+   (``assets/vgg512_int8_minivoc.ssdtpu.npz``, trained vgg512) through
+   ``InferenceModel.from_bundle(...).run_scores`` on the same batch. Every
+   conv's int32 sums on 2 images must equal ``int8_conv``'s plain route's
+   on the card bit for bit; the counted run must launch ``int8_conv`` once
+   a conv layer and NMS, and no stem kernel; its scores must be the same
+   in two runs, agree with the same model with ``int8_conv`` patched to
+   its plain route (argmax class on >= 99.9 % of anchors, conf within
+   1e-3, locs within 1e-2), be finite and give 0..200 detections per
+   image; it reports images/s, ms per batch and peak device memory as
+   phase 4 does.
 
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is ``{"ok": true, "device": {...}}``.
@@ -63,6 +74,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 MEAN_BGR = (104.0, 117.0, 123.0)
+INT8_BUNDLE = "assets/vgg512_int8_minivoc.ssdtpu.npz"
 
 
 def _emit(obj) -> None:
@@ -449,12 +461,15 @@ def check_probes(seed: int, device):
     if not torch.equal(got, want):
         raise AssertionError("lane_unflatten_sum differs from its plain version")
     times = _times(lambda: stem_probe.lane_unflatten_sum(x), "lane_unflatten", iters=50)
+    # the practical bound of launch-sized work: an empty kernel on the same grid
+    floor = _times(lambda: stem_probe.launch_floor(x), "launch_floor", iters=50)
     rows.append(_row("lane_unflatten_sum", "stem_probe.cu", "tools/stem_uint8_probe.py:45",
                      _err(got, want)[0], times,
                      _plain_ms(lambda: stem_probe.lane_unflatten_sum_plain(x)),
                      _bound(x.numel() * 2 + got.numel() * 2, x.numel(), PEAK_F32_FLOPS),
                      _plain_ms(lambda: x.view(36, 256, 6).sum(dim=-1)),
-                     shape=list(x.shape), tolerance=0.0))
+                     shape=list(x.shape), tolerance=0.0, launch_floor_ms=floor["ms"],
+                     launch_floor_event_ms=floor["event_ms"]))
     return rows
 
 
@@ -464,11 +479,12 @@ PROBE_LINES = {"copy": 46, "conv1_1": 50, "conv1_1_store": 57, "taps1": 67, "tap
 
 
 def _launch_counts():
-    from ssd_tensorflow_tpu_torch.ops import nms_cuda, stem_cuda, stem_probe
+    from ssd_tensorflow_tpu_torch.ops import int8_conv, nms_cuda, stem_cuda, stem_probe
 
     return {"nms_keep": nms_cuda.nms_keep, "fused_stem": stem_cuda.fused_stem,
             "fused_stem_uint8": stem_cuda.fused_stem_uint8, "stem_probe": stem_probe.stem_probe,
-            "lane_unflatten_sum": stem_probe.lane_unflatten_sum}
+            "lane_unflatten_sum": stem_probe.lane_unflatten_sum,
+            "int8_conv": int8_conv.int8_conv}
 
 
 def counted(run):
@@ -483,6 +499,26 @@ def counted(run):
     result = run()
     torch.cuda.synchronize()
     return result, {name: fn.launches for name, fn in wrappers.items()}
+
+
+def _path_checks(name, dets, model, batch):
+    """Finite detections, 0..200 per image, box lists that match the
+    valid mask: ``(per-image counts, stats)``."""
+    import torch
+
+    from ssd_tensorflow_tpu_torch.ops.postprocess import detections_to_boxes
+
+    rows = detections_to_boxes(dets, model.lid2name)
+    counts = dets.valid.sum(dim=1)
+    if len(rows) != batch or [len(r) for r in rows] != counts.tolist():
+        raise AssertionError(f"{name}: detections_to_boxes rows disagree with the valid mask")
+    if not (0 <= int(counts.min()) and int(counts.max()) <= 200):
+        raise AssertionError(f"{name}: detection counts out of [0, 200]: {counts.tolist()}")
+    v = dets.valid
+    if not (torch.isfinite(dets.scores[v]).all() and torch.isfinite(dets.boxes[v]).all()):
+        raise AssertionError(f"{name}: non-finite detections")
+    return {"min": int(counts.min()), "max": int(counts.max()),
+            "mean": float(counts.float().mean())}
 
 
 def detection_path(model, images, batch: int):
@@ -502,17 +538,10 @@ def detection_path(model, images, batch: int):
     torch.cuda.reset_peak_memory_stats()
     dets, launches = counted(lambda: model.run_scores(images))
     peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30
-    rows = detections_to_boxes(dets, model.lid2name)
-    if launches["nms_keep"] < 1 or launches[stem] < 1 or launches[other] != 0:
+    if (launches["nms_keep"] < 1 or launches[stem] < 1 or launches[other] != 0
+            or launches["int8_conv"] != 0):
         raise AssertionError(f"the {variant} path did not run its kernels: {launches}")
-    counts = dets.valid.sum(dim=1)
-    if len(rows) != batch or [len(r) for r in rows] != counts.tolist():
-        raise AssertionError("detections_to_boxes rows disagree with the valid mask")
-    if not (0 <= int(counts.min()) and int(counts.max()) <= 200):
-        raise AssertionError(f"detection counts out of [0, 200]: {counts.tolist()}")
-    v = dets.valid
-    if not (torch.isfinite(dets.scores[v]).all() and torch.isfinite(dets.boxes[v]).all()):
-        raise AssertionError("non-finite detections")
+    counts = _path_checks(variant, dets, model, batch)
 
     with torch.inference_mode():
         conf, cls, locs = ssd_vgg.apply_scores(model.params, images, cfg)
@@ -539,13 +568,94 @@ def detection_path(model, images, batch: int):
     _emit({
         "phase": "main_path", "stem_variant": variant, "preset": cfg.preset_name,
         "dtype": cfg.compute_dtype, "batch": batch, "launches": launches,
-        "detections_per_image": {"min": int(counts.min()), "max": int(counts.max()),
-                                 "mean": float(counts.float().mean())},
+        "detections_per_image": counts,
         "plain_stem_agreement": agree,
         "batch_ms": model_ms, "images_per_s": batch / model_ms * 1e3,
         "host_images_per_s_with_box_lists": batch / host_s,
         "peak_mem_gib": peak_mem_gib,
     })
+    return launches
+
+
+def qconv_calls(model, images):
+    """Every ``int8_conv`` call of the int8 ``model``'s forward on
+    ``images``: ``[(xq, staged filter, stride, padding, dilation, sums)]``."""
+    from ssd_tensorflow_tpu_torch.models import quantized
+
+    calls = []
+    real = quantized.int8_conv
+
+    def record(xq, wt, stride=1, padding="SAME", dilation=1):
+        y = real(xq, wt, stride, padding, dilation)
+        calls.append((xq, wt, stride, padding, dilation, y))
+        return y
+
+    with mock.patch.object(quantized, "int8_conv", record):
+        model.forward_scores(images)
+    return calls
+
+
+def int8_path(bundle, images, batch: int, device):
+    """Phase 5: the shipped int8 bundle (see the module doc)."""
+    import torch
+
+    from ssd_tensorflow_tpu_torch.inference import InferenceModel
+    from ssd_tensorflow_tpu_torch.models import quantized
+    from ssd_tensorflow_tpu_torch.ops.int8_conv import int8_conv_plain
+    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
+
+    model = InferenceModel.from_bundle(str(bundle), device=device)
+    n_convs = len(model.act_scales)
+    with torch.inference_mode():
+        calls = qconv_calls(model, images[:2])
+        layers = []
+        for xq, wt, stride, padding, dilation, got in calls:
+            want = int8_conv_plain(xq, wt, stride, padding, dilation)
+            layers.append({"x": list(xq.shape), "k": [wt.kh, wt.kw, wt.cin, wt.cout],
+                           "stride": stride, "padding": padding, "dilation": dilation,
+                           "max_abs_sum": int(want.abs().max())})
+            if not torch.equal(got, want):
+                raise AssertionError(f"int8_conv differs from its plain route: {layers[-1]}, "
+                                     f"{int((got != want).sum())} sums")
+        del calls
+    if len(layers) != n_convs:
+        raise AssertionError(f"recorded {len(layers)} int8 convs, the bundle has {n_convs}")
+
+    torch.cuda.reset_peak_memory_stats()
+    dets, launches = counted(lambda: model.run_scores(images))
+    peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30
+    if (launches["int8_conv"] != n_convs or launches["nms_keep"] < 1
+            or launches["fused_stem"] or launches["fused_stem_uint8"]):
+        raise AssertionError(f"the int8 path did not run its kernels as it should: {launches}")
+    counts = _path_checks("int8", dets, model, batch)
+
+    with torch.inference_mode():
+        scores = model.forward_scores(images)
+        repeat = model.forward_scores(images)
+        with mock.patch.object(quantized, "int8_conv", int8_conv_plain):
+            plain = model.forward_scores(images)
+    (conf, cls, locs), (conf_p, cls_p, locs_p) = scores, plain
+    if not (torch.isfinite(conf).all() and torch.isfinite(locs).all()):
+        raise AssertionError("int8: non-finite pre-NMS scores")
+    if not all(torch.equal(a, b) for a, b in zip(scores, repeat)):
+        raise AssertionError("int8: two runs of the same batch gave different scores")
+    agree = {"conf_max_abs": float((conf - conf_p).abs().max()),
+             "cls_share": float((cls == cls_p).float().mean()),
+             "locs_max_abs": float((locs - locs_p).abs().max()),
+             "scores_identical": all(torch.equal(a, b) for a, b in zip(scores, plain))}
+    if not (agree["cls_share"] >= 0.999 and agree["conf_max_abs"] <= 1e-3
+            and agree["locs_max_abs"] <= 1e-2):
+        raise AssertionError(f"the int8 path and its plain-route twin disagree: {agree}")
+    del scores, repeat, plain, conf, cls, locs, conf_p, cls_p, locs_p
+
+    batch_ms = cuda_event_ms(lambda: model.run_scores(images), iters=5, warmup=1)
+    _emit({"phase": "int8_path", "bundle": str(Path(bundle).name),
+           "preset": model.config.preset_name, "batch": batch, "launches": launches,
+           "conv_layers": len(layers), "layers_bit_exact": True,
+           "max_abs_sum": max(r["max_abs_sum"] for r in layers),
+           "plain_route_agreement": agree, "detections_per_image": counts,
+           "batch_ms": batch_ms, "images_per_s": batch / batch_ms * 1e3,
+           "peak_mem_gib": peak_mem_gib})
     return launches
 
 
@@ -609,6 +719,9 @@ def main(argv=None) -> int:
             InferenceModel(params, cfg, overrides={"pallas_stem_variant": "uint8"},
                            device=device), images, args.batch),
     }
+    # 5. the shipped int8 bundle
+    launches["int8"] = int8_path(Path(__file__).resolve().parent / INT8_BUNDLE, images,
+                                 args.batch, device)
     with torch.inference_mode():
         _, launches["fused_stem_pallas"] = counted(
             lambda: stem_cuda.fused_stem_pallas(model.params, images, MEAN_BGR))

@@ -10,9 +10,12 @@ Every TPU kernel of the JAX package is a hand-written CUDA kernel for
 ``sm_90a`` here (``csrc/``): the split conv1_2 + pool1 stem and the whole
 uint8 stem (``ops/stem_cuda.py``), the fused IoU + greedy NMS
 (``ops/nms_cuda.py``), and the stem probes' kernels
-(``ops/stem_probe.py``). Entry points run on ``device="cuda"`` unless the
-caller asks for the CPU; on the CPU each kernel's wrapper runs its plain
-PyTorch version.
+(``ops/stem_probe.py``). The int8 W8A8 deploy path
+(``models/quantized.py``) computes its integer convolutions by im2col and
+``torch._int_mm`` (``ops/int8_conv.py``): the JAX package leaves that
+product to XLA, outside any Pallas kernel. Entry points run on
+``device="cuda"`` unless the caller asks for the CPU; on the CPU each
+kernel's wrapper runs its plain PyTorch version.
 """
 
 from __future__ import annotations

@@ -1,10 +1,13 @@
-"""Inference façade: load a float model bundle and run fused detection.
+"""Inference façade: load a model bundle and run fused detection.
 
 The bundle is the JAX package's npz format: a ``__meta__`` JSON entry
-(model config, label map, format tag) and the parameters as
-``leaf_<i>`` arrays in JAX tree-flatten order, which is sorted dict keys
-at every level, convolutions HWIO. Bundles written by either package
-load in the other.
+(model config, label map, format tag, and for an int8 bundle the
+activation scales) and the parameters as ``leaf_<i>`` arrays in JAX
+tree-flatten order, which is sorted dict keys at every level,
+convolutions HWIO. A float bundle holds ``b``, ``w`` per conv; an int8
+(W8A8) bundle ``b``, ``w_scale``, ``wq`` (int8). VGG bundles written by
+either package load in the other; the family int8 bundles (resnet /
+mobilenet, per-channel scales folded into the weights) are not ported.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import json
 import numpy as np
 import torch
 
-from ssd_tensorflow_tpu_torch import resolve_device
+from ssd_tensorflow_tpu_torch import get_preset_by_name, resolve_device
+from ssd_tensorflow_tpu_torch.models import quantized
 from ssd_tensorflow_tpu_torch.models.ssd_vgg import (
     ModelConfig,
     apply_scores,
@@ -29,9 +33,16 @@ from ssd_tensorflow_tpu_torch.ops.postprocess import (
     decode_scores,
     detections_to_boxes,
 )
-from ssd_tensorflow_tpu_torch.weights import params_from_jax, params_to_jax
+from ssd_tensorflow_tpu_torch.weights import (
+    params_from_jax,
+    params_to_jax,
+    qparams_from_jax,
+    qparams_to_jax,
+    stage_qparams,
+)
 
 FLOAT_BUNDLE_FORMAT = "ssd_tensorflow_tpu.bundle.v1"
+INT8_BUNDLE_FORMAT = "ssd_tensorflow_tpu.bundle.int8.v1"
 
 
 def model_config_from_dict(d: dict) -> ModelConfig:
@@ -64,35 +75,53 @@ def _leaf_order(shapes: dict):
     return [(name, key) for name in sorted(shapes) for key in sorted(shapes[name])]
 
 
-def save_bundle(path: str, params, model_cfg: ModelConfig, lid2name=None):
-    """Write a float inference bundle of the port's parameters."""
-    tree = params_to_jax(params)
-    arrays = {
-        f"leaf_{i}": tree[name][key]
-        for i, (name, key) in enumerate(_leaf_order(param_shapes(model_cfg)))
-    }
+def qparam_shapes(config: ModelConfig) -> dict:
+    """``{layer: {leaf: shape}}`` of an int8 bundle: each conv's ``w``
+    becomes ``wq`` (HWIO int8) beside a per-output-channel ``w_scale``."""
+    shapes = {}
+    for name, leaves in param_shapes(config).items():
+        if "w" in leaves:
+            shapes[name] = {"b": leaves["b"], "w_scale": leaves["b"], "wq": leaves["w"]}
+        else:
+            shapes[name] = dict(leaves)
+    return shapes
+
+
+def save_bundle(path: str, params, model_cfg: ModelConfig, lid2name=None, act_scales=None):
+    """Write an inference bundle of the port's parameters: float, or with
+    ``act_scales`` given, int8 of the port's q-params
+    (``models/quantized.quantize_weights``) with the scales in its meta."""
+    if act_scales is None:
+        tree, shapes = params_to_jax(params), param_shapes(model_cfg)
+    else:
+        tree, shapes = qparams_to_jax(params), qparam_shapes(model_cfg)
+    arrays = {f"leaf_{i}": tree[name][key] for i, (name, key) in enumerate(_leaf_order(shapes))}
     meta = {
         "model": model_config_to_dict(model_cfg),
         "lid2name": {str(k): v for k, v in (lid2name or {}).items()},
-        "format": FLOAT_BUNDLE_FORMAT,
+        "format": FLOAT_BUNDLE_FORMAT if act_scales is None else INT8_BUNDLE_FORMAT,
     }
+    if act_scales is not None:
+        meta["act_scales"] = {k: float(v) for k, v in act_scales.items()}
     arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
     with open(path, "wb") as f:
         np.savez(f, **arrays)
 
 
 def load_bundle(path: str):
-    """Load ``(params, model config, lid2name)`` from a float bundle."""
+    """Load ``(params, model config, lid2name, act_scales)`` from a bundle:
+    the port's float parameters and ``act_scales=None``, or for an int8
+    bundle its q-params and activation scales."""
     with np.load(path) as data:
         meta = json.loads(bytes(data["__meta__"]))
-        fmt = meta.get("format", "")
-        if fmt.endswith("int8.v1"):
+        quantized_bundle = meta.get("format", "").endswith("int8.v1")
+        backbone = get_preset_by_name(meta["model"]["preset_name"]).backbone
+        if quantized_bundle and backbone != "vgg":
             raise NotImplementedError(
-                f"{path} is an int8 bundle ({fmt}); the int8 deploy path "
-                "(models/quantized) is the port's next slice and is not ported yet"
-            )
+                f"{path} is a {backbone} int8 bundle: the family int8 path (per-channel "
+                "scales folded into the weights) is not ported (ROADMAP.md queue 1 item 7)")
         model_cfg = model_config_from_dict(meta["model"])
-        shapes = param_shapes(model_cfg)
+        shapes = (qparam_shapes if quantized_bundle else param_shapes)(model_cfg)
         order = _leaf_order(shapes)
         n_leaves = sum(1 for k in data.files if k.startswith("leaf_"))
         if n_leaves != len(order):
@@ -106,33 +135,36 @@ def load_bundle(path: str):
                                  f"{leaf.shape}, expected {shapes[name][key]}")
             tree[name][key] = leaf
         lid2name = {int(k): v for k, v in meta.get("lid2name", {}).items()}
-    return params_from_jax(tree), model_cfg, lid2name
+    if not quantized_bundle:
+        return params_from_jax(tree), model_cfg, lid2name, None
+    return qparams_from_jax(tree), model_cfg, lid2name, dict(meta["act_scales"])
 
 
-def _apply_overrides(model_cfg: ModelConfig, overrides: dict) -> ModelConfig:
+def _apply_overrides(model_cfg: ModelConfig, overrides: dict, int8: bool = False) -> ModelConfig:
     """``model_cfg`` with execution-backend fields replaced, as the JAX
     package's ``InferenceModel(overrides=...)`` does; never serialized.
 
     Takes ``pallas_stem_variant``, and ``pallas_stem: True`` as a no-op so
     that the JAX package's override dicts work: the port's bf16 forward
     always runs a stem kernel, so ``pallas_stem: False`` raises. On a
-    bundle that does not run the bf16 float stem (float32) the stem
-    overrides are dropped with the JAX package's message.
+    bundle that does not run the bf16 float stem (float32, or int8, which
+    quantizes conv1 as it does every conv) the stem overrides are dropped
+    with the JAX package's message.
     """
     overrides = dict(overrides)
-    if not overrides.get("pallas_stem", True):
+    stem_keys = [k for k in ("pallas_stem", "pallas_stem_variant") if k in overrides]
+    if stem_keys and (int8 or model_cfg.compute_dtype != "bfloat16"):
+        kind = "int8" if int8 else model_cfg.compute_dtype
+        print(f"[!] pallas_stem override ignored: this {kind} "
+              "bundle does not run the bf16 VGG float stem")
+        for k in stem_keys:
+            overrides.pop(k)
+    if not overrides.pop("pallas_stem", True):
         raise ValueError(
             "pallas_stem=False is not available in the port: its bf16 forward "
             "always runs a stem kernel (ops/stem_cuda.py); choose the kernel "
             "with pallas_stem_variant"
         )
-    stem_keys = [k for k in ("pallas_stem", "pallas_stem_variant") if k in overrides]
-    if stem_keys and model_cfg.compute_dtype != "bfloat16":
-        print(f"[!] pallas_stem override ignored: this {model_cfg.compute_dtype} "
-              "bundle does not run the bf16 VGG float stem")
-        for k in stem_keys:
-            overrides.pop(k)
-    overrides.pop("pallas_stem", None)
     unknown = set(overrides) - {"pallas_stem_variant"}
     if unknown:
         raise ValueError(f"unsupported overrides {sorted(unknown)}; the port takes "
@@ -143,24 +175,32 @@ def _apply_overrides(model_cfg: ModelConfig, overrides: dict) -> ModelConfig:
 class InferenceModel:
     """End-to-end detector: uint8 BGR batch -> detections, on one device.
 
-    ``overrides`` holds execution-backend fields of the model config,
-    applied per run and never serialized (see :func:`_apply_overrides`).
+    With ``act_scales`` given, ``params`` are int8 q-params (an int8
+    bundle's, or ``models/quantized.quantize_weights``') and the forward is
+    the int8 W8A8 path (``models/quantized._forward_scores``); otherwise
+    float parameters and the float path. ``overrides`` holds
+    execution-backend fields of the model config, applied per run and
+    never serialized (see :func:`_apply_overrides`).
     """
 
     def __init__(self, params, model_cfg: ModelConfig, lid2name=None,
                  detection: DetectionConfig | None = None, overrides: dict | None = None,
-                 device="cuda"):
+                 device="cuda", act_scales: dict | None = None):
         if overrides:
-            model_cfg = _apply_overrides(model_cfg, overrides)
+            model_cfg = _apply_overrides(model_cfg, overrides, int8=act_scales is not None)
         self.device = resolve_device(device)
         self.config = model_cfg
         self.preset = model_cfg.preset
         self.lid2name = lid2name or {}
         self.detection = detection or DetectionConfig(top_k=200, confidence_threshold=0.01)
-        self.params = stage_head_weights({
-            name: {key: self._stage(v) for key, v in leaves.items()}
-            for name, leaves in params.items()
-        })
+        self.act_scales = act_scales
+        if act_scales is not None:
+            self.params = stage_qparams(params, act_scales, self.device)
+        else:
+            self.params = stage_head_weights({
+                name: {key: self._stage(v) for key, v in leaves.items()}
+                for name, leaves in params.items()
+            })
         self.anchors = torch.from_numpy(anchors_for_preset(self.preset)).to(self.device)
 
     def _stage(self, value):
@@ -173,15 +213,22 @@ class InferenceModel:
 
     @classmethod
     def from_bundle(cls, path: str, **kw):
-        params, cfg, lid2name = load_bundle(path)
-        return cls(params, cfg, lid2name, **kw)
+        params, cfg, lid2name, act_scales = load_bundle(path)
+        return cls(params, cfg, lid2name, act_scales=act_scales, **kw)
+
+    def forward_scores(self, x):
+        """Per-anchor ``(conf, cls, locs)`` of a uint8 batch on the device:
+        the int8 or the float forward, as the model was built."""
+        if self.act_scales is not None:
+            return quantized._forward_scores(self.params, x, self.config)
+        return apply_scores(self.params, x, self.config)
 
     def run_scores(self, images) -> Detections:
         """Forward + lazy softmax + decode + NMS of ``(B, H, W, 3)`` uint8
         BGR images (numpy or tensor); tensors stay on the device."""
         x = images if torch.is_tensor(images) else torch.from_numpy(np.ascontiguousarray(images))
         with torch.inference_mode():
-            conf, cls, locs = apply_scores(self.params, x.to(self.device), self.config)
+            conf, cls, locs = self.forward_scores(x.to(self.device))
             return decode_scores(conf, cls, locs, self.anchors, self.detection)
 
     def detect_boxes(self, images):

@@ -115,15 +115,22 @@ def probe_weight_slots(w1, w2):
 def _launchers():
     lib = _build.libraries()["stem_probe"]
     probe, unflatten = lib.stem_probe_launch, lib.lane_unflatten_sum_launch
+    floor = lib.launch_floor_launch
     probe.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                       + [ctypes.c_void_p])
-    unflatten.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-    probe.restype = unflatten.restype = ctypes.c_int
-    return probe, unflatten
+    unflatten.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    floor.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    probe.restype = unflatten.restype = floor.restype = ctypes.c_int
+    return probe, unflatten, floor
 
 
 def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def _one_wave(device) -> int:
+    """Blocks of the lane sum's 128 threads that one wave holds: 16 a SM."""
+    return 16 * torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stem_probe(a1, w1, w2, variant: str):
@@ -168,7 +175,8 @@ stem_probe.launches = 0
 def lane_unflatten_sum(x):
     """``(R, 6N)`` bf16 -> ``(R, N)`` bf16: each group of 6 consecutive
     values summed in float32 in order, rounded once. CUDA tensors run the
-    kernel (one launch in ``lane_unflatten_sum.launches``); CPU tensors
+    kernel (one launch in ``lane_unflatten_sum.launches``), four groups a
+    thread by 16-byte loads where ``x`` is 16-byte aligned; CPU tensors
     the plain version."""
     if x.dim() != 2 or x.shape[1] % 6:
         raise ValueError(f"lane_unflatten_sum: x must be (R, 6N), got {tuple(x.shape)}")
@@ -183,10 +191,23 @@ def lane_unflatten_sum(x):
     if out.numel() == 0:
         return out
     with torch.cuda.device(x.device):
-        rc = _launchers()[1](x.data_ptr(), out.data_ptr(), rows, n, _stream(x.device))
+        rc = _launchers()[1](x.data_ptr(), out.data_ptr(), rows, n, _one_wave(x.device),
+                             _stream(x.device))
     _build.check(rc, "lane_unflatten_sum")
     lane_unflatten_sum.launches += 1
     return out
 
 
 lane_unflatten_sum.launches = 0
+
+
+def launch_floor(x):
+    """Launch an empty kernel on the grid :func:`lane_unflatten_sum` gives
+    the CUDA tensor ``x``: what a launch of that grid costs, the practical
+    bound of launch-sized work. A measuring aid; counts nothing."""
+    if x.device.type != "cuda" or x.dim() != 2 or x.shape[1] % 6 or x.numel() == 0:
+        raise ValueError(f"launch_floor: x must be a non-empty (R, 6N) CUDA tensor, got "
+                         f"{tuple(x.shape)} on {x.device}")
+    with torch.cuda.device(x.device):
+        rc = _launchers()[2](x.shape[0], x.shape[1] // 6, _one_wave(x.device), _stream(x.device))
+    _build.check(rc, "launch_floor")

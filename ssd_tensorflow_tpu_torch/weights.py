@@ -3,12 +3,19 @@
 The JAX package holds ``{layer: {"w": HWIO, "b": (cout,)}}`` (plus the
 conv4_3 L2-norm ``scale``), as ``init_params`` or ``load_bundle`` yield
 it. The port holds the same dict with OIHW filters as float32 tensors.
+
+The int8 deploy path's q-params, ``{layer: {"wq": HWIO int8, "w_scale":
+(cout,), "b": (cout,)}}`` plus the L2-norm ``scale``, keep the JAX
+package's layout in both packages (``wq`` int8, the rest float32);
+:func:`stage_qparams` lays them out for the forward on a device.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ssd_tensorflow_tpu_torch.ops.int8_conv import stage_int8_weight
 
 
 def params_from_jax(tree) -> dict:
@@ -35,3 +42,54 @@ def params_to_jax(params) -> dict:
                 a = a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
             out[name][key] = np.ascontiguousarray(a)
     return out
+
+
+def qparams_from_jax(tree) -> dict:
+    """JAX-layout int8 q-param dict (numpy or array-likes) -> the port's:
+    ``wq`` stays HWIO int8, every other leaf becomes float32."""
+    out = {}
+    for name, leaves in tree.items():
+        out[name] = {}
+        for key, value in leaves.items():
+            a = np.asarray(value)
+            if key == "wq":
+                if a.dtype != np.int8:
+                    raise ValueError(f"{name}/wq must be int8, got {a.dtype}")
+            else:
+                a = a.astype(np.float32)
+            out[name][key] = torch.from_numpy(np.ascontiguousarray(a))
+    return out
+
+
+def qparams_to_jax(qparams) -> dict:
+    """The port's q-params -> the JAX-layout dict of numpy arrays (``wq``
+    int8, the rest float32)."""
+    out = {}
+    for name, leaves in qparams.items():
+        out[name] = {}
+        for key, value in leaves.items():
+            a = value.detach().cpu().numpy()
+            out[name][key] = np.ascontiguousarray(a if key == "wq" else a.astype(np.float32))
+    return out
+
+
+def stage_qparams(qparams, act_scales: dict, device) -> dict:
+    """The q-params and activation scales laid out once for the int8
+    forward (``models/quantized.py``) on ``device``. Each conv becomes
+    ``{"w": ops.int8_conv.Int8Weight, "mult": float32(act_scale) * w_scale
+    (computed in float32), "b": float32, "inv": (1,) float32 1 / act_scale
+    (computed in double, rounded once)}``; other leaves move as they are."""
+    staged = {}
+    for name, leaves in qparams.items():
+        if "wq" not in leaves:
+            staged[name] = {k: v.to(device) for k, v in leaves.items()}
+            continue
+        scale = float(act_scales[name])
+        w_scale = leaves["w_scale"].float()
+        staged[name] = {
+            "w": stage_int8_weight(leaves["wq"]).to(device),
+            "mult": (torch.tensor(scale, dtype=torch.float32) * w_scale).to(device),
+            "b": leaves["b"].float().to(device),
+            "inv": torch.tensor([1.0 / scale], dtype=torch.float32, device=device),
+        }
+    return staged

@@ -3,7 +3,8 @@
 Marked ``cuda``: each test skips without a GPU. Run on a machine with
 one:  ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 
-NMS keep masks and the lane-unflatten sums must be identical. The stem
+NMS keep masks, the lane-unflatten sums and the int8 convolution's int32
+sums must be identical. The stem
 kernels and the stem probe may differ from their plain versions by one
 bf16 step of the largest output (2^-7 relative): both sum exact bf16
 products in float32, in different orders. The fused conv + bias + ReLU
@@ -19,7 +20,7 @@ import torch
 
 from ssd_tensorflow_tpu_torch.models import layers
 from ssd_tensorflow_tpu_torch.models.ssd_vgg import ModelConfig, init_params
-from ssd_tensorflow_tpu_torch.ops import nms_cuda, stem_cuda, stem_probe
+from ssd_tensorflow_tpu_torch.ops import int8_conv, nms_cuda, stem_cuda, stem_probe
 from ssd_tensorflow_tpu_torch.ops.boxes import box_canvas_corners
 from ssd_tensorflow_tpu_torch.ops.nms import class_shifted
 
@@ -216,6 +217,95 @@ def test_lane_unflatten_sum_kernel_is_bit_exact(cuda):
     x = torch.randn((36, 1536), generator=torch.Generator(device=cuda).manual_seed(4),
                     device=cuda).to(torch.bfloat16)
     assert torch.equal(stem_probe.lane_unflatten_sum(x), stem_probe.lane_unflatten_sum_plain(x))
+
+
+#: R * N % 4 of 1, 2, 3 and 0; one group; more quads than one wave's threads
+LANE_SHAPES = [(1, 6), (3, 18), (5, 42), (7, 66), (2, 24), (36, 1536), (1000, 3000)]
+
+
+@pytest.mark.parametrize("rows,cols", LANE_SHAPES)
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "misaligned"])
+def test_lane_unflatten_sum_kernel_shapes(cuda, rows, cols, offset):
+    """Four groups a thread where x is 16-byte aligned, the R * N % 4 tail
+    one at a time, and every group one at a time on a 2-byte offset view."""
+    g = torch.Generator(device=cuda).manual_seed(rows * cols + offset)
+    flat = (torch.randn(rows * cols + offset, generator=g, device=cuda) * 100).to(torch.bfloat16)
+    x = flat[offset:].view(rows, cols)
+    before = stem_probe.lane_unflatten_sum.launches
+    got = stem_probe.lane_unflatten_sum(x)
+    assert stem_probe.lane_unflatten_sum.launches == before + 1
+    assert torch.equal(got, stem_probe.lane_unflatten_sum_plain(x))
+    stem_probe.launch_floor(x)
+    torch.cuda.synchronize()
+
+
+#: every int8 conv of vgg512, 21 classes: (H, W, cin, kh, cout, stride, padding, dilation)
+VGG512_INT8_CONVS = [
+    (512, 512, 3, 3, 64, 1, "SAME", 1), (512, 512, 64, 3, 64, 1, "SAME", 1),
+    (256, 256, 64, 3, 128, 1, "SAME", 1), (256, 256, 128, 3, 128, 1, "SAME", 1),
+    (128, 128, 128, 3, 256, 1, "SAME", 1), (128, 128, 256, 3, 256, 1, "SAME", 1),
+    (64, 64, 256, 3, 512, 1, "SAME", 1), (64, 64, 512, 3, 512, 1, "SAME", 1),
+    (32, 32, 512, 3, 512, 1, "SAME", 1), (32, 32, 512, 3, 1024, 1, "SAME", 6),
+    (32, 32, 1024, 1, 1024, 1, "SAME", 1), (32, 32, 1024, 1, 256, 1, "SAME", 1),
+    (32, 32, 256, 3, 512, 2, "SAME", 1), (16, 16, 512, 1, 128, 1, "SAME", 1),
+    (16, 16, 128, 3, 256, 2, "SAME", 1), (8, 8, 256, 1, 128, 1, "SAME", 1),
+    (8, 8, 128, 3, 256, 2, "SAME", 1), (4, 4, 256, 1, 128, 1, "SAME", 1),
+    (4, 4, 128, 3, 256, 1, "VALID", 1), (2, 2, 256, 1, 128, 1, "SAME", 1),
+    (3, 3, 128, 3, 256, 1, "VALID", 1),
+    (64, 64, 512, 3, 100, 1, "SAME", 1), (32, 32, 1024, 3, 150, 1, "SAME", 1),
+    (16, 16, 512, 3, 150, 1, "SAME", 1), (8, 8, 256, 3, 150, 1, "SAME", 1),
+    (4, 4, 256, 3, 150, 1, "SAME", 1), (2, 2, 256, 3, 100, 1, "SAME", 1),
+    (1, 1, 256, 3, 100, 1, "SAME", 1),
+]
+
+
+@pytest.mark.parametrize("h,w,cin,k,cout,stride,padding,dilation", VGG512_INT8_CONVS)
+def test_int8_conv_card_route_matches_plain(cuda, h, w, cin, k, cout, stride, padding, dilation):
+    """The im2col + ``torch._int_mm`` route equals the plain route (a
+    float32 conv with cuDNN off, exact below 2^24) bit for bit, on 3
+    images: once as ``int8_conv`` runs it, once in chunks of 2 images so
+    that the batch ends in a chunk of one."""
+    g = torch.Generator(device=cuda).manual_seed(h * cin + cout)
+    xq = torch.randint(-127, 128, (3, h, w, cin), generator=g, device=cuda, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (k, k, cin, cout), generator=g, device=cuda, dtype=torch.int8)
+    wt = int8_conv.stage_int8_weight(wq)
+    want = int8_conv.int8_conv_plain(xq, wt, stride, padding, dilation)
+    before = int8_conv.int8_conv.launches
+    got = int8_conv.int8_conv(xq, wt, stride, padding, dilation)
+    assert int8_conv.int8_conv.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    assert torch.equal(got, want)
+    ho, wo = got.shape[1:3]
+    chunked = int8_conv.int8_conv_im2col(xq, wt, stride, padding, dilation,
+                                         chunk_bytes=2 * ho * wo * wt.wk.shape[1])
+    assert torch.equal(chunked, want)
+
+
+@pytest.mark.parametrize("relu", [True, False], ids=["relu", "head"])
+def test_int8_quantize_and_requant_match_the_cpu(cuda, relu):
+    """The int8 path's elementwise steps give the CPU's bits on the card:
+    ``quantize`` (float32 multiply, round half to even, clip) and
+    ``requant`` (one float32 multiply-add, bf16, ReLU), which the CPU tests
+    hold against the JAX package."""
+    from ssd_tensorflow_tpu_torch.models import quantized
+
+    rng = np.random.default_rng(11)
+    x = torch.tensor(rng.normal(0, 3, (2, 9, 7, 96)), dtype=torch.float32).to(torch.bfloat16)
+    inv = torch.tensor([1.0 / 0.0371], dtype=torch.float32)
+    assert torch.equal(quantized.quantize(x.to(cuda), inv.to(cuda)).cpu(),
+                       quantized.quantize(x, inv))
+    sums = torch.tensor(rng.integers(-2**22, 2**22, (2, 9, 7, 96)), dtype=torch.int32)
+    layer = {"b": torch.tensor(rng.normal(0, 1, 96), dtype=torch.float32),
+             "mult": torch.tensor(rng.uniform(1e-6, 1e-3, 96), dtype=torch.float32)}
+    want = quantized.requant(sums, layer, relu)
+    got = quantized.requant(sums.to(cuda), {k: v.to(cuda) for k, v in layer.items()}, relu)
+    assert got.dtype == torch.bfloat16 and torch.equal(got.cpu(), want)
+
+
+def test_int8_conv_rejects_a_filter_on_another_device(cuda):
+    wt = int8_conv.stage_int8_weight(torch.zeros((3, 3, 8, 8), dtype=torch.int8))
+    with pytest.raises(ValueError, match="CUDA device"):
+        int8_conv.int8_conv(torch.zeros((1, 4, 4, 8), dtype=torch.int8, device=cuda), wt)
 
 
 #: the seven multibox head convs of vgg512, 21 classes: (H = W, cin, anchor shapes)

@@ -1,4 +1,4 @@
-"""The port's float detection path as a whole against the JAX package:
+"""The port's detection paths as a whole against the JAX package:
 test64, bf16, the JAX model with its Pallas stem and Pallas NMS switched
 on (interpret mode), the port's InferenceModel on the CPU; once with the
 split stem ("dma") and once with the whole uint8 stem (both sides'
@@ -17,6 +17,12 @@ so some NMS decisions. The measure is therefore set agreement: at least
 class, a box within 2e-3 and a score within 0.02, and the counts differ
 by at most 5 %. Decode itself is bit-exact on identical scores
 (tests/test_torch_nms.py).
+
+Bundles: float and int8 bundles written by either package load in the
+other with every leaf equal; the committed vgg512 int8 bundle loads in
+the port as in the JAX package and its ``run_scores`` detections agree
+by the same set measure (``tests/test_torch_quantized.py`` holds its
+scores).
 """
 
 import dataclasses
@@ -28,11 +34,17 @@ import pytest
 import torch
 
 from ssd_tensorflow_tpu import inference as jax_inference
+from ssd_tensorflow_tpu.models import quantized as jq_mod
 from ssd_tensorflow_tpu.models import ssd_vgg as jax_ssd
 from ssd_tensorflow_tpu.ops.postprocess import DetectionConfig as JaxDetectionConfig
 from ssd_tensorflow_tpu_torch import inference
 from ssd_tensorflow_tpu_torch.models import ssd_vgg
-from ssd_tensorflow_tpu_torch.weights import params_from_jax, params_to_jax
+from ssd_tensorflow_tpu_torch.weights import (
+    params_from_jax,
+    params_to_jax,
+    qparams_from_jax,
+    qparams_to_jax,
+)
 
 CFG = dict(preset_name="test64", num_classes=3)
 ASSETS = Path(__file__).resolve().parent.parent / "assets"
@@ -105,9 +117,9 @@ def test_float_bundle_from_jax(tmp_path):
     jp = jax_ssd.init_params(jax.random.PRNGKey(7), jcfg)
     path = str(tmp_path / "m.npz")
     jax_inference.save_bundle(path, jp, jcfg, {0: "cat", 1: "dog", 2: "bird"})
-    params, cfg, lid2name = inference.load_bundle(path)
+    params, cfg, lid2name, act_scales = inference.load_bundle(path)
     assert inference.model_config_to_dict(cfg) == jax_inference.model_config_to_dict(jcfg)
-    assert lid2name == {0: "cat", 1: "dog", 2: "bird"}
+    assert lid2name == {0: "cat", 1: "dog", 2: "bird"} and act_scales is None
     ref = params_from_jax(jp)
     for name in ref:
         for key in ref[name]:
@@ -133,9 +145,94 @@ def test_float_bundle_to_jax(tmp_path):
             np.testing.assert_array_equal(np.asarray(jp[name][key]), want[name][key])
 
 
-def test_int8_bundle_names_its_slice():
-    with pytest.raises(NotImplementedError, match="int8"):
-        inference.load_bundle(str(ASSETS / "vgg512_int8_minivoc.ssdtpu.npz"))
+@pytest.fixture(scope="module")
+def int8_bundle():
+    path = str(ASSETS / "vgg512_int8_minivoc.ssdtpu.npz")
+    return path, jax_inference.load_bundle(path), inference.load_bundle(path)
+
+
+def test_int8_bundle_loads_like_jax(int8_bundle):
+    _, (jq, jcfg, jlid, jscales), (tq, cfg, lid, scales) = int8_bundle
+    assert inference.model_config_to_dict(cfg) == jax_inference.model_config_to_dict(jcfg)
+    assert lid == jlid and len(lid) == 20
+    assert scales == jscales and len(scales) == 32
+    got = qparams_to_jax(tq)
+    assert set(got) == set(jq)
+    n = 0
+    for name in jq:
+        assert set(got[name]) == set(jq[name])
+        for key in jq[name]:
+            want = np.asarray(jq[name][key])
+            assert got[name][key].dtype == want.dtype, (name, key)
+            np.testing.assert_array_equal(got[name][key], want)
+            n += 1
+    assert n == 97 and tq["conv1_1"]["wq"].shape == (3, 3, 3, 64)
+
+
+def test_family_int8_bundle_names_its_queue_item():
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        inference.load_bundle(str(ASSETS / "resnet320_int8_minicoco.ssdtpu.npz"))
+
+
+def _int8_test64(seed):
+    jcfg = jax_ssd.ModelConfig(**CFG)
+    jp = jax_ssd.init_params(jax.random.PRNGKey(seed), jcfg)
+    img = np.random.default_rng(seed).integers(0, 255, (2, 64, 64, 3), dtype=np.uint8)
+    return jcfg, jq_mod.quantize_weights(jp), jq_mod.calibrate_activation_scales(jp, img, jcfg)
+
+
+def test_int8_bundle_to_jax(tmp_path):
+    jcfg, jqp, scales = _int8_test64(4)
+    path = str(tmp_path / "q.npz")
+    inference.save_bundle(path, qparams_from_jax(jqp), ssd_vgg.ModelConfig(**CFG), {2: "bird"},
+                          act_scales=scales)
+    got, cfg, lid2name, got_scales = jax_inference.load_bundle(path)
+    assert lid2name == {2: "bird"} and got_scales == scales
+    assert jax_inference.model_config_to_dict(cfg) == jax_inference.model_config_to_dict(jcfg)
+    for name in jqp:
+        for key in jqp[name]:
+            np.testing.assert_array_equal(np.asarray(got[name][key]), np.asarray(jqp[name][key]))
+            assert np.asarray(got[name][key]).dtype == np.asarray(jqp[name][key]).dtype
+
+
+def test_int8_bundle_from_jax(tmp_path):
+    jcfg, jqp, scales = _int8_test64(5)
+    path = str(tmp_path / "q.npz")
+    jax_inference.save_bundle(path, jqp, jcfg, {0: "cat"}, act_scales=scales)
+    qp, cfg, lid2name, got_scales = inference.load_bundle(path)
+    assert lid2name == {0: "cat"} and got_scales == scales
+    want = qparams_from_jax(jqp)
+    for name in want:
+        for key in want[name]:
+            torch.testing.assert_close(qp[name][key], want[name][key], rtol=0, atol=0)
+
+
+def test_int8_run_scores_matches_jax(int8_bundle):
+    """The committed bundle through both façades' ``run_scores`` on two
+    random images: the same detections (the int8 sums are exact on both
+    sides, so the scores agree to float32 rounding)."""
+    path = int8_bundle[0]
+    img = np.random.default_rng(9).integers(0, 256, (2, 512, 512, 3), dtype=np.uint8)
+    jm = jax_inference.InferenceModel.from_bundle(path)
+    jd = jm._run_scores(jm.params, jm._to_device(img))
+    tm = inference.InferenceModel.from_bundle(path, device="cpu")
+    assert tm.act_scales is not None
+    td = tm.run_scores(img)
+    for b in range(2):
+        jv, tv = np.asarray(jd.valid[b]), td.valid[b].numpy()
+        j = (np.asarray(jd.boxes[b])[jv], np.asarray(jd.classes[b])[jv], np.asarray(jd.scores[b])[jv])
+        t = (td.boxes[b].numpy()[tv], td.classes[b].numpy()[tv], td.scores[b].numpy()[tv])
+        assert abs(len(t[0]) - len(j[0])) <= 0.05 * max(len(j[0]), 1)
+        assert _matched_share(t, j) >= 0.95
+        assert _matched_share(j, t) >= 0.95
+
+
+def test_int8_bundle_drops_stem_overrides(int8_bundle, capsys):
+    path = int8_bundle[0]
+    m = inference.InferenceModel.from_bundle(
+        path, device="cpu", overrides={"pallas_stem": True, "pallas_stem_variant": "uint8"})
+    assert m.config.pallas_stem_variant == "dma"
+    assert "pallas_stem override ignored: this int8 bundle" in capsys.readouterr().out
 
 
 def test_overrides_reject_a_bad_variant():

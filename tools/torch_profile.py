@@ -1,18 +1,27 @@
 #!/usr/bin/env python3
-"""Where the time goes on the port's float detection path, on one GPU.
+"""Where the time goes on the port's detection paths, on one GPU.
 
     python3 tools/torch_profile.py [--seed 0] [--batch 64] [--stem-variant dma|uint8]
+                                   [--bundle assets/vgg512_int8_minivoc.ssdtpu.npz]
                                    [--out runs/torch_profile.json]
 
-vgg512 bf16 with weights made from the seed, random uint8 images, the
+Without ``--bundle``: vgg512 bf16 with weights made from the seed, the
 stem kernel chosen as ``InferenceModel(overrides={"pallas_stem_variant":
-...})`` does. Prints one JSON object (and writes it to ``--out``):
+...})`` does. With ``--bundle``: that bundle through
+``InferenceModel.from_bundle`` (an int8 bundle runs the int8 W8A8 path).
+Random uint8 images from the seed either way. Prints one JSON object
+(and writes it to ``--out``):
 
 * ``stages``: each layer of the path timed alone with CUDA events on the
-  inputs the path gives it (preprocess + conv1_1 and the split stem
-  kernel, or the whole uint8 stem kernel; the rest of the VGG trunk,
-  L2-norm + extras, heads + lazy softmax, top-k + decode + clamp, class
-  shift + the NMS kernel, compaction), in ms per batch;
+  inputs the path gives it, in ms per batch. Float path: preprocess +
+  conv1_1 and the split stem kernel, or the whole uint8 stem kernel; the
+  rest of the VGG trunk, L2-norm + extras, heads + lazy softmax, top-k +
+  decode + clamp, class shift + the NMS kernel, compaction. int8 path,
+  over its 25 trunk and extra convs: preprocess, quantize, im2col (each
+  ``int8_conv`` less its GEMMs), ``_int_mm`` (each chunk's GEMM on an
+  operand of its shape), requant (multiply-add, ReLU, bf16); then pools
+  + L2-norm, the 7 head convs + lazy softmax, and the float path's
+  decode stages;
 * ``run_scores_ms``: the whole ``InferenceModel.run_scores`` per batch;
 * ``profile``: a ``torch.profiler`` window over a few chained batches:
   device busy time per batch, the idle share of the window, and the
@@ -67,6 +76,84 @@ def _stages(model, images):
     return out
 
 
+def _int8_stages(model, images):
+    """``{stage: ms}`` of the int8 path: every ``_qconv``, pool and the
+    L2-norm of one forward recorded with its inputs, each step then timed
+    alone (see the module doc; conv12_1's pad of a 2 x 2 map is left
+    out)."""
+    import torch
+    from unittest import mock
+
+    from ssd_tensorflow_tpu_torch.models import quantized, ssd_vgg
+    from ssd_tensorflow_tpu_torch.ops import int8_conv as ic
+    from ssd_tensorflow_tpu_torch.ops import postprocess
+    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
+
+    convs, glue = [], []
+
+    def rec_qconv(layer, x, stride=1, padding="SAME", dilation=1, relu=True):
+        convs.append((layer, x, stride, padding, dilation, relu))
+        return real_qconv(layer, x, stride, padding, dilation, relu)
+
+    def rec(fn):
+        def wrapper(*a, **k):
+            glue.append((fn, a, k))
+            return fn(*a, **k)
+        return wrapper
+
+    real_qconv = quantized._qconv
+    with mock.patch.object(quantized, "_qconv", rec_qconv), \
+            mock.patch.object(quantized, "max_pool", rec(quantized.max_pool)), \
+            mock.patch.object(quantized, "l2_normalize_scale", rec(quantized.l2_normalize_scale)):
+        maps = quantized._feature_maps_q(model.params, images, model.config)
+        quantized._head_maps(model.params, maps)
+    cfg, det = model.config, model.detection
+    out = {"preprocess": cuda_event_ms(lambda: ssd_vgg.preprocess(images, cfg).to(torch.bfloat16))}
+    for key in ("quantize", "im2col", "int_mm", "requant", "heads_lazy_softmax"):
+        out[key] = 0.0
+    heads = []
+    for layer, x, stride, padding, dilation, relu in convs:
+        qx = lambda: quantized.quantize(x, layer["inv"])  # noqa: E731
+        conv = lambda: ic.int8_conv_im2col(xq, wt, stride, padding, dilation)  # noqa: E731
+        xq, wt = qx(), layer["w"]
+        y = conv()
+        b, ho, wo, _ = y.shape
+        kp = wt.wk.shape[1]
+        gemm = 0.0
+        chunk = ic.chunk_images(b, ho, wo, kp)
+        for n in [chunk] * (b // chunk) + ([b % chunk] if b % chunk else []):
+            a = torch.zeros((n * ho * wo, kp), dtype=torch.int8, device=x.device)
+            dst = torch.empty((n * ho * wo, wt.cout), dtype=torch.int32, device=x.device)
+            gemm += cuda_event_ms(lambda: ic._gemm_into(a, wt, dst))
+            del a, dst
+
+        requant = lambda: quantized.requant(y, layer, relu)  # noqa: E731
+        parts = {"quantize": cuda_event_ms(qx), "int_mm": gemm,
+                 "im2col": max(0.0, cuda_event_ms(conv) - gemm), "requant": cuda_event_ms(requant)}
+        if relu:
+            for k, v in parts.items():
+                out[k] += v
+        else:
+            heads.append(requant().float())
+            out["heads_lazy_softmax"] += sum(parts.values())
+        del xq, y
+    out["pools_l2norm"] = sum(cuda_event_ms(lambda f=f, a=a, k=k: f(*a, **k))
+                                  for f, a, k in glue)
+    out["heads_lazy_softmax"] += cuda_event_ms(lambda: ssd_vgg.reduce_head_maps(heads, cfg))
+    conf, cls, locs = ssd_vgg.reduce_head_maps(heads, cfg)
+    del maps, heads, convs, glue
+    boxes, conf_top, cls_top, valid = postprocess._candidates_from_scores(
+        conf, cls, locs, model.anchors, det)
+    out["topk_decode_clamp"] = cuda_event_ms(
+        lambda: postprocess._candidates_from_scores(conf, cls, locs, model.anchors, det))
+    keep = postprocess._keep(boxes, cls_top, valid, det)
+    out["class_shift_nms_kernel"] = cuda_event_ms(
+        lambda: postprocess._keep(boxes, cls_top, valid, det))
+    out["compaction"] = cuda_event_ms(
+        lambda: postprocess._finalize(boxes, conf_top, cls_top, keep, det))
+    return out
+
+
 def _profile(model, images, iters=3):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -99,6 +186,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--stem-variant", choices=("dma", "uint8"), default="dma")
+    ap.add_argument("--bundle", default=None,
+                    help="run this model bundle (an int8 one takes the int8 path)")
     ap.add_argument("--out", default="runs/torch_profile.json")
     args = ap.parse_args(argv)
 
@@ -112,9 +201,15 @@ def main(argv=None) -> int:
     from ssd_tensorflow_tpu_torch.models import ssd_vgg
     from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
 
-    cfg = ssd_vgg.ModelConfig(preset_name="vgg512", num_classes=20, compute_dtype="bfloat16")
-    model = InferenceModel(ssd_vgg.init_params(cfg, seed=args.seed), cfg,
-                           overrides={"pallas_stem_variant": args.stem_variant})
+    if args.bundle:
+        model = InferenceModel.from_bundle(args.bundle)
+        cfg = model.config
+    else:
+        cfg = ssd_vgg.ModelConfig(preset_name="vgg512", num_classes=20,
+                                  compute_dtype="bfloat16")
+        model = InferenceModel(ssd_vgg.init_params(cfg, seed=args.seed), cfg,
+                               overrides={"pallas_stem_variant": args.stem_variant})
+    int8 = model.act_scales is not None
     size = cfg.preset.image_size
     rng = np.random.default_rng(args.seed)
     images = torch.from_numpy(
@@ -122,12 +217,14 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     with torch.inference_mode():
-        stages = _stages(model, images)
+        stages = (_int8_stages if int8 else _stages)(model, images)
         run_ms = cuda_event_ms(lambda: model.run_scores(images))
         prof = _profile(model, images)
     result = {
         "card": smi.splitlines()[0], "torch": torch.__version__, "preset": cfg.preset_name,
-        "dtype": cfg.compute_dtype, "stem_variant": args.stem_variant, "batch": args.batch, "stages_ms": stages,
+        "path": "int8" if int8 else cfg.compute_dtype, "bundle": args.bundle,
+        "stem_variant": None if int8 else args.stem_variant, "batch": args.batch,
+        "stages_ms": stages,
         "stages_sum_ms": sum(stages.values()), "run_scores_ms": run_ms,
         "images_per_s": args.batch / run_ms * 1e3, "profile": prof,
     }
