@@ -52,6 +52,27 @@ non-zero, and the final line is printed only when every phase passed:
    1e-3, locs within 1e-2), be finite and give 0..200 detections per
    image; it reports images/s, ms per batch and peak device memory as
    phase 4 does.
+6. train_path: the SGD training step of vgg512, 21 classes
+   (``parallel/train_step.make_train_step``), weights from the seed, uint8
+   images with 1-8 gt boxes each. (a) ``encode_targets_batch`` on the
+   card equals the CPU's bit for bit at batch 32 (24,564 anchors). With
+   cuDNN's TF32 at PyTorch's default (on), as a caller leaves it: a
+   float32 forward within 1e-5 of the same forward with TF32 off, and (b)
+   one float32 step at batch 2 on the card against the same step on the
+   CPU: each loss within 1e-4 relative, each leaf's update within 1e-2 of
+   its largest (or two ulps of its largest parameter, the resolution of a
+   difference of two parameters). (c) bf16 at batch 32: 3 warm-up steps,
+   then 10 steps on the same batch timed with CUDA events; every loss
+   finite and the last total below the first; the counted 10 steps must
+   launch ``nms_keep`` once a step and no stem kernel; ms/step, images/s
+   and peak device memory; then one eval step (``make_eval_step``), which
+   must launch ``nms_keep`` once. The steps detect at a confidence
+   threshold of 0.01 (``train_config``). The detect of the float32 step,
+   of the last bf16 step and of the eval step is held twice: its NMS keep
+   mask against ``nms_keep_plain`` on the same (32, 200) candidates on
+   the card, bit for bit, and its detections against ``decode_detections``
+   on the CPU of the same probabilities and offsets; each must hold at
+   least one detection.
 
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is ``{"ok": true, "device": {...}}``.
@@ -61,6 +82,8 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import inspect
 import json
 import subprocess
@@ -75,6 +98,8 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 MEAN_BGR = (104.0, 117.0, 123.0)
 INT8_BUNDLE = "assets/vgg512_int8_minivoc.ssdtpu.npz"
+#: the SSD paper's training batch (the JAX CLI's default is 8)
+TRAIN_BATCH = 32
 
 
 def _emit(obj) -> None:
@@ -659,6 +684,252 @@ def int8_path(bundle, images, batch: int, device):
     return launches
 
 
+def train_batch(rng, batch: int, size: int, num_classes: int, max_gt: int = 8):
+    """uint8 images and 1..``max_gt`` random gt boxes per image (padded to
+    ``max_gt`` with ``gt_mask``), as numpy."""
+    import numpy as np
+
+    n = rng.integers(1, max_gt + 1, batch)
+    w, h = rng.uniform(0.05, 0.5, (2, batch, max_gt))
+    boxes = np.stack([rng.uniform(w / 2, 1 - w / 2), rng.uniform(h / 2, 1 - h / 2), w, h], -1)
+    return {"images": rng.integers(0, 256, (batch, size, size, 3), dtype=np.uint8),
+            "gt_boxes": boxes.astype(np.float32),
+            "gt_labels": rng.integers(0, num_classes, (batch, max_gt)).astype(np.int64),
+            "gt_mask": np.arange(max_gt)[None, :] < n[:, None]}
+
+
+def train_config():
+    """vgg512, 21 classes, the JAX package's training defaults, but for
+    the detect's confidence threshold: 0.01 (``InferenceModel``'s) in
+    place of 0.5, which no foreground probability of a freshly
+    initialized model reaches, so that the step's NMS gets candidates."""
+    from ssd_tensorflow_tpu_torch.models.ssd_vgg import ModelConfig
+    from ssd_tensorflow_tpu_torch.ops.postprocess import DetectionConfig
+    from ssd_tensorflow_tpu_torch.parallel.train_step import TrainConfig
+
+    return TrainConfig(model=ModelConfig(preset_name="vgg512", num_classes=20),
+                       detect=DetectionConfig(confidence_threshold=0.01))
+
+
+@contextlib.contextmanager
+def recording_detect():
+    """Keep, by reference, the last detect of the train or eval step: the
+    inputs and detections of its ``decode_detections`` (``"decode"``) and
+    the candidates and keep mask of its NMS stage (``"keep"``)."""
+    from ssd_tensorflow_tpu_torch.ops import postprocess
+    from ssd_tensorflow_tpu_torch.parallel import train_step
+
+    rec = {}
+    decode, keep = train_step.decode_detections, postprocess._keep
+
+    def record_decode(*args):
+        rec["decode"] = (args, decode(*args))
+        return rec["decode"][1]
+
+    def record_keep(*args):
+        rec["keep"] = (args, keep(*args))
+        return rec["keep"][1]
+
+    with mock.patch.object(train_step, "decode_detections", record_decode), \
+            mock.patch.object(postprocess, "_keep", record_keep):
+        yield rec
+
+
+def check_detect(rec, name):
+    """The recorded NMS keep mask against ``nms_keep_plain`` on the same
+    candidates on the card, bit for bit, and the recorded detections
+    against ``decode_detections`` on the CPU of the same probabilities and
+    offsets: valid, classes and scores equal, boxes within 1e-5 (the
+    card's ``exp`` may differ from the CPU's in the last bit). Fails
+    without a single detection."""
+    import torch
+
+    from ssd_tensorflow_tpu_torch.ops import nms_cuda, postprocess
+
+    (boxes, cls_top, valid, cfg), got_keep = rec["keep"]
+    if not got_keep.is_cuda:
+        raise AssertionError(f"{name}: the step's NMS ran on {got_keep.device}")
+    with mock.patch.object(nms_cuda, "nms_keep", nms_cuda.nms_keep_plain):
+        want_keep = postprocess._keep(boxes, cls_top, valid, cfg)
+    if not torch.equal(got_keep, want_keep):
+        raise AssertionError(f"{name}: nms_keep differs from its plain version on "
+                             f"{int((got_keep != want_keep).sum())} of {got_keep.numel()} flags")
+    (probs, locs, anchors, det_cfg), dets = rec["decode"]
+    want = postprocess.decode_detections(probs.cpu(), locs.cpu(), anchors.cpu(), det_cfg)
+    for field in ("valid", "classes", "scores"):
+        if not torch.equal(getattr(dets, field).cpu(), getattr(want, field)):
+            raise AssertionError(f"{name}: detections' {field} differ from the CPU's decode")
+    box_err = float((dets.boxes.cpu() - want.boxes).abs().max())
+    if not box_err <= 1e-5:
+        raise AssertionError(f"{name}: detection boxes {box_err} off the CPU's decode")
+    counts = dets.valid.sum(dim=1)
+    if int(counts.sum()) == 0:
+        raise AssertionError(f"{name}: no detection, the NMS kernel got no candidate to keep")
+    return {"nms_shape": list(valid.shape), "candidates": int(valid.sum()),
+            "kept": int(got_keep.sum()), "keep_bit_exact": True, "boxes_max_abs_err": box_err,
+            "detections_per_image": {"min": int(counts.min()), "max": int(counts.max()),
+                                     "mean": float(counts.float().mean())}}
+
+
+@contextlib.contextmanager
+def _library_defaults():
+    """PyTorch's own TF32 defaults (cuDNN on, matmul off), as a caller who
+    sets nothing has them; the previous flags come back after."""
+    import torch
+
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _float32_checks(cfg32, data, anchors, device):
+    """TF32 at the library default: the float32 forward against TF32 off,
+    and one float32 train step on the card against the CPU's, its detect
+    held against the CPU's decode (phase 6 b)."""
+    import torch
+
+    from ssd_tensorflow_tpu_torch.models import ssd_vgg
+    from ssd_tensorflow_tpu_torch.parallel import train_step
+
+    params = ssd_vgg.init_params(cfg32.model, seed=1)
+    on_card = {n: {k: v.to(device) for k, v in d.items()} for n, d in params.items()}
+    images = torch.from_numpy(data["images"][:2]).to(device)
+    outs = []
+    for tf32 in (True, False):
+        torch.backends.cudnn.allow_tf32 = tf32
+        with torch.inference_mode():
+            outs.append(ssd_vgg.apply_model(on_card, images, cfg32.model))
+        if torch.backends.cudnn.allow_tf32 is not tf32:
+            raise AssertionError("the float32 forward did not give the caller's TF32 flag back")
+    torch.backends.cudnn.allow_tf32 = True
+    tf32_err = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(*outs))
+    if not tf32_err <= 1e-5:
+        raise AssertionError(f"float32 forward under TF32 defaults is {tf32_err} off full float32")
+    del on_card, outs
+
+    small = {k: v[:2] for k, v in data.items()}
+    step = train_step.make_train_step(cfg32, anchors)
+    with recording_detect() as rec:
+        card, card_losses, card_dets = step(
+            train_step.make_train_state(params, cfg32, device=device), small)
+    detect = check_detect(rec, "float32 step")
+    del rec
+    cpu, cpu_losses, cpu_dets = step(train_step.make_train_state(params, cfg32, device="cpu"),
+                                     small)
+    detect["cpu_step_detections_per_image"] = cpu_dets.valid.sum(dim=1).tolist()
+    detect["card_step_detections_per_image"] = card_dets.valid.sum(dim=1).tolist()
+    loss_err = {k: abs(float(card_losses[k]) - float(v)) / abs(float(v))
+                for k, v in cpu_losses.items()}
+    worst = (0.0, "")
+    for n, leaves in params.items():
+        for k, old in leaves.items():
+            want, got = cpu.params[n][k] - old, card.params[n][k].cpu() - old
+            tol = max(1e-2 * float(want.abs().max()), 2.0 ** -22 * float(old.abs().max()))
+            err = float((got - want).abs().max())
+            if not err <= tol:
+                raise AssertionError(
+                    f"float32 step: {n}/{k} update {err} off the CPU's (tol {tol})")
+            worst = max(worst, (err / max(float(want.abs().max()), 1e-30),
+                                f"{n}/{k}: largest update {float(want.abs().max())}, "
+                                f"largest parameter {float(old.abs().max())}"))
+    if not max(loss_err.values()) <= 1e-4:
+        raise AssertionError(f"float32 step: losses off the CPU's: {loss_err}")
+    return {"tf32_default_forward_rel_err": tf32_err, "loss_rel_err": loss_err,
+            "update_rel_err_max": worst[0], "update_rel_err_max_leaf": worst[1],
+            "losses": {k: float(v) for k, v in cpu_losses.items()}, "detect": detect}
+
+
+def train_path(seed: int, device):
+    """Phase 6: the vgg512 SGD training step (see the module doc)."""
+    import numpy as np
+    import torch
+
+    from ssd_tensorflow_tpu_torch.models.ssd_vgg import init_params
+    from ssd_tensorflow_tpu_torch.ops.anchors import anchors_for_preset
+    from ssd_tensorflow_tpu_torch.ops.matching import encode_targets_batch
+    from ssd_tensorflow_tpu_torch.parallel import train_step
+
+    cfg = train_config()
+    anchors = anchors_for_preset(cfg.model.preset)
+    data = train_batch(np.random.default_rng(seed), TRAIN_BATCH, cfg.model.preset.image_size.h,
+                       cfg.model.num_classes)
+
+    # (a) targets on the card against the CPU's
+    targets = [encode_targets_batch(*(torch.from_numpy(data[k]).to(dev) for k in
+                                      ("gt_boxes", "gt_labels", "gt_mask")),
+                                    torch.from_numpy(anchors).to(dev), cfg.model.num_classes).cpu()
+               for dev in ("cpu", device)]
+    if not torch.equal(targets[0], targets[1]):
+        raise AssertionError(f"encode_targets_batch: card and CPU differ on "
+                             f"{int((targets[0] != targets[1]).sum())} entries")
+    positives = int((targets[0][..., cfg.model.num_classes] == 0).sum())
+    del targets
+
+    # (b) float32 under the library's TF32 defaults
+    with _library_defaults():
+        f32 = _float32_checks(dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, compute_dtype="float32")),
+            data, anchors, device)
+
+    # (c) bf16 at batch 32
+    step = train_step.make_train_step(cfg, anchors)
+    state = train_step.make_train_state(init_params(cfg.model, seed), cfg, device=device)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+    totals = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        state, losses, _ = step(state, batch)
+        totals.append(losses["total"])
+
+    def timed():
+        nonlocal state
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            state, losses, dets = step(state, batch)
+            totals.append(losses["total"])
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 10, dets
+
+    with recording_detect() as rec:
+        (step_ms, dets), launches = counted(timed)
+    peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30
+    totals = [float(t) for t in totals]
+    if not all(np.isfinite(totals)) or not totals[-1] < totals[0]:
+        raise AssertionError(f"bf16 training: total loss not finite and falling: {totals}")
+    if (launches["nms_keep"] != 10 or launches["fused_stem"] or launches["fused_stem_uint8"]
+            or launches["int8_conv"]):
+        raise AssertionError(f"the train path did not run its kernels as it should: {launches}")
+    if dets.boxes.shape != (TRAIN_BATCH, 200, 4) or not dets.boxes.is_cuda:
+        raise AssertionError(f"train step detections: {tuple(dets.boxes.shape)}")
+    detect = check_detect(rec, "bf16 step")
+    del rec
+
+    with recording_detect() as rec:
+        (eval_losses, eval_dets), eval_launches = counted(
+            lambda: train_step.make_eval_step(cfg, anchors)(state.params, batch))
+    eval_losses = {k: float(v) for k, v in eval_losses.items()}
+    if not (all(np.isfinite(list(eval_losses.values())))
+            and eval_dets.valid.shape == (TRAIN_BATCH, 200)):
+        raise AssertionError(f"eval step: {eval_losses}")
+    if eval_launches["nms_keep"] != 1:
+        raise AssertionError(f"the eval step did not run NMS once: {eval_launches}")
+    eval_detect = check_detect(rec, "eval step")
+    del rec
+    _emit({"phase": "train_path", "preset": cfg.model.preset_name, "batch": TRAIN_BATCH,
+           "dtype": cfg.model.compute_dtype, "anchors": int(anchors.shape[0]),
+           "targets_bit_exact": True, "positives": positives, "float32": f32,
+           "launches": launches, "step_ms": step_ms, "images_per_s": TRAIN_BATCH / step_ms * 1e3,
+           "peak_mem_gib": peak_mem_gib, "total_loss": totals, "step": state.step,
+           "detect_threshold": cfg.detect.confidence_threshold, "detect": detect,
+           "eval_losses": eval_losses, "eval_detect": eval_detect})
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -722,6 +993,8 @@ def main(argv=None) -> int:
     # 5. the shipped int8 bundle
     launches["int8"] = int8_path(Path(__file__).resolve().parent / INT8_BUNDLE, images,
                                  args.batch, device)
+    # 6. the training step
+    launches["train"] = train_path(args.seed, device)
     with torch.inference_mode():
         _, launches["fused_stem_pallas"] = counted(
             lambda: stem_cuda.fused_stem_pallas(model.params, images, MEAN_BGR))
@@ -740,9 +1013,11 @@ def main(argv=None) -> int:
     for k in kernels:
         path, counter = path_of.get(k["name"], (k["name"], "stem_probe"))
         k["launches"] = launches[path][counter]
-        k["launched_by"] = path
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on its path {path}")
+        # every path that launched it, with its launches there
+        k["launched_by"] = {p: n[counter] for p, n in launches.items()
+                            if n.get(counter) and (counter != "stem_probe" or p == path)}
 
     _emit({"kernels": kernels})
     _emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,6 +33,7 @@ from ssd_tensorflow_tpu_torch.ops.postprocess import (
     decode_scores,
     detections_to_boxes,
 )
+from ssd_tensorflow_tpu_torch.utils.checkpoint import checkpoint_config, read_params
 from ssd_tensorflow_tpu_torch.weights import (
     params_from_jax,
     params_to_jax,
@@ -140,13 +141,27 @@ def load_bundle(path: str):
     return qparams_from_jax(tree), model_cfg, lid2name, dict(meta["act_scales"])
 
 
+def load_params_from_train_checkpoint(path: str):
+    """``(params, model config, lid2name)`` from a training checkpoint
+    (``utils/checkpoint.py``, either package's): its config's model entry
+    and the params, the first leaves of the state."""
+    cfg = checkpoint_config(path)
+    model_cfg = model_config_from_dict(cfg["model"])
+    params = read_params(path, param_shapes(model_cfg))
+    lid2name = {int(k): v for k, v in cfg.get("lid2name", {}).items()}
+    return params, model_cfg, lid2name
+
+
 def _apply_overrides(model_cfg: ModelConfig, overrides: dict, int8: bool = False) -> ModelConfig:
     """``model_cfg`` with execution-backend fields replaced, as the JAX
     package's ``InferenceModel(overrides=...)`` does; never serialized.
 
-    Takes ``pallas_stem_variant``, and ``pallas_stem: True`` as a no-op so
-    that the JAX package's override dicts work: the port's bf16 forward
-    always runs a stem kernel, so ``pallas_stem: False`` raises. On a
+    Takes ``pallas_stem_variant``, ``pallas_stem: True`` and
+    ``padded_heads`` (True or False) as no-ops so that the JAX package's
+    override dicts work: the port's bf16 forward always runs a stem
+    kernel, so ``pallas_stem: False`` raises; ``padded_heads`` pads the
+    JAX package's head convs to a lane-aligned width whose pad channels
+    its scores path slices away, which changes no math. On a
     bundle that does not run the bf16 float stem (float32, or int8, which
     quantizes conv1 as it does every conv) the stem overrides are dropped
     with the JAX package's message.
@@ -159,6 +174,8 @@ def _apply_overrides(model_cfg: ModelConfig, overrides: dict, int8: bool = False
               "bundle does not run the bf16 VGG float stem")
         for k in stem_keys:
             overrides.pop(k)
+    if overrides.pop("padded_heads", False) not in (True, False):
+        raise ValueError("padded_heads must be True or False")
     if not overrides.pop("pallas_stem", True):
         raise ValueError(
             "pallas_stem=False is not available in the port: its bf16 forward "
@@ -168,7 +185,7 @@ def _apply_overrides(model_cfg: ModelConfig, overrides: dict, int8: bool = False
     unknown = set(overrides) - {"pallas_stem_variant"}
     if unknown:
         raise ValueError(f"unsupported overrides {sorted(unknown)}; the port takes "
-                         "pallas_stem and pallas_stem_variant")
+                         "pallas_stem, pallas_stem_variant and padded_heads")
     return dataclasses.replace(model_cfg, **overrides)
 
 
@@ -210,6 +227,12 @@ class InferenceModel:
         if value.dim() == 4:
             value = value.to(self.config.dtype).contiguous(memory_format=torch.channels_last)
         return value
+
+    @classmethod
+    def from_checkpoint(cls, path: str, **kw):
+        """The float model of a training checkpoint's params."""
+        params, cfg, lid2name = load_params_from_train_checkpoint(path)
+        return cls(params, cfg, lid2name, **kw)
 
     @classmethod
     def from_bundle(cls, path: str, **kw):

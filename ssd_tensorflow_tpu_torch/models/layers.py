@@ -13,6 +13,8 @@ bottom); max-pooling is SAME ceil mode with -inf padding.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -48,20 +50,60 @@ def conv2d(x, w, b=None, stride=1, padding="SAME", dilation=1):
 
     Computes in ``x.dtype``. A bf16 convolution accumulates in float32
     and rounds its output to bf16, as the JAX package's
-    ``conv2d(..., f32_out=True)`` does. A bias given here goes to
-    ``F.conv2d`` in ``x.dtype``, and where it joins is the library's
-    choice (inside the float32 accumulation on the CPU, in a separate
-    bf16 pass in cuDNN). No bf16 layer of the model takes that route on
-    the card: conv + bias + ReLU goes through :func:`conv_relu` and the
-    multibox heads through :func:`conv2d_bias_in`, both of which add the
-    float32 bias before the one rounding.
+    ``conv2d(..., f32_out=True)`` does. With a bias, a bf16 convolution on
+    the CPU runs in float32 from the bf16 operands (every product is
+    exact there), adds the float32 bias and rounds once, as that JAX
+    conv does; on the card a bias goes to ``F.conv2d`` in ``x.dtype``,
+    which cuDNN adds in a separate bf16 pass. No bf16 layer of the model
+    takes that route on the card: conv + bias + ReLU goes through
+    :func:`conv_relu` and the multibox heads through
+    :func:`conv2d_bias_in`, both of which add the float32 bias before the
+    one rounding.
     """
     w = w.to(x.dtype)
-    if b is not None:
-        b = b.to(x.dtype)
     xn, pad = _same_input(x, w, stride, padding, dilation)
-    y = F.conv2d(xn, w, b, stride=stride, padding=pad, dilation=dilation)
+    if b is not None and x.dtype != torch.float32 and x.device.type == "cpu":
+        y = F.conv2d(xn.float(), w.float(), b.float(), stride=stride, padding=pad,
+                     dilation=dilation).to(x.dtype)
+    else:
+        if b is not None:
+            b = b.to(x.dtype)
+        y = F.conv2d(xn, w, b, stride=stride, padding=pad, dilation=dilation)
     return y.permute(0, 2, 3, 1)
+
+
+def conv2d_train(x, w, b, stride=1, padding="SAME", dilation=1):
+    """The differentiable convolution + bias of training: ``F.conv2d`` in
+    ``x.dtype`` without a bias, then ``+ b`` in ``x.dtype``. In bf16 that
+    rounds twice, after the convolution and after the bias add, exactly
+    as the JAX package's ``conv2d(..., f32_out=False)`` that its training
+    forward runs. Every op has a derivative; the inference routes
+    (:func:`conv_relu`, :func:`conv2d_bias_in`) do not."""
+    return conv2d(x, w, None, stride, padding, dilation) + b.to(x.dtype)
+
+
+def conv_relu_train(params, x, stride=1, padding="SAME", dilation=1):
+    """conv + bias + ReLU of training (:func:`conv2d_train`, then ReLU)."""
+    return torch.relu(conv2d_train(x, params["w"], params["b"], stride, padding, dilation))
+
+
+@contextlib.contextmanager
+def full_float32(dtype):
+    """Within the block, cuDNN runs float32 convolutions (forward and
+    backward) in full float32 whatever the caller's
+    ``torch.backends.cudnn.allow_tf32`` (PyTorch's default, True, gives
+    TF32's 10-bit mantissa), as the JAX package's float32 convolutions on
+    the CPU do; the caller's flag is restored after. No-op for other
+    dtypes."""
+    if dtype != torch.float32:
+        yield
+        return
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
 
 
 #: input channels that carry the bias into a convolution: three of ones
@@ -132,9 +174,8 @@ def conv_relu(params, x, stride=1, padding="SAME", dilation=1):
     ReLU pass runs. The bias must stay float32 there: cuDNN misreads a
     bf16 bias in this fused op (PERF.md). Every conv + bias + ReLU
     shape of the vgg300/vgg512 models takes this route. CPU tensors take
-    ``conv2d`` + in-place ReLU, which rounds once as well (oneDNN adds the
-    bias inside its accumulation, though it takes the bias in the input's
-    dtype, so a bf16 layer's bias is rounded first).
+    ``conv2d`` + in-place ReLU, which rounds once as well (a bf16 layer
+    sums in float32 there and adds the float32 bias before rounding).
     """
     if x.device.type != "cuda":
         return torch.relu_(conv2d(x, params["w"], params["b"], stride, padding, dilation))

@@ -38,7 +38,12 @@ import torch.nn.functional as F
 
 from ssd_tensorflow_tpu_torch import resolve_device
 from ssd_tensorflow_tpu_torch.models import vgg16
-from ssd_tensorflow_tpu_torch.models.layers import conv_relu, l2_normalize_scale, max_pool
+from ssd_tensorflow_tpu_torch.models.layers import (
+    conv_relu,
+    full_float32,
+    l2_normalize_scale,
+    max_pool,
+)
 from ssd_tensorflow_tpu_torch.models.ssd_vgg import (
     ModelConfig,
     _extra_layer_defs,
@@ -170,14 +175,10 @@ def calibrate_activation_scales(params, images, config: ModelConfig,
             "(ROADMAP.md queue 1 item 5); the port calibrates by max-abs (percentile=100)")
     images = torch.as_tensor(images)
     out = None
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with full_float32(torch.float32):
         for off in range(0, images.shape[0], batch_size):
             chunk = _calibrate_one_batch(params, images[off:off + batch_size], config)
             out = chunk if out is None else {k: max(out[k], chunk[k]) for k in out}
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
     return out
 
 

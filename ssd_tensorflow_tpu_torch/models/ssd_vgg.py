@@ -11,16 +11,21 @@ Parameters are a nested dict ``{layer: {"w": OIHW, "b": (cout,)}}`` plus
 ``{"l2_norm_conv4_3": {"scale": (512,)}}``; ``weights.params_from_jax``
 converts the JAX package's HWIO dict into it.
 
-A bf16 forward always runs a stem kernel (``ops/stem_cuda.py``): the
-split stem (conv1_1 as a convolution, conv1_2 + pool1 as a kernel) or,
-with ``pallas_stem_variant="uint8"``, the whole stem from the raw uint8
-image; a float32 forward runs the conv1 block as plain convolutions.
+A bf16 inference forward always runs a stem kernel
+(``ops/stem_cuda.py``): the split stem (conv1_1 as a convolution,
+conv1_2 + pool1 as a kernel) or, with ``pallas_stem_variant="uint8"``,
+the whole stem from the raw uint8 image; a float32 forward runs the conv1
+block as plain convolutions. The training forward
+(``apply_model(..., inference=False)``) runs no kernel without a
+derivative: every conv is ``layers.conv2d_train``, conv1 included. A
+float32 forward on the card runs its convs in full float32, TF32 off
+(``layers.full_float32``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +34,10 @@ import torch.nn.functional as F
 from ssd_tensorflow_tpu_torch.models import vgg16
 from ssd_tensorflow_tpu_torch.models.layers import (
     conv2d_bias_in,
+    conv2d_train,
     conv_relu,
+    conv_relu_train,
+    full_float32,
     init_conv,
     l2_normalize_scale,
     widen_bias,
@@ -181,12 +189,14 @@ def preprocess(images, config: ModelConfig):
     return (images.float() - mean).to(config.dtype)
 
 
-def _backbone(params, images, config: ModelConfig):
+def _backbone(params, images, config: ModelConfig, train: bool = False):
     """Preprocess + VGG trunk -> (conv4_3, mod_conv7), NHWC. The uint8
     stem preprocesses inside its kernel, from images cast to uint8 as in
-    the JAX package."""
-    if config.dtype != torch.bfloat16:
-        return vgg16.apply_backbone(params, preprocess(images, config), config.a_trous)
+    the JAX package. A float32 forward and the training forward (``train``)
+    run the conv1 block as plain convolutions."""
+    if train or config.dtype != torch.bfloat16:
+        return vgg16.apply_backbone(params, preprocess(images, config), config.a_trous,
+                                    train=train)
     if config.pallas_stem_variant == "uint8":
         pool1 = vgg16.conv1_block_uint8(params, images.to(torch.uint8), config.mean_bgr)
     else:
@@ -194,15 +204,16 @@ def _backbone(params, images, config: ModelConfig):
     return vgg16.apply_backbone(params, pool1, config.a_trous, from_pool1=True)
 
 
-def _extra_maps(params, conv4_3, x, config: ModelConfig):
+def _extra_maps(params, conv4_3, x, config: ModelConfig, train: bool = False):
     """L2-normalized conv4_3, mod_conv7 and the extra layers -> the
     preset's multibox source maps (NHWC)."""
+    conv = conv_relu_train if train else conv_relu
     maps = [
         l2_normalize_scale(conv4_3, params["l2_norm_conv4_3"]["scale"], eps=config.l2_norm_eps),
         x,
     ]
     for name, _, _, stride, padding in _extra_layer_defs(config.preset.num_maps):
-        x = conv_relu(params[name], x, stride, padding)
+        x = conv(params[name], x, stride, padding)
         if name == "conv12_1":
             x = F.pad(x, (0, 0, 0, 1, 0, 1))  # bottom/right zero pad before conv12_2
         elif name.endswith("_2"):
@@ -212,9 +223,9 @@ def _extra_maps(params, conv4_3, x, config: ModelConfig):
     return maps
 
 
-def _feature_maps(params, images, config: ModelConfig):
+def _feature_maps(params, images, config: ModelConfig, train: bool = False):
     """Backbone + extra layers -> the preset's multibox source maps (NHWC)."""
-    return _extra_maps(params, *_backbone(params, images, config), config)
+    return _extra_maps(params, *_backbone(params, images, config, train), config, train)
 
 
 def stage_head_weights(params):
@@ -228,15 +239,19 @@ def stage_head_weights(params):
     return params
 
 
-def _head_maps(params, maps, config: ModelConfig):
+def _head_maps(params, maps, config: ModelConfig, train: bool = False):
     """Each map's multibox head conv: ``(B, h, w, ns * (K+5))`` NHWC,
     ``dtype(conv_f32 + b_f32)`` rounded once (``layers.conv2d_bias_in``).
-    Uses the staged ``"wb"`` filter where ``stage_head_weights`` put one."""
+    Uses the staged ``"wb"`` filter where ``stage_head_weights`` put one.
+    ``train``: the training conv, the bias added in the compute dtype."""
     out = []
     for i, (fmap, m) in enumerate(zip(maps, config.preset.maps)):
         hp = params[f"classifier{i}"]
-        wb = hp["wb"] if "wb" in hp else widen_bias(hp["w"].to(fmap.dtype), hp["b"])
-        y = conv2d_bias_in(fmap, wb)
+        if train:
+            y = conv2d_train(fmap, hp["w"], hp["b"])
+        else:
+            wb = hp["wb"] if "wb" in hp else widen_bias(hp["w"].to(fmap.dtype), hp["b"])
+            y = conv2d_bias_in(fmap, wb)
         if y.shape[1:3] != (m.size.h, m.size.w):
             raise AssertionError(f"map {i}: got {tuple(y.shape[1:3])}, preset says "
                                  f"{m.size.h}x{m.size.w}")
@@ -244,16 +259,25 @@ def _head_maps(params, maps, config: ModelConfig):
     return out
 
 
-def apply_model(params, images, config: ModelConfig):
+def apply_model(params, images, config: ModelConfig, *, inference: bool = True):
     """Forward pass of ``(B, H, W, 3)`` raw BGR images.
 
     Returns ``(logits, locs)``: ``(B, A, K+1)`` float32 class logits and
     ``(B, A, 4)`` float32 location offsets, heads-major anchor order.
+
+    ``inference=True`` (the port's default) is the inference route: stem
+    kernels, one rounding per conv, no derivative. ``inference=False`` is
+    the training route, differentiable, with the JAX package's training
+    math (two roundings per bf16 conv, see ``layers.conv2d_train``). The
+    JAX package's ``apply_model`` defaults to ``inference=False``.
     """
-    maps = _feature_maps(params, images, config)
+    train = not inference
+    with full_float32(config.dtype):
+        maps = _feature_maps(params, images, config, train)
+        heads = _head_maps(params, maps, config, train)
     nv = config.num_vars
     outputs = []
-    for y, m in zip(_head_maps(params, maps, config), config.preset.maps):
+    for y, m in zip(heads, config.preset.maps):
         b, h, w, _ = y.shape
         y = y.reshape(b, h * w, m.num_shapes, nv).transpose(1, 2)
         outputs.append(y.reshape(b, m.num_shapes * h * w, nv))
@@ -273,8 +297,9 @@ def apply_scores(params, images, config: ModelConfig):
     Returns conf ``(B, A)`` float32, cls ``(B, A)`` int32 and locs
     ``(B, A, 4)`` float32 in the anchor-order contract.
     """
-    maps = _feature_maps(params, images, config)
-    return reduce_head_maps(_head_maps(params, maps, config), config)
+    with full_float32(config.dtype):
+        maps = _feature_maps(params, images, config)
+        return reduce_head_maps(_head_maps(params, maps, config), config)
 
 
 def reduce_head_maps(head_maps, config: ModelConfig):
@@ -302,3 +327,31 @@ def reduce_head_maps(head_maps, config: ModelConfig):
         clss.append(cls_m.reshape(b, -1))
         locss.append(locs_m.reshape(b, -1, 4).float())
     return torch.cat(confs, dim=1), torch.cat(clss, dim=1), torch.cat(locss, dim=1)
+
+
+class SSDVGG:
+    """Thin object façade bundling config + params, as the JAX package's
+    ``SSDVGG`` (the reference's class surface)."""
+
+    def __init__(self, config: ModelConfig, params=None):
+        self.config = config
+        self.preset = config.preset
+        self.num_classes = config.num_classes + 1
+        self.num_vars = config.num_vars
+        self.params = params
+
+    def init(self, seed: int = 0, pretrained_vgg: Optional[str] = None):
+        """Xavier parameters from ``seed``, with the pretrained VGG-16
+        archive ``pretrained_vgg`` laid over the trunk where given."""
+        self.params = init_params(self.config, seed)
+        if pretrained_vgg:
+            self.params = vgg16.load_pretrained_vgg(pretrained_vgg, self.params)
+        return self.params
+
+    def __call__(self, images):
+        """``(logits, locs)`` of the training forward, as the JAX façade's
+        call (its ``apply_model`` default)."""
+        return apply_model(self.params, images, self.config, inference=False)
+
+    def result(self, images):
+        return apply_result(self.params, images, self.config)

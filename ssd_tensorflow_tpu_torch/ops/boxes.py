@@ -18,6 +18,14 @@ from ssd_tensorflow_tpu_torch.types import CANVAS
 CANVAS_SIZE = CANVAS.w
 
 
+def true_div(x, c: float):
+    """``x / c`` for a Python number ``c``, divided on every device. On a
+    CUDA tensor PyTorch turns ``x / c`` into ``x * (1 / c)``, which can be
+    one bit off the division the CPU and the JAX package do; a divisor on
+    ``x``'s device keeps the division (and launches no copy)."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
 def cxcywh_to_corners(boxes, img_w: float = 1.0, img_h: float = 1.0):
     """``(..., 4)`` center-form boxes -> float corners (xmin, xmax, ymin, ymax)."""
     cx = boxes[..., 0] * img_w
@@ -31,10 +39,10 @@ def corners_to_cxcywh(corners, img_w: float = 1.0, img_h: float = 1.0):
     """Float corners ``(xmin, xmax, ymin, ymax)`` -> proportional center form."""
     xmin, xmax = corners[..., 0], corners[..., 1]
     ymin, ymax = corners[..., 2], corners[..., 3]
-    w = (xmax - xmin) / img_w
-    h = (ymax - ymin) / img_h
-    cx = (xmin + (xmax - xmin) * 0.5) / img_w
-    cy = (ymin + (ymax - ymin) * 0.5) / img_h
+    w = true_div(xmax - xmin, img_w)
+    h = true_div(ymax - ymin, img_h)
+    cx = true_div(xmin + (xmax - xmin) * 0.5, img_w)
+    cy = true_div(ymin + (ymax - ymin) * 0.5, img_h)
     return torch.stack([cx, cy, w, h], dim=-1)
 
 

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from ssd_tensorflow_tpu_torch.ops.boxes import box_canvas_corners
+
 
 def pairwise_canvas_iou(corners_a, corners_b):
     """IoU of integerized canvas corners ``(..., N, 4)`` vs ``(..., M, 4)``
@@ -28,3 +30,11 @@ def pairwise_canvas_iou(corners_a, corners_b):
     )
     inter = iw * ih
     return inter / (area_a + area_b - inter)
+
+
+def canvas_iou(boxes_a, boxes_b):
+    """Protocol IoU of proportional center-form boxes ``(..., N, 4)`` vs
+    ``(..., M, 4)`` -> ``(..., N, M)``: both integerized onto the
+    1000x1000 canvas (truncation toward zero), then the +1-pixel IoU.
+    The measure anchor matching uses."""
+    return pairwise_canvas_iou(box_canvas_corners(boxes_a), box_canvas_corners(boxes_b))

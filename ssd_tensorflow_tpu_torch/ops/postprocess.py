@@ -104,6 +104,21 @@ def decode_scores(conf, cls, locs, anchors, cfg: DetectionConfig = DetectionConf
     return Detections(boxes=boxes, scores=scores, classes=classes, valid=valid)
 
 
+def decode_detections(probs, locs, anchors, cfg: DetectionConfig = DetectionConfig()):
+    """Batched fused decode + NMS from class probabilities, as the train
+    and eval steps decode their predictions.
+
+    Args:
+      probs: ``(B, A, K+1)`` softmax probabilities (background last);
+      locs: ``(B, A, 4)`` offsets; anchors: ``(A, 4)`` center-form.
+
+    The candidates' confidence and class are the max and the first argmax
+    over the foreground probabilities; the rest is :func:`decode_scores`.
+    """
+    fg = probs[..., :-1]
+    return decode_scores(fg.amax(dim=-1), fg.argmax(dim=-1), locs, anchors, cfg)
+
+
 def detections_to_boxes(dets: Detections, lid2name=None):
     """Detections -> per-image host lists of ``(conf, Box)`` tuples."""
     boxes = dets.boxes.cpu().numpy()

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from ssd_tensorflow_tpu_torch.models import layers
+from ssd_tensorflow_tpu_torch.models import layers, ssd_vgg
 from ssd_tensorflow_tpu_torch.models.ssd_vgg import ModelConfig, init_params
 from ssd_tensorflow_tpu_torch.ops import int8_conv, nms_cuda, stem_cuda, stem_probe
 from ssd_tensorflow_tpu_torch.ops.boxes import box_canvas_corners
@@ -369,3 +369,110 @@ def test_conv_relu_rounds_once(cuda, hw, cin, cout, k, stride, padding, dilation
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     _one_step(got, want)
     assert float((got == want).float().mean()) >= 0.99
+
+
+def test_float32_forward_turns_tf32_off_itself(cuda):
+    """A float32 forward on the card runs its convs in full float32 even
+    when the caller leaves cuDNN's TF32 on (PyTorch's default), and gives
+    the caller's flag back: within 1e-5 of the largest output of the same
+    forward with TF32 off (TF32's 10-bit mantissa would leave ~2^-11)."""
+    cfg = ModelConfig(preset_name="vgg300", num_classes=20, compute_dtype="float32")
+    params = {n: {k: v.to(cuda) for k, v in d.items()} for n, d in init_params(cfg, 2).items()}
+    img = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (2, 300, 300, 3),
+                                                             dtype=np.uint8)).to(cuda)
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        outs = []
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = tf32
+            with torch.inference_mode():
+                outs.append(ssd_vgg.apply_model(params, img, cfg))
+            assert torch.backends.cudnn.allow_tf32 is tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    for got, want in zip(*outs):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def _train_batch(seed, b=2, g=6, k=20):
+    rng = np.random.default_rng(seed)
+    w, h = rng.uniform(0.05, 0.5, (2, b, g))
+    boxes = np.stack([rng.uniform(w / 2, 1 - w / 2), rng.uniform(h / 2, 1 - h / 2), w, h], -1)
+    return {"images": torch.from_numpy(rng.integers(0, 256, (b, 64, 64, 3), dtype=np.uint8)),
+            "gt_boxes": torch.tensor(boxes, dtype=torch.float32),
+            "gt_labels": torch.from_numpy(rng.integers(0, k, (b, g))),
+            "gt_mask": torch.ones((b, g), dtype=torch.bool)}
+
+
+def test_float32_train_step_card_matches_cpu(cuda):
+    """One float32 test64 step on the card against the same step on the
+    CPU, cuDNN's TF32 flag at PyTorch's default (on): targets equal, losses
+    within 1e-4 relative, each leaf's update within 1e-2 of its largest (or
+    two ulps of its largest parameter; cuDNN's float32 algorithms sum in
+    other orders than oneDNN's), the step's NMS on the card."""
+    from ssd_tensorflow_tpu_torch.ops.anchors import anchors_for_preset
+    from ssd_tensorflow_tpu_torch.ops.matching import encode_targets_batch
+    from ssd_tensorflow_tpu_torch.ops.postprocess import DetectionConfig
+    from ssd_tensorflow_tpu_torch.parallel import train_step
+
+    cfg = train_step.TrainConfig(
+        model=ModelConfig(preset_name="test64", num_classes=20, compute_dtype="float32"),
+        detect=DetectionConfig(top_k=32, confidence_threshold=0.05))
+    params = init_params(cfg.model, seed=4)
+    anchors = anchors_for_preset(cfg.model.preset)
+    batch = _train_batch(4)
+    targets = [encode_targets_batch(batch["gt_boxes"].to(dev), batch["gt_labels"].to(dev),
+                                    batch["gt_mask"].to(dev), torch.from_numpy(anchors).to(dev),
+                                    20).cpu() for dev in ("cpu", cuda)]
+    assert torch.equal(targets[0], targets[1])
+    step = train_step.make_train_step(cfg, anchors)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        before = nms_cuda.nms_keep.launches
+        (gs, gl, gd), (ws, wl, wd) = (
+            step(train_step.make_train_state(params, cfg, device=dev), batch)
+            for dev in (cuda, "cpu"))
+        assert nms_cuda.nms_keep.launches == before + 1
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    for k in wl:
+        assert abs(float(gl[k]) - float(wl[k])) <= 1e-4 * abs(float(wl[k])), k
+    for n, leaves in params.items():
+        for k, old in leaves.items():
+            want, got = ws.params[n][k] - old, gs.params[n][k].cpu() - old
+            tol = max(1e-2 * float(want.abs().max()), 2.0 ** -22 * float(old.abs().max()))
+            assert float((got - want).abs().max()) <= tol, (n, k)
+    assert gd.boxes.is_cuda and gd.boxes.shape == wd.boxes.shape == (2, 32, 4)
+
+
+def test_decode_detections_launches_nms(cuda):
+    """``decode_detections`` on CUDA tensors runs NMS as the kernel, once,
+    and gives the CPU's detections bit for bit: zero offsets decode to the
+    anchors (``exp(0) = 1`` on both devices), and the decode's divisions
+    are divisions on the card too (``boxes.true_div``)."""
+    from ssd_tensorflow_tpu_torch.ops.anchors import anchors_for_preset
+    from ssd_tensorflow_tpu_torch.ops.postprocess import DetectionConfig, decode_detections
+
+    anchors = torch.from_numpy(anchors_for_preset(ModelConfig(preset_name="vgg300").preset))
+    g = torch.Generator().manual_seed(5)
+    probs = torch.softmax(3 * torch.randn((4, anchors.shape[0], 21), generator=g), -1)
+    locs = torch.zeros((4, anchors.shape[0], 4))
+    cfg = DetectionConfig(top_k=200, confidence_threshold=0.3)
+    want = decode_detections(probs, locs, anchors, cfg)
+    before = nms_cuda.nms_keep.launches
+    got = decode_detections(probs.to(cuda), locs.to(cuda), anchors.to(cuda), cfg)
+    assert nms_cuda.nms_keep.launches == before + 1
+    assert want.valid.any()
+    for field in ("valid", "classes", "boxes", "scores"):
+        assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), field
+
+
+def test_true_div_divides_on_the_card(cuda):
+    """``x / 1000.0`` on a CUDA tensor is ``x * (1 / 1000)``, one bit off
+    the CPU's division on some elements; ``boxes.true_div`` is not."""
+    from ssd_tensorflow_tpu_torch.ops.boxes import true_div
+
+    x = torch.arange(0, 2 ** 16, dtype=torch.float32) * 0.37
+    for c in (1000.0, 10.0, 5.0):
+        assert torch.equal(true_div(x.to(cuda), c).cpu(), x / c)

@@ -37,6 +37,21 @@ def test_port_imports_with_jax_blocked():
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
+def test_inference_loads_nothing_of_training():
+    """The serving façade, its weight bridge and the checkpoint reader
+    import none of the training step, the loss or the anchor matching."""
+    code = (
+        "import sys\n"
+        "import ssd_tensorflow_tpu_torch.inference, ssd_tensorflow_tpu_torch.weights\n"
+        "import ssd_tensorflow_tpu_torch.utils.checkpoint\n"
+        "loaded = [m for m in ('ssd_tensorflow_tpu_torch.parallel.train_step',"
+        " 'ssd_tensorflow_tpu_torch.models.loss', 'ssd_tensorflow_tpu_torch.ops.matching')"
+        " if m in sys.modules]\n"
+        "assert not loaded, loaded\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_names_no_jax_package(path):
     assert not _JAX_PACKAGE.search(path.read_text()), path
@@ -60,6 +75,27 @@ def test_int8_bundle_model_defaults_to_cuda():
 
     with pytest.raises(RuntimeError, match="cuda"):
         InferenceModel.from_bundle(str(ROOT / "assets" / "vgg512_int8_minivoc.ssdtpu.npz"))
+
+
+def test_training_entry_points_default_to_cuda(tmp_path):
+    """The train state and the checkpoint-built model are placed on
+    ``device="cuda"`` unless the caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the no-CUDA error cannot occur")
+    from ssd_tensorflow_tpu_torch.inference import InferenceModel, model_config_to_dict
+    from ssd_tensorflow_tpu_torch.models.ssd_vgg import ModelConfig, init_params
+    from ssd_tensorflow_tpu_torch.parallel.train_step import TrainConfig, make_train_state
+    from ssd_tensorflow_tpu_torch.utils.checkpoint import save_checkpoint
+
+    cfg = TrainConfig(model=ModelConfig(preset_name="test64", num_classes=3))
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_train_state(init_params(cfg.model), cfg)
+    path = str(tmp_path / "e1.ckpt.npz")
+    save_checkpoint(path, make_train_state(init_params(cfg.model), cfg, device="cpu"),
+                    {"model": model_config_to_dict(cfg.model)})
+    with pytest.raises(RuntimeError, match="cuda"):
+        InferenceModel.from_checkpoint(path)
+    assert InferenceModel.from_checkpoint(path, device="cpu").config == cfg.model
 
 
 def test_chip_smoke_refuses_without_the_repo_or_a_gpu(tmp_path):

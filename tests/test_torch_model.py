@@ -54,21 +54,30 @@ def test_conv2d_matches_jax(rng, size, k, stride, padding, dilation):
 
 
 def test_bf16_conv2d_matches_jax_f32_out(rng):
-    """A bf16 conv with a bias bf16 cannot hold against the JAX package's
-    f32-accumulate conv: within one bf16 step of the largest output. (No
-    bf16 layer of the model hands ``conv2d`` a bias; the heads' route is
-    held tighter in test_head_conv_rounds_once_like_jax_f32_out.)"""
-    x = torch.tensor(rng.normal(0, 1, (2, 9, 10, 16)), dtype=torch.bfloat16)
-    w = torch.tensor(rng.normal(0, 0.3, (8, 16, 3, 3)), dtype=torch.float32)
-    b = torch.tensor(rng.normal(0, 1, (8,)), dtype=torch.float32)
-    assert not torch.equal(b.to(torch.bfloat16).float(), b)
-    got = layers.conv2d(x, w, b)
-    assert got.dtype == torch.bfloat16
-    want = np.asarray(jax_layers.conv2d(
-        jnp.asarray(x.float().numpy(), jnp.bfloat16), w.permute(2, 3, 1, 0).numpy(), b.numpy(),
-        f32_out=True), dtype=np.float32)
-    err = np.abs(got.float().numpy() - want).max()
-    assert err <= 2.0 ** -7 * np.abs(want).max()
+    """On the CPU a bf16 conv with a float32 bias (``conv2d``, and
+    ``conv_relu`` through it) sums the exact bf16 products in float32, adds
+    the float32 bias and rounds once, as the JAX package's
+    ``conv2d(..., f32_out=True)`` does: equal on >= 99.9 % of elements, the
+    rest within one bf16 step of the largest output. Measured: 100 % of the
+    first layer, 99.994 % and 99.985 % of the wider two (a float32 sum in
+    another order may round the other way). The bias rounded to bf16
+    before the add, as before, held 76-83 % of them."""
+    for shape, wshape, sd in (((2, 9, 10, 16), (8, 16, 3, 3), 0.3),
+                              ((2, 16, 17, 64), (32, 64, 3, 3), 0.1),
+                              ((2, 12, 13, 128), (64, 128, 3, 3), 0.1)):
+        x = torch.tensor(rng.normal(0, 1, shape), dtype=torch.bfloat16)
+        w = torch.tensor(rng.normal(0, sd, wshape), dtype=torch.float32)
+        b = torch.tensor(rng.normal(0, 1, (wshape[0],)), dtype=torch.float32)
+        assert not torch.equal(b.to(torch.bfloat16).float(), b)
+        want = np.asarray(jax_layers.conv2d(
+            jnp.asarray(x.float().numpy(), jnp.bfloat16), w.permute(2, 3, 1, 0).numpy(),
+            b.numpy(), f32_out=True), dtype=np.float32)
+        for got, ref in ((layers.conv2d(x, w, b), want),
+                         (layers.conv_relu({"w": w, "b": b}, x), np.maximum(want, 0))):
+            assert got.dtype == torch.bfloat16
+            got = got.float().numpy()
+            assert float((got == ref).mean()) >= 0.999
+            assert np.abs(got - ref).max() <= 2.0 ** -7 * np.abs(ref).max()
 
 
 def _fine_bias(rng, n):

@@ -255,6 +255,28 @@ def test_overrides_pallas_stem_true_is_a_no_op_and_false_raises():
         inference.InferenceModel(params, cfg, overrides={"pallas_stem": False}, device="cpu")
 
 
+@pytest.mark.parametrize("variant", ["dma", "uint8"])
+def test_overrides_padded_heads_is_a_no_op(variant):
+    """``padded_heads`` (which ``cli/detect.py`` passes to the JAX façade)
+    is accepted, True or False, and changes no bit of the detections."""
+    cfg = ssd_vgg.ModelConfig(**CFG)
+    params = ssd_vgg.init_params(cfg, seed=4)
+    img = np.random.default_rng(4).integers(0, 255, (2, 64, 64, 3), dtype=np.uint8)
+    base = {"pallas_stem_variant": variant}
+    want = inference.InferenceModel(params, cfg, overrides=base, device="cpu").run_scores(img)
+    for padded in (True, False):
+        m = inference.InferenceModel(params, cfg, overrides=dict(base, padded_heads=padded),
+                                     device="cpu")
+        assert m.config == dataclasses.replace(cfg, pallas_stem_variant=variant)
+        got = m.run_scores(img)
+        for field in ("boxes", "scores", "classes", "valid"):
+            assert torch.equal(getattr(got, field), getattr(want, field)), field
+    with pytest.raises(ValueError, match="padded_heads"):
+        inference.InferenceModel(params, cfg, overrides={"padded_heads": "yes"}, device="cpu")
+    with pytest.raises(ValueError, match="padded_heads"):
+        inference.InferenceModel(params, cfg, overrides={"bogus": 1}, device="cpu")
+
+
 def test_overrides_dropped_on_a_float32_bundle(capsys):
     cfg = ssd_vgg.ModelConfig(**CFG, compute_dtype="float32")
     m = inference.InferenceModel(ssd_vgg.init_params(cfg), cfg, device="cpu",

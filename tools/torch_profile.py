@@ -4,6 +4,7 @@
     python3 tools/torch_profile.py [--seed 0] [--batch 64] [--stem-variant dma|uint8]
                                    [--bundle assets/vgg512_int8_minivoc.ssdtpu.npz]
                                    [--out runs/torch_profile.json]
+    python3 tools/torch_profile.py --train [--batch 32] [--out ...]
 
 Without ``--bundle``: vgg512 bf16 with weights made from the seed, the
 stem kernel chosen as ``InferenceModel(overrides={"pallas_stem_variant":
@@ -26,6 +27,17 @@ Random uint8 images from the seed either way. Prints one JSON object
 * ``profile``: a ``torch.profiler`` window over a few chained batches:
   device busy time per batch, the idle share of the window, and the
   kernels with the most device time.
+
+With ``--train``: the vgg512 bf16 SGD train step
+(``parallel/train_step.make_train_step``) at ``--batch`` (default 32) on
+one batch of uint8 images with 1-8 gt boxes each, weights from the seed.
+``stages_ms`` times each part of the step alone on the inputs one step
+gives it: targets (``encode_targets_batch``), the training forward
+(building its autograd graph), loss + hard-negative mining + L2, the
+backward (``torch.autograd.grad``), the optimizer update and the
+detect (softmax + ``decode_detections``, NMS the kernel); ``step_ms`` is
+the whole step, and ``profile`` a window over 3 chained steps. The train
+configuration is ``chip_smoke.train_config()``'s.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -154,7 +166,39 @@ def _int8_stages(model, images):
     return out
 
 
-def _profile(model, images, iters=3):
+def _train_stages(cfg, state, batch, anchors):
+    """``{stage: ms}`` of the train step, each part timed alone (see the
+    module doc): the step's own functions on the inputs one step gives
+    them."""
+    import torch
+
+    from ssd_tensorflow_tpu_torch.models.loss import total_loss
+    from ssd_tensorflow_tpu_torch.parallel import train_step as ts
+    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
+
+    out = {}
+
+    def timed(name, fn):
+        out[name] = cuda_event_ms(fn, iters=3, warmup=1)
+        return fn()
+
+    labels = timed("targets", lambda: ts.batch_targets(batch, anchors, cfg))
+    leaves = ts.tree_map(lambda v: v.detach().requires_grad_(True), state.params)
+    flat = [v for d in leaves.values() for v in d.values()]
+    logits, locs = timed("forward", lambda: ts.model_outputs(leaves, batch["images"], cfg))
+    total = timed("loss_mining_l2", lambda: total_loss(
+        logits, locs, labels, leaves, cfg.model.num_classes, cfg.weight_decay)["total"])
+    grads = timed("backward", lambda: torch.autograd.grad(total, flat, retain_graph=True))
+    it = iter(grads)
+    grads = ts.tree_map(lambda _: next(it), leaves)
+    tx = ts.make_optimizer(cfg)
+    with torch.no_grad():
+        timed("optimizer", lambda: tx.update(grads, state.opt_state, state.params))
+    timed("detect", lambda: ts.detect(logits, locs, anchors, cfg))
+    return out
+
+
+def _profile(run, iters=3):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -164,7 +208,7 @@ def _profile(model, images, iters=3):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            model.run_scores(images)
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = device_kernels(prof, iters)
@@ -184,19 +228,65 @@ def _profile(model, images, iters=3):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="batch size (default 64, or 32 with --train)")
+    ap.add_argument("--train", action="store_true", help="profile the vgg512 bf16 train step")
     ap.add_argument("--stem-variant", choices=("dma", "uint8"), default="dma")
     ap.add_argument("--bundle", default=None,
                     help="run this model bundle (an int8 one takes the int8 path)")
     ap.add_argument("--out", default="runs/torch_profile.json")
     args = ap.parse_args(argv)
 
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("torch_profile: needs a GPU", file=sys.stderr)
         return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    if args.train:
+        result = _train_main(args.seed, args.batch or 32)
+    else:
+        result = _inference_main(args, args.batch or 64)
+    result = {"card": smi.splitlines()[0], "torch": torch.__version__, **result}
+    text = json.dumps(result, indent=1)
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text(text + "\n")
+    print(text)
+    return 0
+
+
+def _train_main(seed: int, batch_size: int) -> dict:
+    import numpy as np
+    import torch
+
+    from ssd_tensorflow_tpu_torch.models import ssd_vgg
+    from ssd_tensorflow_tpu_torch.ops.anchors import anchors_for_preset
+    from ssd_tensorflow_tpu_torch.parallel import train_step
+    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
+    from chip_smoke import train_batch, train_config
+
+    cfg = train_config()
+    anchors = anchors_for_preset(cfg.model.preset)
+    data = train_batch(np.random.default_rng(seed), batch_size, cfg.model.preset.image_size.h,
+                       cfg.model.num_classes)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+    state = train_step.make_train_state(ssd_vgg.init_params(cfg.model, seed), cfg)
+    step = train_step.make_train_step(cfg, anchors)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_event_ms(lambda: step(state, batch), iters=5, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stages = _train_stages(cfg, state, batch, torch.from_numpy(anchors).cuda())
+    return {"preset": cfg.model.preset_name, "path": "train", "dtype": cfg.model.compute_dtype,
+            "batch": batch_size, "stages_ms": stages, "stages_sum_ms": sum(stages.values()),
+            "step_ms": step_ms, "images_per_s": batch_size / step_ms * 1e3,
+            "peak_mem_gib": peak, "profile": _profile(lambda: step(state, batch))}
+
+
+def _inference_main(args, batch_size: int) -> dict:
+    import numpy as np
+    import torch
+
     from ssd_tensorflow_tpu_torch.inference import InferenceModel
     from ssd_tensorflow_tpu_torch.models import ssd_vgg
     from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
@@ -213,26 +303,19 @@ def main(argv=None) -> int:
     size = cfg.preset.image_size
     rng = np.random.default_rng(args.seed)
     images = torch.from_numpy(
-        rng.integers(0, 256, (args.batch, size.h, size.w, 3), dtype=np.uint8)).cuda()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+        rng.integers(0, 256, (batch_size, size.h, size.w, 3), dtype=np.uint8)).cuda()
     with torch.inference_mode():
         stages = (_int8_stages if int8 else _stages)(model, images)
         run_ms = cuda_event_ms(lambda: model.run_scores(images))
-        prof = _profile(model, images)
-    result = {
-        "card": smi.splitlines()[0], "torch": torch.__version__, "preset": cfg.preset_name,
+        prof = _profile(lambda: model.run_scores(images))
+    return {
+        "preset": cfg.preset_name,
         "path": "int8" if int8 else cfg.compute_dtype, "bundle": args.bundle,
-        "stem_variant": None if int8 else args.stem_variant, "batch": args.batch,
+        "stem_variant": None if int8 else args.stem_variant, "batch": batch_size,
         "stages_ms": stages,
         "stages_sum_ms": sum(stages.values()), "run_scores_ms": run_ms,
-        "images_per_s": args.batch / run_ms * 1e3, "profile": prof,
+        "images_per_s": batch_size / run_ms * 1e3, "profile": prof,
     }
-    text = json.dumps(result, indent=1)
-    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    Path(args.out).write_text(text + "\n")
-    print(text)
-    return 0
 
 
 if __name__ == "__main__":
