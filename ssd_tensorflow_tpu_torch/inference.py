@@ -5,9 +5,11 @@ The bundle is the JAX package's npz format: a ``__meta__`` JSON entry
 activation scales) and the parameters as ``leaf_<i>`` arrays in JAX
 tree-flatten order, which is sorted dict keys at every level,
 convolutions HWIO. A float bundle holds ``b``, ``w`` per conv; an int8
-(W8A8) bundle ``b``, ``w_scale``, ``wq`` (int8). VGG bundles written by
-either package load in the other; the family int8 bundles (resnet /
-mobilenet, per-channel scales folded into the weights) are not ported.
+(W8A8) bundle ``b``, ``w_scale``, ``wq`` (int8), and a family conv of an
+int8 bundle (resnet34 / mobilenetv1, per-channel activation scales folded
+into the weights) also its ``a_scale``; GroupNorms hold ``bias`` and
+``scale``. Bundles of every family, float or int8, written by either
+package load in the other.
 """
 
 from __future__ import annotations
@@ -18,13 +20,13 @@ import json
 import numpy as np
 import torch
 
-from ssd_tensorflow_tpu_torch import get_preset_by_name, resolve_device
+from ssd_tensorflow_tpu_torch import resolve_device
 from ssd_tensorflow_tpu_torch.models import quantized
 from ssd_tensorflow_tpu_torch.models.ssd_vgg import (
     ModelConfig,
     apply_scores,
     param_shapes,
-    stage_head_weights,
+    stage_conv_weights,
 )
 from ssd_tensorflow_tpu_torch.ops.anchors import anchors_for_preset
 from ssd_tensorflow_tpu_torch.ops.postprocess import (
@@ -78,11 +80,16 @@ def _leaf_order(shapes: dict):
 
 def qparam_shapes(config: ModelConfig) -> dict:
     """``{layer: {leaf: shape}}`` of an int8 bundle: each conv's ``w``
-    becomes ``wq`` (HWIO int8) beside a per-output-channel ``w_scale``."""
+    becomes ``wq`` (HWIO int8) beside a per-output-channel ``w_scale``; a
+    family conv other than a depthwise one (``*_dw``) also holds its folded
+    per-input-channel ``a_scale`` (``quantized.quantize_weights_folded``)."""
+    family = config.preset.backbone != "vgg"
     shapes = {}
     for name, leaves in param_shapes(config).items():
         if "w" in leaves:
             shapes[name] = {"b": leaves["b"], "w_scale": leaves["b"], "wq": leaves["w"]}
+            if family and not name.endswith("_dw"):
+                shapes[name]["a_scale"] = (leaves["w"][2],)
         else:
             shapes[name] = dict(leaves)
     return shapes
@@ -91,7 +98,8 @@ def qparam_shapes(config: ModelConfig) -> dict:
 def save_bundle(path: str, params, model_cfg: ModelConfig, lid2name=None, act_scales=None):
     """Write an inference bundle of the port's parameters: float, or with
     ``act_scales`` given, int8 of the port's q-params
-    (``models/quantized.quantize_weights``) with the scales in its meta."""
+    (``models/quantized.quantize_weights``, or ``quantize_weights_folded``
+    for a family with ``act_scales={}``) with the scales in its meta."""
     if act_scales is None:
         tree, shapes = params_to_jax(params), param_shapes(model_cfg)
     else:
@@ -116,11 +124,6 @@ def load_bundle(path: str):
     with np.load(path) as data:
         meta = json.loads(bytes(data["__meta__"]))
         quantized_bundle = meta.get("format", "").endswith("int8.v1")
-        backbone = get_preset_by_name(meta["model"]["preset_name"]).backbone
-        if quantized_bundle and backbone != "vgg":
-            raise NotImplementedError(
-                f"{path} is a {backbone} int8 bundle: the family int8 path (per-channel "
-                "scales folded into the weights) is not ported (ROADMAP.md queue 1 item 7)")
         model_cfg = model_config_from_dict(meta["model"])
         shapes = (qparam_shapes if quantized_bundle else param_shapes)(model_cfg)
         order = _leaf_order(shapes)
@@ -162,14 +165,16 @@ def _apply_overrides(model_cfg: ModelConfig, overrides: dict, int8: bool = False
     kernel, so ``pallas_stem: False`` raises; ``padded_heads`` pads the
     JAX package's head convs to a lane-aligned width whose pad channels
     its scores path slices away, which changes no math. On a
-    bundle that does not run the bf16 float stem (float32, or int8, which
-    quantizes conv1 as it does every conv) the stem overrides are dropped
-    with the JAX package's message.
+    bundle that does not run the bf16 VGG float stem (int8, which
+    quantizes conv1 as it does every conv, float32, or a resnet34 /
+    mobilenetv1 model, whose stem is another block) the stem overrides are
+    dropped with the JAX package's message.
     """
     overrides = dict(overrides)
     stem_keys = [k for k in ("pallas_stem", "pallas_stem_variant") if k in overrides]
-    if stem_keys and (int8 or model_cfg.compute_dtype != "bfloat16"):
-        kind = "int8" if int8 else model_cfg.compute_dtype
+    backbone = model_cfg.preset.backbone
+    if stem_keys and (int8 or model_cfg.compute_dtype != "bfloat16" or backbone != "vgg"):
+        kind = "int8" if int8 else backbone if backbone != "vgg" else model_cfg.compute_dtype
         print(f"[!] pallas_stem override ignored: this {kind} "
               "bundle does not run the bf16 VGG float stem")
         for k in stem_keys:
@@ -193,9 +198,10 @@ class InferenceModel:
     """End-to-end detector: uint8 BGR batch -> detections, on one device.
 
     With ``act_scales`` given, ``params`` are int8 q-params (an int8
-    bundle's, or ``models/quantized.quantize_weights``') and the forward is
-    the int8 W8A8 path (``models/quantized._forward_scores``); otherwise
-    float parameters and the float path. ``overrides`` holds
+    bundle's, or ``models/quantized.quantize_weights[_folded]``'; a family
+    model's ``act_scales`` is ``{}``) and the forward is the int8 W8A8 path
+    (``models/quantized._forward_scores``); otherwise float parameters and
+    the float path, of any family. ``overrides`` holds
     execution-backend fields of the model config, applied per run and
     never serialized (see :func:`_apply_overrides`).
     """
@@ -214,10 +220,10 @@ class InferenceModel:
         if act_scales is not None:
             self.params = stage_qparams(params, act_scales, self.device)
         else:
-            self.params = stage_head_weights({
+            self.params = stage_conv_weights({
                 name: {key: self._stage(v) for key, v in leaves.items()}
                 for name, leaves in params.items()
-            })
+            }, model_cfg)
         self.anchors = torch.from_numpy(anchors_for_preset(self.preset)).to(self.device)
 
     def _stage(self, value):

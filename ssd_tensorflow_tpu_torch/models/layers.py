@@ -144,24 +144,88 @@ def widen_bias(w, b):
     return torch.cat([w, extra], dim=1).contiguous(memory_format=torch.channels_last)
 
 
-def conv2d_bias_in(x, wb, dilation=1):
-    """Stride-1 SAME convolution + bias of NHWC ``x``, rounded once, with
-    the bias carried in as input channels: ``wb = widen_bias(w, b)``.
+def conv2d_bias_in(x, wb, stride=1, padding="SAME", dilation=1):
+    """Convolution + bias of NHWC ``x``, rounded once, with the bias
+    carried in as input channels: ``wb = widen_bias(w, b)``.
 
     ``x`` gets 8 more channels, three of ones and five of zeros, so the
     bias's terms enter the convolution's float32 accumulator with the
     products, each times 1, and the output rounds once: the JAX package's
-    ``conv2d(x, w, b, f32_out=True)``. The centre tap never reads SAME
-    padding, so borders get the same bias. One code path on every device;
-    it costs one copy of ``x`` and saves the separate bias pass (which on
-    the card rounded a second time).
+    ``conv2d(x, w, b, stride, padding, f32_out=True)``. One code path on
+    every device; it costs one copy of ``x`` and saves the separate bias
+    pass (which on the card rounded a second time).
+
+    Every output gets the whole bias because the centre tap of an odd
+    ``k x k`` kernel (dilated extent ``e = (k - 1) * dilation + 1``, centre
+    at offset ``(e - 1) / 2``) reads a real pixel, never padding. VALID
+    pads nothing. TF SAME with ``n`` inputs, ``out = ceil(n / stride)``
+    outputs and ``total = max((out - 1) * stride + e - n, 0)`` pads
+    ``before = total // 2`` and ``after = total - before``; since ``(out -
+    1) * stride <= n - 1``, ``total <= e - 1``, so ``before <= after <=
+    (e - 1) / 2``. Output ``o``'s centre tap reads input ``o * stride -
+    before + (e - 1) / 2 >= o * stride >= 0``, and the last output's reads
+    ``n - 1 + after - (e - 1) / 2 <= n - 1`` (if ``total > 0``; else
+    ``(out - 1) * stride + (e - 1) / 2 <= n - 1 - (e - 1) / 2``).
     """
     if wb.shape[1] != x.shape[-1] + BIAS_CHANNELS:
         raise ValueError(f"conv2d_bias_in: filter of {wb.shape[1]} input channels for a map "
                          f"of {x.shape[-1]}; expected widen_bias(w, b)")
     carrier = x.new_zeros((*x.shape[:-1], BIAS_CHANNELS))
     carrier[..., :3] = 1
-    return conv2d(torch.cat([x, carrier], dim=-1), wb, None, 1, "SAME", dilation)
+    return conv2d(torch.cat([x, carrier], dim=-1), wb, None, stride, padding, dilation)
+
+
+def depthwise_conv2d(x, w, b=None, stride=1, padding="SAME", f32_out=False):
+    """Depthwise convolution of NHWC ``x`` with the OIHW filter ``w`` of
+    shape ``(C, 1, kh, kw)``: ``F.conv2d(groups=C)`` in float32 from the
+    compute-dtype operands (every product of two bf16 values is exact in
+    float32), the same route on the CPU and the card.
+
+    ``f32_out=True``, the inference form: the float32 bias added inside
+    the conv and the result rounded once to ``x.dtype``, as the JAX
+    package's ``depthwise_conv2d(..., f32_out=True)`` (a bias cannot ride
+    in as input channels under ``groups=C``, and the stencil is
+    bandwidth-bound either way).
+
+    ``f32_out=False``, the training form and the int8 path's weight-only
+    depthwise: the sum rounded to ``x.dtype``, then ``+ b`` in ``x.dtype``,
+    two roundings in bf16, as the JAX package's default.
+    """
+    c = x.shape[-1]
+    if w.shape[:2] != (c, 1):
+        raise ValueError(f"depthwise_conv2d: filter {tuple(w.shape)} for {c} channels; "
+                         f"expected ({c}, 1, kh, kw)")
+    w = w.to(x.dtype)
+    xn, pad = _same_input(x, w, stride, padding, 1)
+    bias = b.float() if f32_out and b is not None else None
+    y = F.conv2d(xn.float(), w.float(), bias, stride, pad, groups=c)
+    y = y.to(x.dtype).permute(0, 2, 3, 1)
+    return y if f32_out or b is None else y + b.to(x.dtype)
+
+
+def float_conv_executor(params, inference=True):
+    """The float conv executor of a family's ``walk_feature_maps``:
+    ``conv(name, x, *, stride=1, padding="SAME", depthwise=False)``, conv
+    + bias only (norms, activations and skips live in the walker), as the
+    JAX package's ``layers.float_conv_executor``.
+
+    ``inference=True``: every output rounds once, as the JAX package's
+    ``f32_out=True``: :func:`conv2d_bias_in` (with the ``"wb"`` filter that
+    ``ssd_vgg.stage_conv_weights`` staged, else one widened per call) and the
+    float32 form of :func:`depthwise_conv2d`. ``inference=False``: the
+    differentiable training math, :func:`conv2d_train` and the ``x.dtype``
+    depthwise form (two roundings in bf16, as the JAX package's default)."""
+
+    def conv(name, x, *, stride=1, padding="SAME", depthwise=False):
+        p = params[name]
+        if depthwise:
+            return depthwise_conv2d(x, p["w"], p["b"], stride, padding, f32_out=inference)
+        if not inference:
+            return conv2d_train(x, p["w"], p["b"], stride, padding)
+        wb = p["wb"] if "wb" in p else widen_bias(p["w"].to(x.dtype), p["b"])
+        return conv2d_bias_in(x, wb, stride, padding)
+
+    return conv
 
 
 def conv_relu(params, x, stride=1, padding="SAME", dilation=1):

@@ -1,6 +1,11 @@
-"""The SSD-VGG detector: configuration, parameters and forward pass.
+"""The SSD detector: configuration, parameters and forward pass.
 
-Architecture: VGG-16 trunk -> a-trous conv6/conv7 -> extra layers
+Three backbone families, chosen by the preset's ``backbone``: VGG-16
+(below), ResNet-34 (``models/resnet.py``) and MobileNetV1
+(``models/mobilenet.py``); the heads, the anchor order and everything
+after them are family-generic.
+
+VGG architecture: VGG-16 trunk -> a-trous conv6/conv7 -> extra layers
 conv8..11 (+12 for 7-map presets) -> the L2-normalized conv4_3 plus 5-6
 more feature maps -> one wide 3x3 multibox head conv per map, whose
 output channels are the per-shape heads concatenated. Outputs follow the
@@ -15,7 +20,9 @@ A bf16 inference forward always runs a stem kernel
 (``ops/stem_cuda.py``): the split stem (conv1_1 as a convolution,
 conv1_2 + pool1 as a kernel) or, with ``pallas_stem_variant="uint8"``,
 the whole stem from the raw uint8 image; a float32 forward runs the conv1
-block as plain convolutions. The training forward
+block as plain convolutions. A family forward runs no stem kernel: its
+walk takes the float conv executor (``layers.float_conv_executor``), one
+rounding per conv + bias on the inference route. The training forward
 (``apply_model(..., inference=False)``) runs no kernel without a
 derivative: every conv is ``layers.conv2d_train``, conv1 included. A
 float32 forward on the card runs its convs in full float32, TF32 off
@@ -37,6 +44,7 @@ from ssd_tensorflow_tpu_torch.models.layers import (
     conv2d_train,
     conv_relu,
     conv_relu_train,
+    float_conv_executor,
     full_float32,
     init_conv,
     l2_normalize_scale,
@@ -45,8 +53,10 @@ from ssd_tensorflow_tpu_torch.models.layers import (
 from ssd_tensorflow_tpu_torch.presets import SSDPreset, get_preset_by_name
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-#: the stem kernels a bf16 forward may run (``ModelConfig.pallas_stem_variant``)
+#: the stem kernels a bf16 VGG forward may run (``ModelConfig.pallas_stem_variant``)
 STEM_VARIANTS = ("dma", "uint8")
+#: the backbone families a preset may name
+BACKBONES = ("vgg", "resnet34", "mobilenetv1")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,8 +79,8 @@ class ModelConfig:
     packed_stem: bool = True
     #: epsilon inside the conv4_3 L2-normalization rsqrt.
     l2_norm_eps: float = 1e-12
-    #: which stem kernel a bf16 forward runs: "dma" = the split stem
-    #: (conv1_1 as a cuDNN convolution, conv1_2 + pool1 as
+    #: which stem kernel a bf16 VGG forward runs (a family runs none):
+    #: "dma" = the split stem (conv1_1 as a cuDNN convolution, conv1_2 + pool1 as
     #: ``csrc/stem.cu``); "uint8" = the whole stem in one kernel reading
     #: the raw uint8 image (``csrc/stem_uint8.cu``). An execution-backend
     #: choice, never serialized (``InferenceModel(overrides=...)`` sets
@@ -82,10 +92,13 @@ class ModelConfig:
     pallas_stem_variant: str = "dma"
 
     def __post_init__(self):
-        if self.preset.backbone != "vgg":
-            raise NotImplementedError(
-                f"preset {self.preset_name!r} uses backbone {self.preset.backbone!r}; "
-                "the port covers the VGG family so far"
+        if self.preset.backbone not in BACKBONES:
+            raise ValueError(f"preset {self.preset_name!r}: unknown backbone "
+                             f"{self.preset.backbone!r}, expected one of {BACKBONES}")
+        if self.pallas_stem_variant != "dma" and self.preset.backbone != "vgg":
+            raise ValueError(
+                f"pallas_stem_variant={self.pallas_stem_variant!r} selects a VGG conv1-block "
+                f"kernel; preset {self.preset_name!r} uses backbone {self.preset.backbone!r}"
             )
         if self.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, "
@@ -139,24 +152,52 @@ def _extra_layer_defs(num_maps: int):
     return defs
 
 
-#: input channels of each multibox source map
+#: input channels of each multibox source map (VGG family)
 #: [norm_conv4_3, mod_conv7, conv8_2, conv9_2, conv10_2, conv11_2, (conv12_2)]
 _MAP_CHANNELS = (512, 1024, 512, 256, 256, 256, 256)
+
+
+def _backbone_module(preset: SSDPreset):
+    """The family module of a non-VGG preset (``models/resnet.py`` or
+    ``models/mobilenet.py``), or None for the VGG family. Each exposes
+    ``map_channels``, ``backbone_shapes``, ``init_backbone_params`` and
+    ``walk_feature_maps``."""
+    if preset.backbone == "resnet34":
+        from ssd_tensorflow_tpu_torch.models import resnet
+
+        return resnet
+    if preset.backbone == "mobilenetv1":
+        from ssd_tensorflow_tpu_torch.models import mobilenet
+
+        return mobilenet
+    return None
+
+
+def map_channels(preset: SSDPreset):
+    """Head-input channel count per multibox source map, per family."""
+    fam = _backbone_module(preset)
+    if fam is not None:
+        return fam.map_channels(preset)
+    return _MAP_CHANNELS[: preset.num_maps]
 
 
 def param_shapes(config: ModelConfig) -> dict:
     """``{layer: {leaf: shape}}`` of every parameter, convolutions in the
     JAX package's HWIO layout (the bundle's and the conversion's layout)."""
     preset = config.preset
-    shapes = {name: {"b": (s[3],), "w": s} for name, s in vgg16.vgg_param_shapes().items()}
-    shapes["l2_norm_conv4_3"] = {"scale": (512,)}
-    cin = 1024
-    for name, cout, ksize, _, _ in _extra_layer_defs(preset.num_maps):
-        shapes[name] = {"b": (cout,), "w": (ksize, ksize, cin, cout)}
-        cin = cout
-    for i, m in enumerate(preset.maps):
+    fam = _backbone_module(preset)
+    if fam is not None:
+        shapes = fam.backbone_shapes(preset)
+    else:
+        shapes = {name: {"b": (s[3],), "w": s} for name, s in vgg16.vgg_param_shapes().items()}
+        shapes["l2_norm_conv4_3"] = {"scale": (512,)}
+        cin = 1024
+        for name, cout, ksize, _, _ in _extra_layer_defs(preset.num_maps):
+            shapes[name] = {"b": (cout,), "w": (ksize, ksize, cin, cout)}
+            cin = cout
+    for i, (m, c) in enumerate(zip(preset.maps, map_channels(preset))):
         co = m.num_shapes * config.num_vars
-        shapes[f"classifier{i}"] = {"b": (co,), "w": (3, 3, _MAP_CHANNELS[i], co)}
+        shapes[f"classifier{i}"] = {"b": (co,), "w": (3, 3, c, co)}
     return shapes
 
 
@@ -166,15 +207,18 @@ def init_params(config: ModelConfig, seed: int = 0) -> dict:
     separate ``3x3xCx(K+5)`` conv, then the heads of a map are concatenated."""
     rng = np.random.default_rng(seed)
     preset = config.preset
-    params = vgg16.init_vgg_params(rng)
-    params["l2_norm_conv4_3"] = {"scale": torch.full((512,), 20.0)}
-    cin = 1024
-    for name, cout, ksize, _, _ in _extra_layer_defs(preset.num_maps):
-        params[name] = init_conv(rng, ksize, ksize, cin, cout)
-        cin = cout
-    for i, m in enumerate(preset.maps):
-        heads = [init_conv(rng, 3, 3, _MAP_CHANNELS[i], config.num_vars)
-                 for _ in range(m.num_shapes)]
+    fam = _backbone_module(preset)
+    if fam is not None:
+        params = fam.init_backbone_params(rng, preset)
+    else:
+        params = vgg16.init_vgg_params(rng)
+        params["l2_norm_conv4_3"] = {"scale": torch.full((512,), 20.0)}
+        cin = 1024
+        for name, cout, ksize, _, _ in _extra_layer_defs(preset.num_maps):
+            params[name] = init_conv(rng, ksize, ksize, cin, cout)
+            cin = cout
+    for i, (m, c) in enumerate(zip(preset.maps, map_channels(preset))):
+        heads = [init_conv(rng, 3, 3, c, config.num_vars) for _ in range(m.num_shapes)]
         params[f"classifier{i}"] = {
             "w": torch.cat([h["w"] for h in heads], dim=0),
             "b": torch.cat([h["b"] for h in heads], dim=0),
@@ -224,25 +268,40 @@ def _extra_maps(params, conv4_3, x, config: ModelConfig, train: bool = False):
 
 
 def _feature_maps(params, images, config: ModelConfig, train: bool = False):
-    """Backbone + extra layers -> the preset's multibox source maps (NHWC)."""
+    """Backbone + extra layers -> the preset's multibox source maps (NHWC).
+    A family walks its module's ``walk_feature_maps`` with the float conv
+    executor: the inference one, or with ``train`` the training one."""
+    fam = _backbone_module(config.preset)
+    if fam is not None:
+        return fam.walk_feature_maps(params, preprocess(images, config), config.preset,
+                                     float_conv_executor(params, inference=not train))
     return _extra_maps(params, *_backbone(params, images, config, train), config, train)
 
 
-def stage_head_weights(params):
-    """Add to every ``classifier<i>`` entry of ``params`` (in place) its
-    filter with the bias folded in, ``"wb" = widen_bias(w, b)``, so that a
-    forward does not rebuild it per call. ``w`` must already be in the
-    compute dtype."""
-    for name, hp in params.items():
-        if name.startswith("classifier"):
-            hp["wb"] = widen_bias(hp["w"], hp["b"])
+def bias_in_layers(params, config: ModelConfig):
+    """The layers whose inference conv carries its bias in as input
+    channels (``layers.conv2d_bias_in``): every multibox head, and for a
+    family every conv but the depthwise ones."""
+    if _backbone_module(config.preset) is None:
+        return [name for name in params if name.startswith("classifier")]
+    return [name for name, p in params.items()
+            if "w" in p and not name.endswith("_dw")]
+
+
+def stage_conv_weights(params, config: ModelConfig):
+    """Add to every layer of :func:`bias_in_layers` (in place) its filter
+    with the bias folded in, ``"wb" = widen_bias(w, b)``, so that a forward
+    does not rebuild it per call. ``w`` must already be in the compute
+    dtype."""
+    for name in bias_in_layers(params, config):
+        params[name]["wb"] = widen_bias(params[name]["w"], params[name]["b"])
     return params
 
 
 def _head_maps(params, maps, config: ModelConfig, train: bool = False):
     """Each map's multibox head conv: ``(B, h, w, ns * (K+5))`` NHWC,
     ``dtype(conv_f32 + b_f32)`` rounded once (``layers.conv2d_bias_in``).
-    Uses the staged ``"wb"`` filter where ``stage_head_weights`` put one.
+    Uses the staged ``"wb"`` filter where ``stage_conv_weights`` put one.
     ``train``: the training conv, the bias added in the compute dtype."""
     out = []
     for i, (fmap, m) in enumerate(zip(maps, config.preset.maps)):

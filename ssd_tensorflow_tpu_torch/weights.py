@@ -4,10 +4,17 @@ The JAX package holds ``{layer: {"w": HWIO, "b": (cout,)}}`` (plus the
 conv4_3 L2-norm ``scale``), as ``init_params`` or ``load_bundle`` yield
 it. The port holds the same dict with OIHW filters as float32 tensors.
 
+The port's float parameters of the ResNet-34 and MobileNetV1 families hold
+GroupNorm ``{"scale", "bias"}`` leaves as they are, and depthwise filters,
+HWIO ``(3, 3, 1, C)`` in the JAX package, as OIHW ``(C, 1, 3, 3)``: the
+same transpose as every filter.
+
 The int8 deploy path's q-params, ``{layer: {"wq": HWIO int8, "w_scale":
-(cout,), "b": (cout,)}}`` plus the L2-norm ``scale``, keep the JAX
-package's layout in both packages (``wq`` int8, the rest float32);
-:func:`stage_qparams` lays them out for the forward on a device.
+(cout,), "b": (cout,)}}`` (a family conv adds its folded ``"a_scale":
+(cin,)``) plus the float leaves (the L2-norm ``scale``, the GroupNorms),
+keep the JAX package's layout in both packages (``wq`` int8, the rest
+float32); :func:`stage_qparams` lays them out for the forward on a
+device.
 """
 
 from __future__ import annotations
@@ -75,21 +82,36 @@ def qparams_to_jax(qparams) -> dict:
 
 def stage_qparams(qparams, act_scales: dict, device) -> dict:
     """The q-params and activation scales laid out once for the int8
-    forward (``models/quantized.py``) on ``device``. Each conv becomes
+    forward (``models/quantized.py``) on ``device``. A VGG conv becomes
     ``{"w": ops.int8_conv.Int8Weight, "mult": float32(act_scale) * w_scale
     (computed in float32), "b": float32, "inv": (1,) float32 1 / act_scale
-    (computed in double, rounded once)}``; other leaves move as they are."""
+    (computed in double, rounded once)}``; a family conv, whose ``a_scale``
+    is folded into its weights, ``"mult": w_scale`` and ``"inv": (cin,)
+    float32 1 / a_scale`` (a float32 division, as the JAX package's); a
+    weight-only depthwise conv (``*_dw``) ``{"w": bf16(float32(wq) *
+    w_scale)`` OIHW, ``"b": bf16(b)}``. Other leaves move as they are."""
     staged = {}
     for name, leaves in qparams.items():
         if "wq" not in leaves:
             staged[name] = {k: v.to(device) for k, v in leaves.items()}
             continue
-        scale = float(act_scales[name])
         w_scale = leaves["w_scale"].float()
+        if name.endswith("_dw"):
+            w = leaves["wq"].float() * w_scale
+            staged[name] = {"w": w.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous().to(device),
+                            "b": leaves["b"].to(torch.bfloat16).to(device)}
+            continue
+        if "a_scale" in leaves:
+            a_scale = leaves["a_scale"].float()
+            mult, inv = w_scale, torch.ones_like(a_scale) / a_scale
+        else:
+            scale = float(act_scales[name])
+            mult = torch.tensor(scale, dtype=torch.float32) * w_scale
+            inv = torch.tensor([1.0 / scale], dtype=torch.float32)
         staged[name] = {
             "w": stage_int8_weight(leaves["wq"]).to(device),
-            "mult": (torch.tensor(scale, dtype=torch.float32) * w_scale).to(device),
+            "mult": mult.to(device),
             "b": leaves["b"].float().to(device),
-            "inv": torch.tensor([1.0 / scale], dtype=torch.float32, device=device),
+            "inv": inv.to(device),
         }
     return staged

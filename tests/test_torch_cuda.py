@@ -259,10 +259,46 @@ VGG512_INT8_CONVS = [
 ]
 
 
-@pytest.mark.parametrize("h,w,cin,k,cout,stride,padding,dilation", VGG512_INT8_CONVS)
+def _family_int8_convs():
+    """Every int8 conv of resnet320 (80 classes) and mobilenet320 (20),
+    as ``VGG512_INT8_CONVS``; heads from the presets."""
+    from ssd_tensorflow_tpu_torch import get_preset_by_name
+    from ssd_tensorflow_tpu_torch.models import mobilenet, resnet
+
+    convs = [(320, 320, 3, 7, 64, 2, "SAME"), (80, 80, 64, 3, 64, 1, "SAME"),
+             (80, 80, 64, 3, 128, 2, "SAME"), (40, 40, 128, 3, 128, 1, "SAME"),
+             (80, 80, 64, 1, 128, 2, "SAME"), (40, 40, 128, 3, 256, 2, "SAME"),
+             (20, 20, 256, 3, 256, 1, "SAME"), (40, 40, 128, 1, 256, 2, "SAME"),
+             (20, 20, 256, 3, 512, 2, "SAME"), (10, 10, 512, 3, 512, 1, "SAME"),
+             (20, 20, 256, 1, 512, 2, "SAME"),
+             (320, 320, 3, 3, 32, 2, "SAME")]
+    cin, hw = 32, 160
+    for stride, cout in mobilenet.BLOCKS:
+        hw = -(-hw // stride)
+        convs.append((hw, hw, cin, 1, cout, 1, "SAME"))
+        cin = cout
+    for fam, cin, nv in ((resnet, 512, 85), (mobilenet, 1024, 25)):
+        preset = get_preset_by_name(f"{fam.__name__.rsplit('.', 1)[1]}320")
+        hw = preset.maps[len(fam.TRUNK_TAP_CHANNELS) - 1].size.h
+        for name, cout, k, stride, padding in fam.extra_layer_defs(preset):
+            convs.append((hw, hw, cin, k, cout, stride, padding))
+            if stride == 2:
+                hw = -(-hw // 2)
+            elif padding == "VALID":
+                hw -= 2
+            cin = cout
+        for m, c in zip(preset.maps, fam.map_channels(preset)):
+            convs.append((m.size.h, m.size.w, c, 3, m.num_shapes * nv, 1, "SAME"))
+    return [(h, w, cin, k, cout, stride, padding, 1)
+            for h, w, cin, k, cout, stride, padding in convs]
+
+
+@pytest.mark.parametrize("h,w,cin,k,cout,stride,padding,dilation",
+                         VGG512_INT8_CONVS + _family_int8_convs())
 def test_int8_conv_card_route_matches_plain(cuda, h, w, cin, k, cout, stride, padding, dilation):
     """The im2col + ``torch._int_mm`` route equals the plain route (a
-    float32 conv with cuDNN off, exact below 2^24) bit for bit, on 3
+    float32 conv with cuDNN off, exact below 2^24) bit for bit, at every
+    int8 conv shape of the three shipped bundles, on 3
     images: once as ``int8_conv`` runs it, once in chunks of 2 images so
     that the batch ends in a chunk of one."""
     g = torch.Generator(device=cuda).manual_seed(h * cin + cout)
@@ -308,13 +344,18 @@ def test_int8_conv_rejects_a_filter_on_another_device(cuda):
         int8_conv.int8_conv(torch.zeros((1, 4, 4, 8), dtype=torch.int8, device=cuda), wt)
 
 
-#: the seven multibox head convs of vgg512, 21 classes: (H = W, cin, anchor shapes)
-VGG512_HEADS = [(64, 512, 4), (32, 1024, 6), (16, 512, 6), (8, 256, 6), (4, 256, 6), (2, 256, 4),
-                (1, 256, 4)]
+#: the multibox head convs (H = W, cin, anchor shapes, K + 5) of vgg512 and
+#: mobilenet320 (21 classes) and resnet320 (81)
+VGG512_HEADS = [(64, 512, 4, 25), (32, 1024, 6, 25), (16, 512, 6, 25), (8, 256, 6, 25),
+                (4, 256, 6, 25), (2, 256, 4, 25), (1, 256, 4, 25)]
+FAMILY_HEADS = [(40, 128, 4, 85), (20, 256, 6, 85), (10, 512, 6, 85), (5, 256, 6, 85),
+                (3, 256, 4, 85), (1, 256, 4, 85),
+                (20, 512, 4, 25), (10, 1024, 6, 25), (5, 512, 6, 25), (3, 256, 6, 25),
+                (2, 256, 4, 25), (1, 128, 4, 25)]
 
 
-@pytest.mark.parametrize("hw,cin,shapes", VGG512_HEADS)
-def test_head_conv_rounds_once(cuda, hw, cin, shapes):
+@pytest.mark.parametrize("hw,cin,shapes,nv", VGG512_HEADS + FAMILY_HEADS)
+def test_head_conv_rounds_once(cuda, hw, cin, shapes, nv):
     """``layers.conv2d_bias_in`` on the card rounds once: it equals
     ``bf16(conv_f32 + b)`` on >= 99 % of elements and no more than 0.1 %
     (or two elements of a small map) less often than cuDNN's bias-free
@@ -323,7 +364,7 @@ def test_head_conv_rounds_once(cuda, hw, cin, shapes):
     These zero-mean inputs cancel more than the model's maps, on which
     ``chip_smoke.py`` holds the 256-channel heads to 99.9 %."""
     g = torch.Generator(device=cuda).manual_seed(hw * cin + shapes)
-    cout = shapes * 25
+    cout = shapes * nv
     x = (2 * torch.randn((2, hw, hw, cin), generator=g, device=cuda)).to(torch.bfloat16)
     w = (torch.randn((cout, cin, 3, 3), generator=g, device=cuda) / (9 * cin) ** 0.5).to(
         torch.bfloat16).contiguous(memory_format=torch.channels_last)
@@ -476,3 +517,88 @@ def test_true_div_divides_on_the_card(cuda):
     x = torch.arange(0, 2 ** 16, dtype=torch.float32) * 0.37
     for c in (1000.0, 10.0, 5.0):
         assert torch.equal(true_div(x.to(cuda), c).cpu(), x / c)
+
+
+@pytest.mark.parametrize("f32_out", [True, False])
+@pytest.mark.parametrize("hw,c,stride", [(160, 32, 1), (160, 64, 2), (20, 512, 1), (10, 1024, 1),
+                                         (21, 48, 2)])
+def test_depthwise_conv_card_matches_cpu(cuda, hw, c, stride, f32_out):
+    """``layers.depthwise_conv2d`` (``F.conv2d(groups=C)`` in float32 on
+    both devices) on the card against the CPU route: the two-rounding form
+    (the int8 path's weight-only depthwise) bit for bit, as found at every
+    mobilenet320 depthwise shape on an H100; the float32 inference form,
+    whose bias cuDNN may add in another place, equal on >= 99.9 % of
+    elements and within one bf16 step of the largest output."""
+    g = torch.Generator().manual_seed(hw * c + stride)
+    x = (2 * torch.randn((2, hw, hw, c), generator=g)).to(torch.bfloat16)
+    w = (torch.randn((c, 1, 3, 3), generator=g) / 3).to(torch.bfloat16)
+    b = torch.randn(c, generator=g)
+    want = layers.depthwise_conv2d(x, w, b, stride, f32_out=f32_out)
+    got = layers.depthwise_conv2d(x.to(cuda), w.to(cuda), b.to(cuda), stride,
+                                  f32_out=f32_out).cpu()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    if not f32_out:
+        assert torch.equal(got, want)
+    else:
+        _one_step(got, want)
+        assert float((got == want).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("shape", [(2, 160, 160, 64), (2, 40, 40, 128), (2, 10, 10, 1024),
+                                   (2, 5, 7, 3), (64, 20, 20, 512)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_group_norm_card_matches_cpu(cuda, shape, dtype):
+    """``resnet.group_norm`` takes float64-summed statistics and a float64
+    rsqrt, each rounded once, and then single float32 operations: the card
+    gives the CPU's bits."""
+    from ssd_tensorflow_tpu_torch.models import resnet
+
+    g = torch.Generator().manual_seed(sum(shape))
+    x = (3 * torch.randn(shape, generator=g) + 0.5).to(dtype)
+    gn = {"scale": torch.randn(shape[-1], generator=g), "bias": torch.randn(shape[-1], generator=g)}
+    want = resnet.group_norm(x, gn)
+    got = resnet.group_norm(x.to(cuda), {k: v.to(cuda) for k, v in gn.items()}).cpu()
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+#: every conv + bias of the two families' float paths that is not
+#: depthwise: (H, W, cin, cout, k, stride, padding), the K = 9 * 512 = 4608
+#: convs of resnet320's layer4 among them
+FAMILY_BIAS_IN = [
+    (320, 320, 3, 64, 7, 2, "SAME"), (80, 80, 64, 64, 3, 1, "SAME"), (80, 80, 64, 128, 3, 2, "SAME"),
+    (80, 80, 64, 128, 1, 2, "SAME"), (20, 20, 256, 512, 3, 2, "SAME"),
+    (10, 10, 512, 512, 3, 1, "SAME"), (10, 10, 512, 128, 1, 1, "SAME"), (5, 5, 128, 256, 3, 2, "SAME"),
+    (3, 3, 128, 256, 3, 1, "VALID"), (320, 320, 3, 32, 3, 2, "SAME"), (160, 160, 32, 64, 1, 1, "SAME"),
+    (10, 10, 1024, 1024, 1, 1, "SAME"), (3, 3, 128, 256, 3, 2, "SAME"), (2, 2, 64, 128, 3, 2, "SAME"),
+]
+
+
+@pytest.mark.parametrize("h,w,cin,cout,k,stride,padding", FAMILY_BIAS_IN)
+def test_family_conv_bias_in_rounds_once(cuda, h, w, cin, cout, k, stride, padding):
+    """``layers.conv2d_bias_in`` at the families' strides, paddings and
+    kernels on the card: a zero input gives ``bf16(b)`` at every output,
+    borders included; random inputs equal ``bf16(conv_f32 + b)`` on >= 99 %
+    of elements and no more than 0.1 % (or two elements of a small map)
+    less often than cuDNN's bias-free conv equals ``bf16(conv_f32)``, as
+    ``test_head_conv_rounds_once`` holds the heads (these zero-mean inputs
+    cancel more than the model's maps, on which ``chip_smoke.py`` holds
+    K <= 2304 to 99.9 %); the rest one bf16 step apart."""
+    g = torch.Generator(device=cuda).manual_seed(h * cin + cout + k)
+    wt = (torch.randn((cout, cin, k, k), generator=g, device=cuda) / (k * k * cin) ** 0.5).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    b = torch.randn(cout, generator=g, device=cuda) * 0.5
+    wb = layers.widen_bias(wt, b)
+    zero = layers.conv2d_bias_in(torch.zeros((2, h, w, cin), dtype=torch.bfloat16, device=cuda),
+                                 wb, stride, padding)
+    assert torch.equal(zero, b.to(torch.bfloat16).expand_as(zero))
+    x = (2 * torch.randn((2, h, w, cin), generator=g, device=cuda)).to(torch.bfloat16)
+    got = layers.conv2d_bias_in(x, wb, stride, padding)
+    xn, pad = layers._same_input(x, wt, stride, padding, 1)
+    conv32 = torch.nn.functional.conv2d(xn.float(), wt.float(), None, stride, pad)
+    want = (conv32 + b.view(1, -1, 1, 1)).to(torch.bfloat16).permute(0, 2, 3, 1)
+    assert got.shape == want.shape
+    _one_step(got, want)
+    conv_only = layers.conv2d(x, wt, None, stride, padding) == \
+        conv32.to(torch.bfloat16).permute(0, 2, 3, 1)
+    floor = max(0.99, float(conv_only.float().mean()) - max(0.001, 2.0 / want.numel()))
+    assert float((got == want).float().mean()) >= floor

@@ -108,3 +108,27 @@ def test_chip_smoke_refuses_without_the_repo_or_a_gpu(tmp_path):
                               text=True, timeout=120)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("fname", ["resnet320_int8_minicoco.ssdtpu.npz",
+                                   "mobilenet320_int8_qat_minivoc.ssdtpu.npz"])
+def test_family_entry_points_default_to_cuda(fname):
+    """The family bundles' models, a family float model and a family
+    ``QuantizedModel`` are placed on ``device="cuda"`` unless the caller
+    asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the no-CUDA error cannot occur")
+    import numpy as np
+
+    from ssd_tensorflow_tpu_torch.inference import InferenceModel
+    from ssd_tensorflow_tpu_torch.models.quantized import QuantizedModel
+    from ssd_tensorflow_tpu_torch.models.ssd_vgg import ModelConfig, init_params
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        InferenceModel.from_bundle(str(ROOT / "assets" / fname))
+    preset = "rtest64" if fname.startswith("resnet") else "mntest64"
+    cfg = ModelConfig(preset_name=preset, num_classes=3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        InferenceModel(init_params(cfg), cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        QuantizedModel(init_params(cfg), cfg, np.zeros((1, 64, 64, 3), np.uint8))

@@ -267,5 +267,42 @@ def test_argmax_ties_take_first_class():
 
 
 def test_non_vgg_presets_wait():
-    with pytest.raises(NotImplementedError):
-        ssd_vgg.ModelConfig(preset_name="resnet320")
+    """The family presets are accepted now (``models/resnet.py``,
+    ``models/mobilenet.py``) and walk their own trunk, never the VGG one;
+    a family takes no VGG stem kernel."""
+    for preset, backbone, module in (("resnet320", "resnet34", "resnet"),
+                                     ("mobilenet320", "mobilenetv1", "mobilenet")):
+        cfg = ssd_vgg.ModelConfig(preset_name=preset)
+        assert cfg.preset.backbone == backbone
+        assert ssd_vgg._backbone_module(cfg.preset).__name__.endswith(f".{module}")
+        with pytest.raises(ValueError, match="VGG conv1-block"):
+            ssd_vgg.ModelConfig(preset_name=preset, pallas_stem_variant="uint8")
+    assert ssd_vgg._backbone_module(ssd_vgg.ModelConfig(preset_name="vgg512").preset) is None
+
+
+@pytest.mark.parametrize("cin", [512, 1024], ids=["K4608", "K9216"])
+def test_jax_head_conv_one_rounding_share(cin):
+    """The yardstick of the long-K heads (ROADMAP.md section 3): how often
+    the JAX package's own ``conv2d(f32_out=True)`` + bias on the CPU equals
+    the exact one-rounding ``bf16(conv + b)`` (a float64 sum), at K = 9 *
+    cin = 4608 and 9216 on random bf16 operands, 16 x 16 maps, 150 outputs.
+    float32 accumulation over K terms leaves a few outputs one bf16 step
+    off: found 99.987 % (K = 4608) and 99.982 % (K = 9216) on an x86 CPU,
+    the port's CPU route (``layers.conv2d_bias_in``, oneDNN) 99.982 % and
+    99.969 %, held to the same floor; the card's cuDNN conv reaches
+    99.63-99.75 % (``chip_smoke.py`` conv_epilogue)."""
+    rng = np.random.default_rng(cin)
+    x = torch.tensor(rng.normal(0, 2, (1, 16, 16, cin)), dtype=torch.bfloat16)
+    w = torch.tensor(rng.normal(0, 1 / np.sqrt(9 * cin), (150, cin, 3, 3)), dtype=torch.bfloat16)
+    b = torch.tensor(rng.normal(0, 0.5, 150), dtype=torch.float32)
+    exact = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2).double(), w.double(), None, 1, 1)
+    exact = (exact + b.double().view(1, -1, 1, 1)).float().to(torch.bfloat16)
+    exact = exact.permute(0, 2, 3, 1).float().numpy()
+    jax_out = np.asarray(jax_layers.conv2d(
+        jnp.asarray(x.float().numpy(), jnp.bfloat16), w.float().permute(2, 3, 1, 0).numpy(),
+        b.numpy(), f32_out=True), np.float32)
+    port = layers.conv2d_bias_in(x, layers.widen_bias(w, b)).float().numpy()
+    for got in (jax_out, port):
+        assert got.shape == exact.shape
+        assert float(np.mean(got == exact)) >= 0.9995
+        assert float(np.abs(got - exact).max()) <= 2.0 ** -7 * float(np.abs(exact).max())

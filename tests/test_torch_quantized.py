@@ -231,10 +231,19 @@ def test_calibration_matches_jax_and_chunks(model):
 
 
 def test_percentile_calibration_raises(model):
-    _, _, tp, images, _ = model
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tq.calibrate_activation_scales(tp, torch.from_numpy(images), ssd_vgg.ModelConfig(**CFG),
-                                       percentile=99.9)
+    """Percentile calibration is ported (it raised before): a sub-100
+    percentile of |x| per chunk, the max over chunks, within calibration's
+    rtol of the JAX package's (``test_torch_quantized_families.py`` holds
+    the percentile itself to ``jnp.percentile``)."""
+    jcfg, jp, tp, images, _ = model
+    want = jq.calibrate_activation_scales(jp, images, jcfg, percentile=99.9, batch_size=2)
+    got = tq.calibrate_activation_scales(tp, torch.from_numpy(images), ssd_vgg.ModelConfig(**CFG),
+                                         percentile=99.9, batch_size=2)
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-5), k
+    maxabs = tq.calibrate_activation_scales(tp, torch.from_numpy(images), ssd_vgg.ModelConfig(**CFG))
+    assert all(got[k] <= maxabs[k] for k in got)
 
 
 def test_quantized_model_result(model):

@@ -170,8 +170,26 @@ def test_int8_bundle_loads_like_jax(int8_bundle):
 
 
 def test_family_int8_bundle_names_its_queue_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        inference.load_bundle(str(ASSETS / "resnet320_int8_minicoco.ssdtpu.npz"))
+    """The family int8 bundles load (they raised, naming ROADMAP queue 1
+    item 7, before it was ported): every leaf as the JAX package loads it,
+    the folded ``a_scale`` beside each quantized conv but the depthwise
+    ones, and ``act_scales == {}``."""
+    for fname, n_leaves in (("resnet320_int8_minicoco.ssdtpu.npz", 264),
+                            ("mobilenet320_int8_qat_minivoc.ssdtpu.npz", 205)):
+        path = str(ASSETS / fname)
+        jq_, jcfg, jlid, jscales = jax_inference.load_bundle(path)
+        tq_, cfg, lid, scales = inference.load_bundle(path)
+        assert scales == jscales == {} and lid == jlid
+        assert inference.model_config_to_dict(cfg) == jax_inference.model_config_to_dict(jcfg)
+        got, n = qparams_to_jax(tq_), 0
+        assert set(got) == set(jq_)
+        for name in jq_:
+            assert set(got[name]) == set(jq_[name]), name
+            assert ("a_scale" in got[name]) == ("wq" in got[name] and not name.endswith("_dw"))
+            for key in jq_[name]:
+                np.testing.assert_array_equal(got[name][key], np.asarray(jq_[name][key]))
+                n += 1
+        assert n == n_leaves
 
 
 def _int8_test64(seed):
@@ -291,3 +309,53 @@ def test_stem_variant_is_not_serialized():
     assert "pallas_stem_variant" not in d
     assert d == jax_inference.model_config_to_dict(jax_ssd.ModelConfig(**CFG))
     assert inference.model_config_from_dict(d).pallas_stem_variant == "dma"
+
+
+@pytest.mark.parametrize("fname", ["resnet320_int8_minicoco.ssdtpu.npz",
+                                   "mobilenet320_int8_qat_minivoc.ssdtpu.npz"])
+def test_family_bundle_run_scores_and_overrides(fname, capsys):
+    """A family int8 bundle's ``run_scores`` runs on the CPU (the QAT
+    bundle deploys the scales it carries; nothing recalibrates), and the
+    stem overrides are dropped with the JAX package's message."""
+    m = inference.InferenceModel.from_bundle(
+        str(ASSETS / fname), device="cpu",
+        overrides={"pallas_stem": True, "pallas_stem_variant": "uint8", "padded_heads": True})
+    assert "pallas_stem override ignored: this int8 bundle" in capsys.readouterr().out
+    assert m.config.pallas_stem_variant == "dma" and m.act_scales == {}
+    img = np.random.default_rng(3).integers(0, 256, (2, 320, 320, 3), dtype=np.uint8)
+    d = m.run_scores(img)
+    assert d.boxes.shape == (2, 200, 4) and torch.isfinite(d.scores[d.valid]).all()
+    qp = inference.load_bundle(str(ASSETS / fname))[0]
+    staged = m.params
+    for name, leaves in qp.items():
+        if "a_scale" in leaves:
+            assert torch.equal(staged[name]["inv"], torch.ones_like(leaves["a_scale"]) / leaves["a_scale"])
+
+
+@pytest.mark.parametrize("preset,backbone", [("rtest64", "resnet34"), ("mntest64", "mobilenetv1")])
+def test_family_float_model_and_overrides(tmp_path, capsys, preset, backbone):
+    """A family float model runs ``run_scores``; its stem overrides are
+    dropped (a family has no VGG stem), ``padded_heads`` is a no-op, and
+    its float bundle round-trips through the JAX package."""
+    cfg = ssd_vgg.ModelConfig(preset_name=preset, num_classes=3)
+    params = ssd_vgg.init_params(cfg, seed=2)
+    img = np.random.default_rng(2).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    want = inference.InferenceModel(params, cfg, device="cpu").run_scores(img)
+    m = inference.InferenceModel(params, cfg, device="cpu", overrides={
+        "pallas_stem": True, "pallas_stem_variant": "uint8", "padded_heads": False})
+    assert f"pallas_stem override ignored: this {backbone} bundle" in capsys.readouterr().out
+    assert m.config == cfg
+    got = m.run_scores(img)
+    for field in ("boxes", "scores", "classes", "valid"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+    # every conv but the depthwise ones is staged with its bias channels
+    assert all(("wb" in p) == (not name.endswith("_dw")) for name, p in m.params.items()
+               if "w" in p)
+    path = str(tmp_path / "f.npz")
+    inference.save_bundle(path, params, cfg, {0: "a"})
+    jp, jcfg, _, scales = jax_inference.load_bundle(path)
+    assert scales is None and jcfg.preset_name == preset
+    back = params_from_jax({n: {k: np.asarray(v) for k, v in d.items()} for n, d in jp.items()})
+    for name in params:
+        for key in params[name]:
+            assert torch.equal(back[name][key], params[name][key]), (name, key)

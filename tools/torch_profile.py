@@ -2,27 +2,35 @@
 """Where the time goes on the port's detection paths, on one GPU.
 
     python3 tools/torch_profile.py [--seed 0] [--batch 64] [--stem-variant dma|uint8]
+                                   [--preset vgg512|resnet320|mobilenet320]
                                    [--bundle assets/vgg512_int8_minivoc.ssdtpu.npz]
                                    [--out runs/torch_profile.json]
     python3 tools/torch_profile.py --train [--batch 32] [--out ...]
 
-Without ``--bundle``: vgg512 bf16 with weights made from the seed, the
-stem kernel chosen as ``InferenceModel(overrides={"pallas_stem_variant":
-...})`` does. With ``--bundle``: that bundle through
-``InferenceModel.from_bundle`` (an int8 bundle runs the int8 W8A8 path).
-Random uint8 images from the seed either way. Prints one JSON object
-(and writes it to ``--out``):
+Without ``--bundle``: ``--preset`` (vgg512 by default) bf16 with weights
+made from the seed, a vgg512 model's stem kernel chosen as
+``InferenceModel(overrides={"pallas_stem_variant": ...})`` does. With
+``--bundle``: that bundle through ``InferenceModel.from_bundle`` (an int8
+bundle runs the int8 W8A8 path; the family bundles
+``assets/resnet320_int8_minicoco.ssdtpu.npz`` and
+``assets/mobilenet320_int8_qat_minivoc.ssdtpu.npz`` their folded int8
+walk). Random uint8 images from the seed either way. Prints one JSON
+object (and writes it to ``--out``):
 
 * ``stages``: each layer of the path timed alone with CUDA events on the
   inputs the path gives it, in ms per batch. Float path: preprocess +
   conv1_1 and the split stem kernel, or the whole uint8 stem kernel; the
   rest of the VGG trunk, L2-norm + extras, heads + lazy softmax, top-k +
   decode + clamp, class shift + the NMS kernel, compaction. int8 path,
-  over its 25 trunk and extra convs: preprocess, quantize, im2col (each
+  over its trunk and extra convs: preprocess, quantize, im2col (each
   ``int8_conv`` less its GEMMs), ``_int_mm`` (each chunk's GEMM on an
   operand of its shape), requant (multiply-add, ReLU, bf16); then pools
-  + L2-norm, the 7 head convs + lazy softmax, and the float path's
-  decode stages;
+  + L2-norm (VGG) or GroupNorm and the depthwise convs (families), the
+  head convs + lazy softmax, and the float path's decode stages. A family
+  float path: the bias-in convs (``layers.conv2d_bias_in``), GroupNorm,
+  the depthwise convs, heads + lazy softmax and the decode stages. On a
+  family path ``other`` is the rest of the forward (ReLU / ReLU6, skip
+  adds, max-pool, copies): the whole forward's time less its timed parts;
 * ``run_scores_ms``: the whole ``InferenceModel.run_scores`` per batch;
 * ``profile``: a ``torch.profiler`` window over a few chained batches:
   device busy time per batch, the idle share of the window, and the
@@ -89,19 +97,22 @@ def _stages(model, images):
 
 
 def _int8_stages(model, images):
-    """``{stage: ms}`` of the int8 path: every ``_qconv``, pool and the
-    L2-norm of one forward recorded with its inputs, each step then timed
-    alone (see the module doc; conv12_1's pad of a 2 x 2 map is left
-    out)."""
+    """``{stage: ms}`` of the int8 path: every ``_qconv``, and the pools and
+    the L2-norm (VGG) or the GroupNorms and depthwise convs (families), of
+    one forward recorded with its inputs, each step then timed alone (see
+    the module doc; conv12_1's pad of a 2 x 2 map is left out)."""
+    import contextlib
+
     import torch
     from unittest import mock
 
     from ssd_tensorflow_tpu_torch.models import quantized, ssd_vgg
     from ssd_tensorflow_tpu_torch.ops import int8_conv as ic
-    from ssd_tensorflow_tpu_torch.ops import postprocess
     from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
 
-    convs, glue = [], []
+    convs, glue, family_calls = [], [], []
+    family = model.config.preset.backbone != "vgg"
+    heads_of = {id(layer) for name, layer in model.params.items() if name.startswith("classifier")}
 
     def rec_qconv(layer, x, stride=1, padding="SAME", dilation=1, relu=True):
         convs.append((layer, x, stride, padding, dilation, relu))
@@ -114,12 +125,18 @@ def _int8_stages(model, images):
         return wrapper
 
     real_qconv = quantized._qconv
-    with mock.patch.object(quantized, "_qconv", rec_qconv), \
-            mock.patch.object(quantized, "max_pool", rec(quantized.max_pool)), \
-            mock.patch.object(quantized, "l2_normalize_scale", rec(quantized.l2_normalize_scale)):
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(quantized, "_qconv", rec_qconv))
+        if family:
+            for patch in _family_patches(family_calls, int8=True):
+                stack.enter_context(patch)
+        else:
+            stack.enter_context(mock.patch.object(quantized, "max_pool", rec(quantized.max_pool)))
+            stack.enter_context(mock.patch.object(quantized, "l2_normalize_scale",
+                                                  rec(quantized.l2_normalize_scale)))
         maps = quantized._feature_maps_q(model.params, images, model.config)
         quantized._head_maps(model.params, maps)
-    cfg, det = model.config, model.detection
+    cfg = model.config
     out = {"preprocess": cuda_event_ms(lambda: ssd_vgg.preprocess(images, cfg).to(torch.bfloat16))}
     for key in ("quantize", "im2col", "int_mm", "requant", "heads_lazy_softmax"):
         out[key] = 0.0
@@ -142,18 +159,70 @@ def _int8_stages(model, images):
         requant = lambda: quantized.requant(y, layer, relu)  # noqa: E731
         parts = {"quantize": cuda_event_ms(qx), "int_mm": gemm,
                  "im2col": max(0.0, cuda_event_ms(conv) - gemm), "requant": cuda_event_ms(requant)}
-        if relu:
+        if id(layer) not in heads_of:
             for k, v in parts.items():
                 out[k] += v
         else:
             heads.append(requant().float())
             out["heads_lazy_softmax"] += sum(parts.values())
         del xq, y
-    out["pools_l2norm"] = sum(cuda_event_ms(lambda f=f, a=a, k=k: f(*a, **k))
-                                  for f, a, k in glue)
     out["heads_lazy_softmax"] += cuda_event_ms(lambda: ssd_vgg.reduce_head_maps(heads, cfg))
+    if family:
+        _timed_calls(family_calls, out)
+        forward = cuda_event_ms(lambda: quantized._forward_scores(model.params, images, cfg))
+        out["other"] = max(0.0, forward - sum(out.values()))
+    else:
+        out["pools_l2norm"] = sum(cuda_event_ms(lambda f=f, a=a, k=k: f(*a, **k))
+                                  for f, a, k in glue)
     conf, cls, locs = ssd_vgg.reduce_head_maps(heads, cfg)
-    del maps, heads, convs, glue
+    del maps, heads, convs, glue, family_calls
+    _decode_stages(model, conf, cls, locs, out)
+    return out
+
+
+def _recorder(calls, kind, fn):
+    def wrapper(*a, **k):
+        calls.append((kind, fn, a, k))
+        return fn(*a, **k)
+    return wrapper
+
+
+def _family_patches(calls, int8: bool):
+    """Patches that record, in ``calls``, a family forward's GroupNorms,
+    depthwise convs and (float path) bias-in convs with their inputs."""
+    from unittest import mock
+
+    from ssd_tensorflow_tpu_torch.models import layers, mobilenet, quantized, resnet, ssd_vgg
+
+    gn = _recorder(calls, "group_norm", resnet.group_norm)
+    patches = [mock.patch.object(resnet, "group_norm", gn),
+               mock.patch.object(mobilenet, "group_norm", gn)]
+    if int8:
+        patches.append(mock.patch.object(quantized, "depthwise_conv2d", _recorder(
+            calls, "depthwise", quantized.depthwise_conv2d)))
+    else:
+        patches += [mock.patch.object(layers, "depthwise_conv2d", _recorder(
+                        calls, "depthwise", layers.depthwise_conv2d)),
+                    mock.patch.object(layers, "conv2d_bias_in", _recorder(
+                        calls, "bias_in_convs", layers.conv2d_bias_in)),
+                    mock.patch.object(ssd_vgg, "conv2d_bias_in", _recorder(
+                        calls, "heads_lazy_softmax", layers.conv2d_bias_in))]
+    return patches
+
+
+def _timed_calls(calls, out):
+    """Add each recorded call's CUDA-event time to its kind's stage."""
+    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
+
+    for kind, fn, a, k in calls:
+        out[kind] = out.get(kind, 0.0) + cuda_event_ms(lambda: fn(*a, **k))
+
+
+def _decode_stages(model, conf, cls, locs, out):
+    from ssd_tensorflow_tpu_torch.ops import postprocess
+    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
+
+    det = model.detection
     boxes, conf_top, cls_top, valid = postprocess._candidates_from_scores(
         conf, cls, locs, model.anchors, det)
     out["topk_decode_clamp"] = cuda_event_ms(
@@ -163,6 +232,27 @@ def _int8_stages(model, images):
         lambda: postprocess._keep(boxes, cls_top, valid, det))
     out["compaction"] = cuda_event_ms(
         lambda: postprocess._finalize(boxes, conf_top, cls_top, keep, det))
+
+
+def _family_float_stages(model, images):
+    """``{stage: ms}`` of a family's float path (see the module doc)."""
+    import contextlib
+
+    from ssd_tensorflow_tpu_torch.models import ssd_vgg
+    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
+
+    cfg, calls = model.config, []
+    with contextlib.ExitStack() as stack:
+        for patch in _family_patches(calls, int8=False):
+            stack.enter_context(patch)
+        maps = ssd_vgg._feature_maps(model.params, images, cfg)
+        heads = ssd_vgg._head_maps(model.params, maps, cfg)
+    out = {"preprocess": cuda_event_ms(lambda: ssd_vgg.preprocess(images, cfg))}
+    _timed_calls(calls, out)
+    out["heads_lazy_softmax"] += cuda_event_ms(lambda: ssd_vgg.reduce_head_maps(heads, cfg))
+    forward = cuda_event_ms(lambda: ssd_vgg.apply_scores(model.params, images, cfg))
+    out["other"] = max(0.0, forward - sum(out.values()))
+    _decode_stages(model, *ssd_vgg.reduce_head_maps(heads, cfg), out)
     return out
 
 
@@ -232,6 +322,8 @@ def main(argv=None) -> int:
                     help="batch size (default 64, or 32 with --train)")
     ap.add_argument("--train", action="store_true", help="profile the vgg512 bf16 train step")
     ap.add_argument("--stem-variant", choices=("dma", "uint8"), default="dma")
+    ap.add_argument("--preset", choices=("vgg512", "resnet320", "mobilenet320"), default="vgg512",
+                    help="the float model's preset (without --bundle)")
     ap.add_argument("--bundle", default=None,
                     help="run this model bundle (an int8 one takes the int8 path)")
     ap.add_argument("--out", default="runs/torch_profile.json")
@@ -295,23 +387,26 @@ def _inference_main(args, batch_size: int) -> dict:
         model = InferenceModel.from_bundle(args.bundle)
         cfg = model.config
     else:
-        cfg = ssd_vgg.ModelConfig(preset_name="vgg512", num_classes=20,
+        cfg = ssd_vgg.ModelConfig(preset_name=args.preset,
+                                  num_classes=80 if args.preset == "resnet320" else 20,
                                   compute_dtype="bfloat16")
-        model = InferenceModel(ssd_vgg.init_params(cfg, seed=args.seed), cfg,
-                               overrides={"pallas_stem_variant": args.stem_variant})
+        overrides = {"pallas_stem_variant": args.stem_variant} if args.preset == "vgg512" else None
+        model = InferenceModel(ssd_vgg.init_params(cfg, seed=args.seed), cfg, overrides=overrides)
     int8 = model.act_scales is not None
+    family = cfg.preset.backbone != "vgg"
     size = cfg.preset.image_size
     rng = np.random.default_rng(args.seed)
     images = torch.from_numpy(
         rng.integers(0, 256, (batch_size, size.h, size.w, 3), dtype=np.uint8)).cuda()
     with torch.inference_mode():
-        stages = (_int8_stages if int8 else _stages)(model, images)
+        stages = (_int8_stages if int8 else _family_float_stages if family else _stages)(
+            model, images)
         run_ms = cuda_event_ms(lambda: model.run_scores(images))
         prof = _profile(lambda: model.run_scores(images))
     return {
         "preset": cfg.preset_name,
         "path": "int8" if int8 else cfg.compute_dtype, "bundle": args.bundle,
-        "stem_variant": None if int8 else args.stem_variant, "batch": batch_size,
+        "stem_variant": None if int8 or family else args.stem_variant, "batch": batch_size,
         "stages_ms": stages,
         "stages_sum_ms": sum(stages.values()), "run_scores_ms": run_ms,
         "images_per_s": batch_size / run_ms * 1e3, "profile": prof,
