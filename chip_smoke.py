@@ -107,6 +107,45 @@ non-zero, and the final line is printed only when every phase passed:
    class with IoU >= 0.95 and conf within 0.02: their GroupNorms sum in
    another order than XLA's). The largest conf and box-corner gaps are
    printed.
+10. device_augment: the on-device augmentation
+   (``data/device_augment.make_augment_fn``) at vgg512, batch 32, raw
+   uint8 512 x 512 staged images with 1-8 gt boxes each, its draws from a
+   CUDA generator. With the caller's TF32 on (cuDNN's and cuBLAS's, matmul
+   precision "high"), the card's batch against the CPU's on the same
+   draws: uint8 images equal on >= 99.9 % of pixels and within 1
+   elsewhere, boxes within 1e-6, labels and masks equal; the caller's
+   precision given back. Reports ms per batch (CUDA events over 5 calls,
+   draws included), the share of images that took the positive fallback
+   and peak memory.
+11. qat_path, for mobilenet320 (the QAT family the repo ships, per-channel
+   ``qat_act_amax``) and vgg512 (per-layer ``qat_act_scales``): the
+   shipped bundle's dequantized weights (``dequantized_params``) in float32
+   with ``l2_norm_eps`` 1e-3 (``qat.qat_model_config``); a raw batch (32,
+   vgg512 8) augmented on the card; the activation grid calibrated on 8
+   augmented images, stored in a checkpoint, restored and resumed with
+   every calibration entry patched to raise; 3 warm-up and 5 (vgg512 3)
+   timed QAT train steps on freshly augmented batches, every loss finite,
+   NMS launched once a step and nothing else; one eval step through the
+   fake-quant forward, NMS once; the detect of the last timed step and of
+   the eval step held as in phase 6 (the NMS keep mask on the path's own
+   (batch, 200) candidates against ``nms_keep_plain`` bit for bit, the
+   detections against the CPU's decode); the export through
+   ``qat.export_int8_bundle`` (calibration patched to raise), whose scales
+   must equal the checkpoint's bit for bit (a family's ``a_scale`` =
+   ``max(float32(amax) / 127, 1e-12)``); ``InferenceModel.from_bundle``
+   on the card launching ``int8_conv`` once a conv (28 / 32) and NMS once,
+   its keep mask against ``nms_keep_plain`` bit for bit; the fake-quant forward against the exported int8 forward on 8 images,
+   argmax > 0.95 for mobilenet320 (the JAX package's floor for mntest64;
+   reported for vgg512). Then, cuDNN's TF32 at PyTorch's default, one
+   QAT float32 step at batch 2 on the card against the CPU with the CPU's
+   activation grids handed to the card's quantizers: each loss within
+   1e-4 relative, each leaf's update within phase 6 (b)'s bound (or 1e-6
+   of the largest update, where a leaf's update is float32 noise on both
+   devices: a bias before a GroupNorm of one channel per group), and at
+   most 0.2 % of the card quantizer's own roundings differing from the
+   CPU's; the card's step left to its own roundings: each loss within
+   1e-2 relative (``QAT_FREE_LOSS``). ms per step (each timed step with its batch's
+   augmentation; ``augment_ms`` alone beside it), images/s, peak memory.
 
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is ``{"ok": true, "device": {...}}``.
@@ -802,25 +841,38 @@ def recording_detect():
         yield rec
 
 
-def check_detect(rec, name):
+def check_keep(rec, name):
     """The recorded NMS keep mask against ``nms_keep_plain`` on the same
-    candidates on the card, bit for bit, and the recorded detections
-    against ``decode_detections`` on the CPU of the same probabilities and
-    offsets: valid, classes and scores equal, boxes within 1e-5 (the
-    card's ``exp`` may differ from the CPU's in the last bit). Fails
-    without a single detection."""
+    candidates on the card, bit for bit. Fails if the kernel kept nothing."""
     import torch
 
     from ssd_tensorflow_tpu_torch.ops import nms_cuda, postprocess
 
     (boxes, cls_top, valid, cfg), got_keep = rec["keep"]
     if not got_keep.is_cuda:
-        raise AssertionError(f"{name}: the step's NMS ran on {got_keep.device}")
-    with mock.patch.object(nms_cuda, "nms_keep", nms_cuda.nms_keep_plain):
+        raise AssertionError(f"{name}: the NMS ran on {got_keep.device}")
+    with mock.patch.object(nms_cuda, "nms_keep", nms_cuda.nms_keep_plain), \
+            torch.inference_mode():
         want_keep = postprocess._keep(boxes, cls_top, valid, cfg)
     if not torch.equal(got_keep, want_keep):
         raise AssertionError(f"{name}: nms_keep differs from its plain version on "
                              f"{int((got_keep != want_keep).sum())} of {got_keep.numel()} flags")
+    if not got_keep.any():
+        raise AssertionError(f"{name}: the NMS kernel got no candidate to keep")
+    return {"nms_shape": list(valid.shape), "candidates": int(valid.sum()),
+            "kept": int(got_keep.sum()), "keep_bit_exact": True}
+
+
+def check_detect(rec, name):
+    """:func:`check_keep`, and the recorded detections against
+    ``decode_detections`` on the CPU of the same probabilities and
+    offsets: valid, classes and scores equal, boxes within 1e-5 (the
+    card's ``exp`` may differ from the CPU's in the last bit)."""
+    import torch
+
+    from ssd_tensorflow_tpu_torch.ops import postprocess
+
+    keep = check_keep(rec, name)
     (probs, locs, anchors, det_cfg), dets = rec["decode"]
     want = postprocess.decode_detections(probs.cpu(), locs.cpu(), anchors.cpu(), det_cfg)
     for field in ("valid", "classes", "scores"):
@@ -830,10 +882,7 @@ def check_detect(rec, name):
     if not box_err <= 1e-5:
         raise AssertionError(f"{name}: detection boxes {box_err} off the CPU's decode")
     counts = dets.valid.sum(dim=1)
-    if int(counts.sum()) == 0:
-        raise AssertionError(f"{name}: no detection, the NMS kernel got no candidate to keep")
-    return {"nms_shape": list(valid.shape), "candidates": int(valid.sum()),
-            "kept": int(got_keep.sum()), "keep_bit_exact": True, "boxes_max_abs_err": box_err,
+    return {**keep, "boxes_max_abs_err": box_err,
             "detections_per_image": {"min": int(counts.min()), "max": int(counts.max()),
                                      "mean": float(counts.float().mean())}}
 
@@ -1310,6 +1359,327 @@ def real_images(root: Path, device):
     return launches
 
 
+@contextlib.contextmanager
+def _caller_tf32_on():
+    """TF32 on for cuDNN and cuBLAS (float32 matmul precision "high"), as a
+    caller may leave them; the previous settings come back after."""
+    import torch
+
+    saved = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+
+
+def device_augment_path(seed: int, device):
+    """Phase 10: the on-device augmentation at vgg512 (see the module doc)."""
+    import numpy as np
+    import torch
+
+    from ssd_tensorflow_tpu_torch.data import device_augment as da
+    from ssd_tensorflow_tpu_torch.ops.anchors import anchors_for_preset
+    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
+
+    preset = train_config().model.preset
+    size = preset.image_size.h
+    anchors = anchors_for_preset(preset)
+    acfg = da.augment_config_for(preset)
+    data = train_batch(np.random.default_rng(seed + 11), TRAIN_BATCH, size, 20)
+    cpu_batch = {k: torch.from_numpy(v) for k, v in data.items()}
+    batch = {k: v.to(device) for k, v in cpu_batch.items()}
+    generator = torch.Generator(device).manual_seed(seed)
+    draws = da.draw_augment(generator, TRAIN_BATCH, acfg)
+    on_card = torch.from_numpy(anchors).to(device)
+    with _caller_tf32_on():
+        torch.cuda.reset_peak_memory_stats()
+        got = da.apply_augment(draws, batch, on_card, acfg)
+        torch.cuda.synchronize()
+        peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30
+        if torch.get_float32_matmul_precision() != "high":
+            raise AssertionError("the augmentation did not give the caller's matmul precision back")
+    want = da.apply_augment(draws.to("cpu"), cpu_batch, torch.from_numpy(anchors), acfg)
+    if got["images"].device.type != device.type or got["images"].shape != (TRAIN_BATCH, size,
+                                                                            size, 3):
+        raise AssertionError(f"augmented images {got['images'].device} {got['images'].shape}")
+    diff = (got["images"].cpu().int() - want["images"].int()).abs()
+    equal = float((diff == 0).float().mean())
+    box_err = float((got["gt_boxes"].cpu() - want["gt_boxes"]).abs().max())
+    if not (int(diff.max()) <= 1 and equal >= 0.999 and box_err <= 1e-6
+            and all(torch.equal(got[k].cpu(), want[k]) for k in ("gt_labels", "gt_mask"))):
+        raise AssertionError(f"augmentation card against CPU: {equal} of pixels equal, largest "
+                             f"gap {int(diff.max())}, boxes {box_err}")
+    *_, has_pos = da.augment_geometry(draws, batch, on_card, acfg)
+    fn = da.make_augment_fn(acfg, anchors)
+    _, launches = counted(lambda: fn(generator, batch))
+    batch_ms = cuda_event_ms(lambda: fn(generator, batch), iters=5, warmup=1)
+    _emit({"phase": "device_augment", "preset": preset.name, "batch": TRAIN_BATCH,
+           "staged": [size, size], "out": [acfg.out_h, acfg.out_w],
+           "gt_per_image": data["gt_mask"].sum(1).tolist(), "pixels_equal_to_cpu": equal,
+           "pixels_max_gap": int(diff.max()), "boxes_max_abs_err": box_err,
+           "fallback_share": 1.0 - float(has_pos.float().mean()),
+           "kept_boxes": int(got["gt_mask"].sum()), "batch_ms": batch_ms,
+           "images_per_s": TRAIN_BATCH / batch_ms * 1e3, "peak_mem_gib": peak_mem_gib,
+           "launches": launches})
+    return launches
+
+
+@contextlib.contextmanager
+def no_calibration():
+    """Every calibration entry of ``models/quantized.py`` patched to raise:
+    a QAT checkpoint must never be recalibrated."""
+    from ssd_tensorflow_tpu_torch.models import quantized
+
+    boom = AssertionError("a QAT checkpoint was recalibrated")
+    with mock.patch.object(quantized, "calibrate_activation_amax", side_effect=boom), \
+            mock.patch.object(quantized, "calibrate_activation_scales", side_effect=boom), \
+            mock.patch.object(quantized, "QuantizedModel", side_effect=boom):
+        yield
+
+
+@contextlib.contextmanager
+def qat_grids(record=None, forced=None):
+    """The port's activation fake quantization recording each integer grid
+    into ``record`` (on the CPU), or taking each grid from ``forced`` in
+    turn, so that a step handed another device's roundings is compared
+    alone; yields ``{"differing": n}``, the roundings the forced step would
+    have taken otherwise."""
+    import torch
+
+    from ssd_tensorflow_tpu_torch.models import qat
+
+    real, grids, stats = qat.fake_quant_act, iter(forced or ()), {"differing": 0}
+
+    def fake_quant_act(x, scale):
+        s = scale if torch.is_tensor(scale) else torch.tensor(scale, device=x.device)
+        # the quantizer's own grid: its values over the scale (|grid| <= 127,
+        # so the one rounding of the product and of the quotient cancel)
+        own = torch.round(real(x.detach(), scale) / s)
+        if record is not None:
+            record.append(own.to("cpu", torch.int8))
+            return real(x, scale)
+        grid = next(grids).to(x.device, x.dtype)
+        stats["differing"] += int((own != grid).sum())
+        in_range = (x.abs() <= 127.5 * scale).to(x.dtype)
+        return (grid * scale).detach() + in_range * (x - x.detach())
+
+    with mock.patch.object(qat, "fake_quant_act", fake_quant_act):
+        yield stats
+
+
+def _qat_step_card_vs_cpu(params, tcfg, act, batch, anchors, device):
+    """One QAT float32 step at batch 2 on the card against the CPU, cuDNN's
+    TF32 at PyTorch's default. With the CPU's activation grids handed to
+    the card's step: each loss within 1e-4 relative, each leaf's update
+    within phase 6 (b)'s bound or 1e-6 of the largest update, and at most
+    ``QAT_ROUNDINGS_DIFFERING`` of the card quantizer's own roundings
+    (given the CPU's upstream) differing from the CPU's. The card's step
+    left to its own roundings: each loss within ``QAT_FREE_LOSS`` relative."""
+    import torch
+
+    from ssd_tensorflow_tpu_torch.models import qat
+    from ssd_tensorflow_tpu_torch.parallel import train_step
+
+    step = qat.make_qat_train_step(tcfg, anchors, act)
+    small = {k: v[:2].cpu() for k, v in batch.items()}
+    grids = []
+    with _library_defaults():
+        with qat_grids(record=grids):
+            cpu, cpu_losses, _ = step(train_step.make_train_state(params, tcfg, device="cpu"),
+                                      small)
+        with qat_grids(forced=grids) as forced:
+            card, card_losses, _ = step(train_step.make_train_state(params, tcfg, device=device),
+                                        small)
+        _, free_losses, _ = step(train_step.make_train_state(params, tcfg, device=device), small)
+    loss_err = {k: abs(float(card_losses[k]) - float(v)) / abs(float(v))
+                for k, v in cpu_losses.items()}
+    updates = {(n, k): (cpu.params[n][k] - old, card.params[n][k].cpu() - old, old)
+               for n, leaves in params.items() for k, old in leaves.items()}
+    largest = max(float(want.abs().max()) for want, _, _ in updates.values())
+    worst = (0.0, "")
+    for (n, k), (want, got, old) in updates.items():
+        # phase 6 (b)'s bound; a leaf whose update is float32 noise on both
+        # devices (a bias before a GroupNorm of one channel per group has a
+        # zero gradient in exact arithmetic) within 1e-6 of the largest
+        tol = max(1e-2 * float(want.abs().max()), 2.0 ** -22 * float(old.abs().max()),
+                  1e-6 * largest)
+        err = float((got - want).abs().max())
+        if not err <= tol:
+            raise AssertionError(f"QAT step: {n}/{k} update {err} off the CPU's (tol {tol})")
+        worst = max(worst, (err / max(float(want.abs().max()), 1e-6 * largest), f"{n}/{k}"))
+    if not max(loss_err.values()) <= 1e-4:
+        raise AssertionError(f"QAT step: losses off the CPU's: {loss_err}")
+    roundings = sum(g.numel() for g in grids)
+    if not forced["differing"] <= QAT_ROUNDINGS_DIFFERING * roundings:
+        raise AssertionError(f"QAT step: {forced['differing']} of the card's {roundings} "
+                             "activation roundings differ from the CPU's")
+    free_err = {k: abs(float(free_losses[k]) - float(v)) / abs(float(v))
+                for k, v in cpu_losses.items()}
+    if not max(free_err.values()) <= QAT_FREE_LOSS:
+        raise AssertionError(f"QAT step on its own roundings: losses off the CPU's: {free_err}")
+    return {"loss_rel_err": loss_err, "update_rel_err_max": worst[0], "largest_update": largest,
+            "update_rel_err_max_leaf": worst[1], "roundings": roundings,
+            "card_roundings_differing": forced["differing"], "unforced_loss_rel_err": free_err,
+            "losses": {k: float(v) for k, v in cpu_losses.items()}}
+
+
+#: the share of the card quantizer's roundings, given the CPU's upstream,
+#: that may differ from the CPU's (tests/test_torch_qat.py's bound against
+#: JAX): an input within an ulp of a half step rounds either way
+QAT_ROUNDINGS_DIFFERING = 2e-3
+#: the card's QAT step on its own roundings against the CPU's, each loss
+#: relative: a rounding that differs carries its step to every later layer
+#: (measured on an H100: 1.5e-7 for mobilenet320, 1.5e-3 for vgg512)
+QAT_FREE_LOSS = 1e-2
+#: the QAT runs of phase 11: the shipped bundle whose dequantized weights
+#: start the finetune, the batch, the timed steps
+QAT_RUNS = {"mobilenet320": (FAMILY_BUNDLES["mobilenet320"][0], TRAIN_BATCH, 5),
+            "vgg512": (INT8_BUNDLE, 8, 3)}
+#: fake-quant against int8 argmax floor (the JAX package's tests/test_qat.py)
+QAT_AGREEMENT = 0.95
+
+
+def qat_path(name: str, root: Path, seed: int, device):
+    """Phase 11: the QAT finetune path of one preset (see the module doc)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ssd_tensorflow_tpu_torch.data import device_augment as da
+    from ssd_tensorflow_tpu_torch.inference import InferenceModel, load_bundle, model_config_to_dict
+    from ssd_tensorflow_tpu_torch.models import qat, quantized
+    from ssd_tensorflow_tpu_torch.ops.anchors import anchors_for_preset
+    from ssd_tensorflow_tpu_torch.ops.postprocess import DetectionConfig
+    from ssd_tensorflow_tpu_torch.parallel import train_step
+    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
+    from ssd_tensorflow_tpu_torch.utils.checkpoint import (
+        checkpoint_config,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+
+    fname, batch_size, steps = QAT_RUNS[name]
+    params, bundle_cfg = dequantized_params(root / fname)
+    cfg = qat.qat_model_config(bundle_cfg)
+    tcfg = train_step.TrainConfig(model=cfg, detect=DetectionConfig(confidence_threshold=0.01))
+    family = cfg.preset.backbone != "vgg"
+    anchors = anchors_for_preset(cfg.preset)
+    size = cfg.preset.image_size.h
+    raw = {k: torch.from_numpy(v).to(device) for k, v in train_batch(
+        np.random.default_rng(seed + 13), batch_size, size, cfg.num_classes).items()}
+    augment = da.make_augment_fn(da.augment_config_for(cfg.preset), anchors)
+    generator = torch.Generator(device).manual_seed(seed)
+    first = augment(generator, raw)
+    state = train_step.make_train_state(params, tcfg, device=device)
+    out = {"phase": "qat_path", "preset": name, "bundle": Path(fname).name, "batch": batch_size,
+           "dtype": cfg.compute_dtype, "l2_norm_eps": cfg.l2_norm_eps}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # calibrate on 8 augmented images, store the grid, restore, resume
+        act, entry = qat.qat_scales(state.params, cfg, None, first["images"][:8])
+        key = qat.qat_checkpoint_key(cfg)
+        config = {"model": model_config_to_dict(cfg), **entry}
+        save_checkpoint(f"{tmp}/e0.ckpt.npz", state, config)
+        stored = checkpoint_config(f"{tmp}/e0.ckpt.npz")
+        state = restore_checkpoint(f"{tmp}/e0.ckpt.npz", state)
+        with no_calibration():
+            act, resumed = qat.qat_scales(state.params, cfg, stored)
+        if resumed != entry or list(entry) != [key]:
+            raise AssertionError(f"{name}: the resumed QAT scales differ from the stored {key}")
+
+        step = qat.make_qat_train_step(tcfg, anchors, act)
+        torch.cuda.reset_peak_memory_stats()
+        totals = []
+        for _ in range(3):
+            state, losses, _ = step(state, augment(generator, raw))
+            totals.append(losses["total"])
+
+        def timed():
+            nonlocal state
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(steps):
+                state, losses, dets = step(state, augment(generator, raw))
+                totals.append(losses["total"])
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / steps, dets
+
+        with recording_detect() as rec:
+            (step_ms, dets), launches = counted(timed)
+        peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30
+        step_detect = check_detect(rec, f"{name} QAT step")
+        del rec
+        totals = [float(t) for t in totals]
+        if not all(np.isfinite(totals)):
+            raise AssertionError(f"{name} QAT: a loss is not finite: {totals}")
+        if (launches["nms_keep"] != steps or launches["int8_conv"] or launches["fused_stem"]
+                or launches["fused_stem_uint8"]):
+            raise AssertionError(f"the {name} QAT steps did not run their kernels as they "
+                                 f"should: {launches}")
+        augment_ms = cuda_event_ms(lambda: augment(generator, raw), iters=3, warmup=1)
+
+        fwd = qat.make_qat_forward(cfg, act)
+        with recording_detect() as rec:
+            (eval_losses, _), eval_launches = counted(
+                lambda: train_step.make_eval_step(tcfg, anchors, forward=fwd)(state.params, first))
+        if eval_launches["nms_keep"] != 1 or not all(
+                np.isfinite(float(v)) for v in eval_losses.values()):
+            raise AssertionError(f"{name} QAT eval step: {eval_launches}, {eval_losses}")
+        eval_detect = check_detect(rec, f"{name} QAT eval")
+        del rec
+
+        # export with exactly the stored grid, then deploy
+        save_checkpoint(f"{tmp}/final.ckpt.npz", state, config)
+        with no_calibration():
+            qat.export_int8_bundle(f"{tmp}/final.ckpt.npz", f"{tmp}/qat.npz", device=device)
+        qparams, _, _, bundle_scales = load_bundle(f"{tmp}/qat.npz")
+        if family:
+            want = qat.family_a_scales(stored[key])
+            same = bundle_scales == {} and all(
+                np.array_equal(qparams[k]["a_scale"].numpy(), v) for k, v in want.items())
+        else:
+            same = bundle_scales == stored[key]
+        if not same:
+            raise AssertionError(f"{name}: the exported bundle's scales are not the checkpoint's")
+        n_convs = sum("wq" in leaf and not n.endswith("_dw") for n, leaf in qparams.items())
+        model = InferenceModel.from_bundle(f"{tmp}/qat.npz", device=device)
+    images = first["images"]
+    with recording_detect() as rec:
+        deploy, deploy_launches = counted(lambda: model.run_scores(images))
+    if deploy_launches["int8_conv"] != n_convs or deploy_launches["nms_keep"] != 1:
+        raise AssertionError(f"the exported {name} bundle did not run its kernels as it should: "
+                             f"{deploy_launches} ({n_convs} int8 convs)")
+    deploy_keep = check_keep(rec, f"{name} QAT deploy")
+    del rec
+    counts = _path_checks(f"{name} QAT bundle", deploy, model, batch_size)
+    with torch.no_grad():
+        logits, _ = fwd(state.params, images[:8])
+    with torch.inference_mode():
+        ref = quantized._forward(model.params, images[:8], model.config)
+    agree = float((logits.argmax(-1) == ref[..., : cfg.num_classes + 1].argmax(-1))
+                  .float().mean())
+    if family and not agree > QAT_AGREEMENT:
+        raise AssertionError(f"{name}: fake-quant against int8 argmax agreement {agree}")
+    out.update({"scales_key": key, "resumed_without_calibration": True,
+                "launches": launches, "step_detect": step_detect, "eval_detect": eval_detect,
+                "deploy_keep": deploy_keep, "step_ms": step_ms,
+                "images_per_s": batch_size / step_ms * 1e3, "augment_ms": augment_ms,
+                "peak_mem_gib": peak_mem_gib, "total_loss": totals,
+                "eval_losses": {k: float(v) for k, v in eval_losses.items()},
+                "eval_launches": eval_launches, "bundle_scales_equal_checkpoint": True,
+                "int8_convs": n_convs, "deploy_launches": deploy_launches,
+                "deploy_detections_per_image": counts, "fake_quant_vs_int8_argmax": agree,
+                "card_vs_cpu": _qat_step_card_vs_cpu(params, tcfg, act, first, anchors, device)})
+    _emit(out)
+    return {f"qat_train:{name}": launches, f"qat_eval:{name}": eval_launches,
+            f"qat_deploy:{name}": deploy_launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1384,6 +1754,10 @@ def main(argv=None) -> int:
         launches[f"family_float:{name}"] = family_float_path(name, root, args.seed, args.batch,
                                                              device)
     launches.update({f"real_images:{k}": v for k, v in real_images(root, device).items()})
+    # 10.-11. the on-device augmentation and the QAT finetune path
+    launches["device_augment"] = device_augment_path(args.seed, device)
+    for name in QAT_RUNS:
+        launches.update(qat_path(name, root, args.seed, device))
     with torch.inference_mode():
         _, launches["fused_stem_pallas"] = counted(
             lambda: stem_cuda.fused_stem_pallas(model.params, images, MEAN_BGR))

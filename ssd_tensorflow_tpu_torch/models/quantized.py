@@ -56,6 +56,7 @@ from ssd_tensorflow_tpu_torch.models.ssd_vgg import (
     ModelConfig,
     _backbone_module,
     _extra_layer_defs,
+    anchor_order,
     preprocess,
     reduce_head_maps,
 )
@@ -96,6 +97,13 @@ def quantize_weights(params) -> dict:
     return q
 
 
+def folded_a_scale(amax) -> np.ndarray:
+    """A conv's per-input-channel activation scale from its calibrated
+    amax: ``max(float32(amax) / 127, 1e-12)`` in float32, as the JAX
+    package computes it on the host."""
+    return np.maximum(np.asarray(amax, np.float32) / np.float32(127), np.float32(1e-12))
+
+
 def quantize_weights_folded(params, act_amax=None) -> dict:
     """The family int8 q-params: per-input-channel activation scales folded
     into per-output-channel int8 weights, bit for bit as the JAX package's
@@ -118,11 +126,8 @@ def quantize_weights_folded(params, act_amax=None) -> dict:
             w_scale, wq = _per_cout_int8(w)
             q[name] = {"wq": wq, "w_scale": w_scale, "b": b}
             continue
-        if act_amax is None:
-            a_scale = np.ones((w.shape[2],), np.float32)
-        else:
-            a_scale = np.asarray(act_amax[name], np.float32) / 127.0
-        a_scale = np.maximum(a_scale, 1e-12)
+        a_scale = (np.ones((w.shape[2],), np.float32) if act_amax is None
+                   else folded_a_scale(act_amax[name]))
         w_scale, wq = _per_cout_int8(w * a_scale[None, None, :, None])
         q[name] = {"wq": wq, "w_scale": w_scale, "a_scale": torch.from_numpy(a_scale), "b": b}
     return q
@@ -220,14 +225,7 @@ def _head_maps(staged, maps):
 def _forward(staged, images, config: ModelConfig):
     """Quantized forward -> ``(B, A, K+5)`` float32 result tensor
     (softmax over the K+1 class logits, then the 4 offsets)."""
-    nv = config.num_vars
-    outs = []
-    for y, m in zip(_head_maps(staged, _feature_maps_q(staged, images, config)),
-                    config.preset.maps):
-        b, h, w, _ = y.shape
-        y = y.reshape(b, h * w, m.num_shapes, nv).transpose(1, 2)
-        outs.append(y.reshape(b, m.num_shapes * h * w, nv))
-    out = torch.cat(outs, dim=1)
+    out = anchor_order(_head_maps(staged, _feature_maps_q(staged, images, config)), config)
     k = config.num_classes + 1
     return torch.cat([torch.softmax(out[:, :, :k], dim=-1), out[:, :, k:]], dim=-1)
 

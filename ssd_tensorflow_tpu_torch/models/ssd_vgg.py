@@ -334,14 +334,21 @@ def apply_model(params, images, config: ModelConfig, *, inference: bool = True):
     with full_float32(config.dtype):
         maps = _feature_maps(params, images, config, train)
         heads = _head_maps(params, maps, config, train)
+    out = anchor_order(heads, config).float()
+    return out[:, :, : config.num_classes + 1], out[:, :, config.num_classes + 1 :]
+
+
+def anchor_order(head_maps, config: ModelConfig):
+    """The head conv outputs ``(B, h, w, shapes * num_vars)`` of each map
+    -> one ``(B, A, num_vars)`` tensor in the heads-major anchor order:
+    map by map, and within a map shape by shape, then position."""
     nv = config.num_vars
     outputs = []
-    for y, m in zip(heads, config.preset.maps):
+    for y, m in zip(head_maps, config.preset.maps):
         b, h, w, _ = y.shape
         y = y.reshape(b, h * w, m.num_shapes, nv).transpose(1, 2)
         outputs.append(y.reshape(b, m.num_shapes * h * w, nv))
-    out = torch.cat(outputs, dim=1).float()
-    return out[:, :, : config.num_classes + 1], out[:, :, config.num_classes + 1 :]
+    return torch.cat(outputs, dim=1)
 
 
 def apply_result(params, images, config: ModelConfig):

@@ -14,6 +14,8 @@ step of the largest output; the heads' ``layers.conv2d_bias_in`` likewise
 on >= 99.9 %.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -602,3 +604,140 @@ def test_family_conv_bias_in_rounds_once(cuda, h, w, cin, cout, k, stride, paddi
         conv32.to(torch.bfloat16).permute(0, 2, 3, 1)
     floor = max(0.99, float(conv_only.float().mean()) - max(0.001, 2.0 / want.numel()))
     assert float((got == want).float().mean()) >= floor
+
+
+def _aug_batch(seed, b, size, g=8):
+    rng = np.random.default_rng(seed)
+    n = rng.integers(1, g + 1, b)
+    w, h = rng.uniform(0.05, 0.5, (2, b, g))
+    boxes = np.stack([rng.uniform(w / 2, 1 - w / 2), rng.uniform(h / 2, 1 - h / 2), w, h], -1)
+    return {"images": torch.from_numpy(rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8)),
+            "gt_boxes": torch.tensor(boxes, dtype=torch.float32),
+            "gt_labels": torch.from_numpy(rng.integers(0, 20, (b, g))),
+            "gt_mask": torch.from_numpy(np.arange(g)[None, :] < n[:, None])}
+
+
+@pytest.mark.parametrize("preset,b", [("vgg300", 8), ("test64", 16)])
+def test_augment_card_matches_cpu_on_the_same_draws(cuda, preset, b):
+    """The augmentation on the card against the CPU on the same draws, the
+    caller's TF32 flags on (cuDNN's and cuBLAS's): uint8 images equal on
+    >= 99.9 % of pixels and within 1 elsewhere, boxes within 1e-6, labels
+    and masks equal; the caller's flags come back."""
+    from ssd_tensorflow_tpu_torch.data import device_augment as da
+    from ssd_tensorflow_tpu_torch.ops.anchors import anchors_for_preset
+
+    cfg = ModelConfig(preset_name=preset)
+    acfg = da.augment_config_for(cfg.preset)
+    anchors = torch.from_numpy(anchors_for_preset(cfg.preset))
+    batch = _aug_batch(b, b, cfg.preset.image_size.h)
+    draws = da.draw_augment(torch.Generator(cuda).manual_seed(b), b, acfg)
+    saved = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        got = da.apply_augment(draws, {k: v.to(cuda) for k, v in batch.items()}, anchors.to(cuda),
+                               acfg)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+    want = da.apply_augment(draws.to("cpu"), batch, anchors, acfg)
+    assert got["images"].device.type == "cuda"
+    diff = (got["images"].cpu().int() - want["images"].int()).abs()
+    assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.999
+    assert float((got["gt_boxes"].cpu() - want["gt_boxes"]).abs().max()) <= 1e-6
+    for k in ("gt_labels", "gt_mask"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@contextlib.contextmanager
+def _qat_grids(record=None, forced=None):
+    """The port's activation fake quantization recording its integer grids
+    into ``record``, or taking each grid from ``forced`` in turn."""
+    from unittest import mock
+
+    from ssd_tensorflow_tpu_torch.models import qat
+
+    real, it = qat.fake_quant_act, iter(forced or ())
+
+    def fq(x, scale):
+        if record is not None:
+            s = scale if torch.is_tensor(scale) else torch.tensor(scale, device=x.device)
+            record.append(torch.clamp(torch.round(x.detach() / s), -127, 127).cpu())
+            return real(x, scale)
+        grid = next(it).to(x.device)
+        in_range = (x.abs() <= 127.5 * scale).to(x.dtype)
+        return (grid * scale).detach() + in_range * (x - x.detach())
+
+    with mock.patch.object(qat, "fake_quant_act", fq):
+        yield
+
+
+@pytest.mark.parametrize("preset", ["test64", "mntest64"])
+def test_qat_forward_card_matches_cpu(cuda, preset):
+    """The float32 fake-quant forward on the card, cuDNN's TF32 flag on,
+    against the CPU's: with the CPU's activation grids handed in, logits
+    and locs within 1e-4 of their largest; left to its own roundings,
+    argmax equal on >= 99 % of anchors."""
+    from ssd_tensorflow_tpu_torch.models import qat, quantized
+
+    cfg = qat.qat_model_config(ModelConfig(preset_name=preset, num_classes=3))
+    params = init_params(cfg, seed=6)
+    img = torch.from_numpy(np.random.default_rng(6).integers(0, 256, (2, 64, 64, 3),
+                                                             dtype=np.uint8))
+    calibrate = (quantized.calibrate_activation_scales if preset == "test64"
+                 else quantized.calibrate_activation_amax)
+    scales = calibrate(params, img, cfg)
+    fwd = qat.make_qat_forward(cfg, scales)
+    on_card = {n: {k: v.to(cuda) for k, v in d.items()} for n, d in params.items()}
+    grids = []
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            with _qat_grids(record=grids):
+                want = fwd(params, img)
+            with _qat_grids(forced=grids):
+                got = [v.cpu() for v in fwd(on_card, img.to(cuda))]
+            free = fwd(on_card, img.to(cuda))[0].cpu()
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    assert float((free.argmax(-1) == want[0].argmax(-1)).float().mean()) >= 0.99
+
+
+def test_qat_export_on_the_card(cuda, tmp_path):
+    """The QAT contract on the card: the amax calibrated on the card, stored
+    in a checkpoint, exported without recalibrating (calibration patched to
+    raise) bit for bit as the CPU's export of the same checkpoint; the
+    bundle runs on the card with ``int8_conv`` once a conv and NMS once."""
+    from unittest import mock
+
+    from ssd_tensorflow_tpu_torch import inference
+    from ssd_tensorflow_tpu_torch.models import qat, quantized
+    from ssd_tensorflow_tpu_torch.parallel import train_step
+    from ssd_tensorflow_tpu_torch.utils.checkpoint import save_checkpoint
+
+    cfg = qat.qat_model_config(ModelConfig(preset_name="mntest64", num_classes=3))
+    state = train_step.make_train_state(init_params(cfg, seed=7), train_step.TrainConfig(model=cfg),
+                                        device=cuda)
+    img = np.random.default_rng(7).integers(0, 256, (4, 64, 64, 3), dtype=np.uint8)
+    _, entry = qat.qat_scales(state.params, cfg, None, img)
+    ckpt = str(tmp_path / "e1.ckpt.npz")
+    save_checkpoint(ckpt, state, {"model": inference.model_config_to_dict(cfg), **entry})
+    boom = AssertionError("recalibrated")
+    with mock.patch.object(quantized, "calibrate_activation_amax", side_effect=boom), \
+            mock.patch.object(quantized, "QuantizedModel", side_effect=boom):
+        for name, dev in (("card", cuda), ("cpu", "cpu")):
+            assert qat.export_int8_bundle(ckpt, str(tmp_path / f"{name}.npz"), device=dev) == {}
+    with np.load(str(tmp_path / "card.npz")) as a, np.load(str(tmp_path / "cpu.npz")) as b:
+        assert all(np.array_equal(a[f], b[f]) for f in b.files)
+    model = inference.InferenceModel.from_bundle(str(tmp_path / "card.npz"), device=cuda)
+    before = int8_conv.int8_conv.launches, nms_cuda.nms_keep.launches
+    dets = model.run_scores(img)
+    n_convs = sum("a_scale" in leaf for leaf in inference.load_bundle(
+        str(tmp_path / "card.npz"))[0].values())
+    assert int8_conv.int8_conv.launches - before[0] == n_convs > 0
+    assert nms_cuda.nms_keep.launches - before[1] == 1 and dets.boxes.device.type == "cuda"

@@ -132,3 +132,37 @@ def test_family_entry_points_default_to_cuda(fname):
         InferenceModel(init_params(cfg), cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         QuantizedModel(init_params(cfg), cfg, np.zeros((1, 64, 64, 3), np.uint8))
+
+
+def test_qat_and_augmentation_modules_are_scanned():
+    """The QAT module and the on-device augmentation are among the modules
+    imported with ``jax`` blocked and scanned above."""
+    sources = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {"ssd_tensorflow_tpu_torch/models/qat.py",
+            "ssd_tensorflow_tpu_torch/data/device_augment.py",
+            "ssd_tensorflow_tpu_torch/data/__init__.py"} <= sources
+
+
+def test_qat_export_calibrates_on_cuda_by_default(tmp_path):
+    """The int8 export of a checkpoint without QAT scales calibrates on
+    ``device="cuda"`` unless the caller asks for the CPU; a CUDA generator
+    is the augmentation's way onto the card."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the no-CUDA error cannot occur")
+    import numpy as np
+
+    from ssd_tensorflow_tpu_torch.inference import model_config_to_dict
+    from ssd_tensorflow_tpu_torch.models import qat
+    from ssd_tensorflow_tpu_torch.models.ssd_vgg import ModelConfig, init_params
+    from ssd_tensorflow_tpu_torch.parallel.train_step import TrainConfig, make_train_state
+    from ssd_tensorflow_tpu_torch.utils.checkpoint import save_checkpoint
+
+    cfg = qat.qat_model_config(ModelConfig(preset_name="mntest64", num_classes=3))
+    path = str(tmp_path / "e1.ckpt.npz")
+    save_checkpoint(path, make_train_state(init_params(cfg), TrainConfig(model=cfg), device="cpu"),
+                    {"model": model_config_to_dict(cfg)})
+    images = np.zeros((1, 64, 64, 3), np.uint8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        qat.export_int8_bundle(path, str(tmp_path / "b.npz"), images)
+    with pytest.raises(RuntimeError):
+        torch.Generator("cuda")

@@ -6,6 +6,7 @@
                                    [--bundle assets/vgg512_int8_minivoc.ssdtpu.npz]
                                    [--out runs/torch_profile.json]
     python3 tools/torch_profile.py --train [--batch 32] [--out ...]
+    python3 tools/torch_profile.py --qat mobilenet320|vgg512 [--batch 32|8] [--out ...]
 
 Without ``--bundle``: ``--preset`` (vgg512 by default) bf16 with weights
 made from the seed, a vgg512 model's stem kernel chosen as
@@ -33,8 +34,10 @@ object (and writes it to ``--out``):
   adds, max-pool, copies): the whole forward's time less its timed parts;
 * ``run_scores_ms``: the whole ``InferenceModel.run_scores`` per batch;
 * ``profile``: a ``torch.profiler`` window over a few chained batches:
-  device busy time per batch, the idle share of the window, and the
-  kernels with the most device time.
+  device busy time per batch, the kernels with the most device time, and
+  the idle share, ``1 - busy / event_ms_per_batch`` (the same chained
+  batches timed with CUDA events, untraced); ``window_idle_share`` is the
+  traced window's, whose CPU tracing slows the host.
 
 With ``--train``: the vgg512 bf16 SGD train step
 (``parallel/train_step.make_train_step``) at ``--batch`` (default 32) on
@@ -46,6 +49,16 @@ backward (``torch.autograd.grad``), the optimizer update and the
 detect (softmax + ``decode_detections``, NMS the kernel); ``step_ms`` is
 the whole step, and ``profile`` a window over 3 chained steps. The train
 configuration is ``chip_smoke.train_config()``'s.
+
+With ``--qat mobilenet320|vgg512``: the QAT train step
+(``models/qat.make_qat_train_step``) of ``chip_smoke.py``'s phase 11, the
+shipped bundle's dequantized weights in float32, the activation grid
+calibrated on 8 augmented images, at ``--batch`` (default 32 / 8) on a
+batch augmented on the card (``data/device_augment.py``). ``stages_ms``
+as with ``--train`` (the forward is the fake-quant one) plus
+``augment``; ``augment_stages_ms`` splits the augmentation into its draws,
+the photometric distortion, the geometry (sampler, remap, the positive
+fallback's IoU) and the window resampling.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -256,10 +269,10 @@ def _family_float_stages(model, images):
     return out
 
 
-def _train_stages(cfg, state, batch, anchors):
+def _train_stages(cfg, state, batch, anchors, forward=None):
     """``{stage: ms}`` of the train step, each part timed alone (see the
     module doc): the step's own functions on the inputs one step gives
-    them."""
+    them; ``forward`` as ``make_train_step``'s."""
     import torch
 
     from ssd_tensorflow_tpu_torch.models.loss import total_loss
@@ -275,7 +288,8 @@ def _train_stages(cfg, state, batch, anchors):
     labels = timed("targets", lambda: ts.batch_targets(batch, anchors, cfg))
     leaves = ts.tree_map(lambda v: v.detach().requires_grad_(True), state.params)
     flat = [v for d in leaves.values() for v in d.values()]
-    logits, locs = timed("forward", lambda: ts.model_outputs(leaves, batch["images"], cfg))
+    logits, locs = timed("forward", lambda: ts.model_outputs(leaves, batch["images"], cfg,
+                                                             forward))
     total = timed("loss_mining_l2", lambda: total_loss(
         logits, locs, labels, leaves, cfg.model.num_classes, cfg.weight_decay)["total"])
     grads = timed("backward", lambda: torch.autograd.grad(total, flat, retain_graph=True))
@@ -292,8 +306,11 @@ def _profile(run, iters=3):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from ssd_tensorflow_tpu_torch.timing import device_kernels
+    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms, device_kernels
 
+    # the idle share is taken against the untraced time: the window's CPU
+    # activity tracing slows the host, and with it a launch-bound run
+    event_ms = cuda_event_ms(run, iters=iters, warmup=1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -306,9 +323,11 @@ def _profile(run, iters=3):
     if busy <= 0:
         raise RuntimeError("the profiler recorded no device time")
     return {
+        "event_ms_per_batch": event_ms,
         "window_wall_ms_per_batch": wall_ms / iters,
         "device_busy_ms_per_batch": busy,
-        "idle_share": max(0.0, 1.0 - busy * iters / wall_ms),
+        "idle_share": max(0.0, 1.0 - busy / event_ms),
+        "window_idle_share": max(0.0, 1.0 - busy * iters / wall_ms),
         "top_kernels": [{"name": n[:120], "ms_per_batch": t, "launches_per_batch": c}
                         for n, t, c in kernels[:25]],
         "kernel_launches_per_batch": sum(k[2] for k in kernels),
@@ -321,6 +340,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=None,
                     help="batch size (default 64, or 32 with --train)")
     ap.add_argument("--train", action="store_true", help="profile the vgg512 bf16 train step")
+    ap.add_argument("--qat", choices=("mobilenet320", "vgg512"), default=None,
+                    help="profile this preset's QAT train step on augmented batches")
     ap.add_argument("--stem-variant", choices=("dma", "uint8"), default="dma")
     ap.add_argument("--preset", choices=("vgg512", "resnet320", "mobilenet320"), default="vgg512",
                     help="the float model's preset (without --bundle)")
@@ -336,7 +357,9 @@ def main(argv=None) -> int:
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    if args.train:
+    if args.qat:
+        result = _qat_main(args.qat, args.seed, args.batch)
+    elif args.train:
         result = _train_main(args.seed, args.batch or 32)
     else:
         result = _inference_main(args, args.batch or 64)
@@ -373,6 +396,69 @@ def _train_main(seed: int, batch_size: int) -> dict:
             "batch": batch_size, "stages_ms": stages, "stages_sum_ms": sum(stages.values()),
             "step_ms": step_ms, "images_per_s": batch_size / step_ms * 1e3,
             "peak_mem_gib": peak, "profile": _profile(lambda: step(state, batch))}
+
+
+def _augment_stages(acfg, generator, batch, anchors):
+    """``{stage: ms}`` of one augmentation of ``batch``, each part timed
+    alone on the inputs the chain gives it."""
+    from ssd_tensorflow_tpu_torch.data import device_augment as da
+    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
+
+    out = {}
+
+    def timed(name, fn):
+        out[name] = cuda_event_ms(fn, iters=3, warmup=1)
+        return fn()
+
+    draws = timed("draws", lambda: da.draw_augment(generator, batch["images"].shape[0], acfg))
+    img = timed("photometric", lambda: da._photometric(draws, batch["images"].float(), acfg))
+    window, flip, *_ = timed("geometry", lambda: da.augment_geometry(draws, batch, anchors, acfg))
+    timed("resample", lambda: da.resample_window(img, window, flip, acfg.out_h, acfg.out_w,
+                                                 acfg.mean_bgr))
+    return out
+
+
+def _qat_main(name: str, seed: int, batch_size) -> dict:
+    import numpy as np
+    import torch
+
+    from ssd_tensorflow_tpu_torch.data import device_augment as da
+    from ssd_tensorflow_tpu_torch.models import qat
+    from ssd_tensorflow_tpu_torch.ops.anchors import anchors_for_preset
+    from ssd_tensorflow_tpu_torch.ops.postprocess import DetectionConfig
+    from ssd_tensorflow_tpu_torch.parallel import train_step
+    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
+    from chip_smoke import QAT_RUNS, dequantized_params, train_batch
+
+    fname, default_batch, _ = QAT_RUNS[name]
+    batch_size = batch_size or default_batch
+    params, bundle_cfg = dequantized_params(Path(__file__).resolve().parent.parent / fname)
+    cfg = train_step.TrainConfig(model=qat.qat_model_config(bundle_cfg),
+                                 detect=DetectionConfig(confidence_threshold=0.01))
+    preset = cfg.model.preset
+    anchors = anchors_for_preset(preset)
+    on_card = torch.from_numpy(anchors).cuda()
+    raw = {k: torch.from_numpy(v).cuda() for k, v in train_batch(
+        np.random.default_rng(seed), batch_size, preset.image_size.h,
+        cfg.model.num_classes).items()}
+    acfg = da.augment_config_for(preset)
+    augment = da.make_augment_fn(acfg, anchors)
+    generator = torch.Generator("cuda").manual_seed(seed)
+    batch = augment(generator, raw)
+    state = train_step.make_train_state(params, cfg)
+    act, _ = qat.qat_scales(state.params, cfg.model, None, batch["images"][:8])
+    step = qat.make_qat_train_step(cfg, anchors, act)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_event_ms(lambda: step(state, batch), iters=5, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stages = {"augment": cuda_event_ms(lambda: augment(generator, raw), iters=3, warmup=1),
+              **_train_stages(cfg, state, batch, on_card, qat.make_qat_forward(cfg.model, act))}
+    return {"preset": name, "path": "qat", "dtype": cfg.model.compute_dtype,
+            "batch": batch_size, "stages_ms": stages, "stages_sum_ms": sum(stages.values()),
+            "augment_stages_ms": _augment_stages(acfg, generator, raw, on_card),
+            "step_ms": step_ms, "images_per_s": batch_size / step_ms * 1e3,
+            "peak_mem_gib": peak,
+            "profile": _profile(lambda: step(state, augment(generator, raw)))}
 
 
 def _inference_main(args, batch_size: int) -> dict:
