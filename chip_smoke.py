@@ -146,6 +146,55 @@ non-zero, and the final line is printed only when every phase passed:
    CPU's; the card's step left to its own roundings: each loss within
    1e-2 relative (``QAT_FREE_LOSS``). ms per step (each timed step with its batch's
    augmentation; ``augment_ms`` alone beside it), images/s, peak memory.
+12. parallel (vgg512, 21 classes, bf16, weights from the seed, batch 32):
+   (a) one ``make_train_step`` without a process group, twice, then under
+   the one-rank NCCL group that ``parallel/mesh.make_mesh`` joins from a
+   one-process ``torchrun`` environment (``RANK=0``, ``WORLD_SIZE=1``,
+   ``MASTER_ADDR``, a free ``MASTER_PORT``), with ``shard_state`` (one
+   broadcast) and ``shard_batch``: params and losses bit for bit equal to
+   the step without a group (``cudnn.deterministic`` on for all three),
+   which proves the gradient all-reduce and the broadcast run on NCCL;
+   (b) ``TrainConfig(remat=True)`` against ``remat=False`` from the same
+   state: each loss within 1e-3 relative, each leaf's update within 1e-2
+   of that leaf's largest (or two ulps of its largest parameter), and a
+   lower peak device memory over what was allocated before each step: the
+   plain step runs before and after it, and the remat peak must lie below
+   both by more than their spread (a remat that changed nothing fails),
+   all three peaks printed; (c) 8 seeded host batches
+   through ``parallel/prefetch.prefetch_to_device`` onto the card while the
+   consumer runs a train step on each: every batch equal to its host
+   arrays bit for bit, the host part passed through.
+13. train_cli: ``cli/train.main`` in this process on the card, under that
+   NCCL group, on dataset directories as ``process_dataset.py`` writes them
+   (``staged_dataset``: 512 x 512 uint8 images from the seed, 1-8 gt
+   boxes each, vgg512, 20 classes). The card machine has no OpenCV and no
+   PIL, so the per-sample decode, resize and augmentation cannot run there:
+   ``StagedProcessor`` takes the place of the pipeline's sample processor
+   and hands out the staged images; that processor is held against the JAX
+   package's on the CPU by ``tests/test_torch_pipeline.py``. The rest of
+   the pipeline runs as it is. Run A (64 train, 32 valid images):
+   ``--batch-size 32 --epochs 2 --checkpoint-interval 1 --num-workers 0``,
+   bf16, the steps' detect at ``train_config``'s 0.01, then
+   ``--continue-training yes --epochs 3``; run B: ``--device-augment
+   true``, one epoch; run C (320 train images, ten steps an epoch): the
+   CLI's own detect threshold (0.5) and its default input path, forked
+   workers (one a core) over the shared-memory transport, started from
+   the prefetch thread of a process that holds the card and the NCCL
+   group, two epochs. Each run must return 0; ``e1``, ``e2``, ``e3`` and
+   ``final`` must load through ``restore_checkpoint`` with their steps;
+   the resumed run's first step must get e2's params and momentum bit for
+   bit; every loss finite; every train and eval step's NMS keep mask equal
+   to ``nms_keep_plain`` on its own candidates, bit for bit, and in runs A
+   and B not empty; NMS launched
+   once a train and once an eval step, no stem kernel and no
+   ``int8_conv``. Reports, for run A (a stress reading at threshold 0.01)
+   and for run C (the CLI as a user runs it): the CLI's own images/s
+   (``StepTimer``) per epoch, CUDA-event ms a step over the epochs after
+   the first (start to start of consecutive steps within an epoch, and
+   each step's own span), the device busy time of train steps of the
+   first epoch under ``torch.profiler``, the idle share ``1 - busy / ms a
+   step``, and the gap to phase 6's bare step: the CLI's host cost. Also
+   peak memory, the free space of ``/dev/shm`` and the core count.
 
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is ``{"ok": true, "device": {...}}``.
@@ -841,9 +890,10 @@ def recording_detect():
         yield rec
 
 
-def check_keep(rec, name):
+def check_keep(rec, name, require_kept: bool = True):
     """The recorded NMS keep mask against ``nms_keep_plain`` on the same
-    candidates on the card, bit for bit. Fails if the kernel kept nothing."""
+    candidates on the card, bit for bit. Fails if the kernel kept nothing,
+    unless ``require_kept`` is false."""
     import torch
 
     from ssd_tensorflow_tpu_torch.ops import nms_cuda, postprocess
@@ -857,7 +907,7 @@ def check_keep(rec, name):
     if not torch.equal(got_keep, want_keep):
         raise AssertionError(f"{name}: nms_keep differs from its plain version on "
                              f"{int((got_keep != want_keep).sum())} of {got_keep.numel()} flags")
-    if not got_keep.any():
+    if require_kept and not got_keep.any():
         raise AssertionError(f"{name}: the NMS kernel got no candidate to keep")
     return {"nms_shape": list(valid.shape), "candidates": int(valid.sum()),
             "kept": int(got_keep.sum()), "keep_bit_exact": True}
@@ -867,7 +917,8 @@ def check_detect(rec, name):
     """:func:`check_keep`, and the recorded detections against
     ``decode_detections`` on the CPU of the same probabilities and
     offsets: valid, classes and scores equal, boxes within 1e-5 (the
-    card's ``exp`` may differ from the CPU's in the last bit)."""
+    decode rounds its ``exp`` once from float64, so that an ulp of the
+    card's ``expf`` cannot move a box across a canvas pixel)."""
     import torch
 
     from ssd_tensorflow_tpu_torch.ops import postprocess
@@ -1043,7 +1094,7 @@ def train_path(seed: int, device):
            "peak_mem_gib": peak_mem_gib, "total_loss": totals, "step": state.step,
            "detect_threshold": cfg.detect.confidence_threshold, "detect": detect,
            "eval_losses": eval_losses, "eval_detect": eval_detect})
-    return launches
+    return launches, step_ms
 
 
 #: the shipped family bundles and their int8 conv count (every conv and head
@@ -1680,6 +1731,468 @@ def qat_path(name: str, root: Path, seed: int, device):
             f"qat_deploy:{name}": deploy_launches}
 
 
+# ---------------------------------------------------------------------------
+# 12. parallel: the one-rank NCCL group, remat and prefetch
+# ---------------------------------------------------------------------------
+
+#: remat may recompute in another cuDNN algorithm: its losses within 1e-3
+#: relative, each leaf's update within 1e-2 of that leaf's largest
+REMAT_LOSS = 1e-3
+REMAT_UPDATE = 1e-2
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def join_one_rank_group():
+    """The environment of a one-process ``torchrun`` launch: ``make_mesh``
+    then joins an NCCL group of one rank."""
+    import os
+
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(_free_port()))
+
+
+def _updates_within(new, ref, old, rel: float):
+    """The largest gap of ``new``'s update from ``ref``'s, relative to each
+    leaf's largest update of ``ref``, or two ulps of its largest parameter
+    (the resolution of a difference of two parameters); raises above
+    ``rel``."""
+    worst = 0.0
+    for n, leaves in old.items():
+        for k, o in leaves.items():
+            want = ref[n][k].float().cpu() - o
+            got = new[n][k].float().cpu() - o
+            tol = max(rel * float(want.abs().max()), 2.0 ** -22 * float(o.abs().max()))
+            err = float((got - want).abs().max())
+            if not err <= tol:
+                raise AssertionError(f"{n}/{k}: update {err} off (tol {tol})")
+            worst = max(worst, err / max(float(want.abs().max()), 1e-30))
+    return worst
+
+
+def parallel_path(seed: int, device):
+    """Phase 12: the one-rank NCCL group, remat and prefetch (see the
+    module doc)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ssd_tensorflow_tpu_torch.models.ssd_vgg import init_params
+    from ssd_tensorflow_tpu_torch.ops.anchors import anchors_for_preset
+    from ssd_tensorflow_tpu_torch.parallel import mesh as pmesh
+    from ssd_tensorflow_tpu_torch.parallel import train_step
+    from ssd_tensorflow_tpu_torch.parallel.prefetch import prefetch_to_device
+
+    cfg = train_config()
+    anchors = anchors_for_preset(cfg.model.preset)
+    size = cfg.model.preset.image_size.h
+    data = train_batch(np.random.default_rng(seed + 12), TRAIN_BATCH, size, cfg.model.num_classes)
+    host_params = init_params(cfg.model, seed)
+    step = train_step.make_train_step(cfg, anchors)
+    fresh = lambda: train_step.make_train_state(host_params, cfg, device=device)  # noqa: E731
+
+    # (a) without a group, twice, then under the one-rank NCCL group
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        alone = [step(fresh(), data)[:2] for _ in range(2)]
+        if dist.is_initialized():
+            raise AssertionError("a process group exists before phase 12")
+        join_one_rank_group()
+        mesh = pmesh.make_mesh(device="cuda")
+        if mesh is None or dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError(f"make_mesh did not join a one-rank NCCL group: {mesh}")
+        placed = train_step.shard_state(fresh(), mesh)
+        grouped, grouped_losses = step(placed, train_step.shard_batch(data, mesh))[:2]
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    ref, ref_losses = alone[0]
+    leaves = [(n, k) for n in ref.params for k in ref.params[n]]
+    repeat_equal = all(torch.equal(alone[1][0].params[n][k], ref.params[n][k]) for n, k in leaves)
+    differ = [f"{n}/{k}" for n, k in leaves if not torch.equal(grouped.params[n][k],
+                                                               ref.params[n][k])]
+    loss_equal = all(torch.equal(grouped_losses[k], ref_losses[k]) for k in ref_losses)
+    if differ or not loss_equal or grouped.step != 1:
+        raise AssertionError(f"the one-rank NCCL step differs from the step without a group: "
+                             f"{len(differ)} leaves ({differ[:4]}), losses equal {loss_equal}")
+    del alone, grouped, placed
+
+    # (b) remat against no remat, from the same state, each step's peak over
+    # what was allocated before it (earlier runs' params stay alive); the
+    # plain step runs before and after the remat step, and the remat peak
+    # must lie below both by more than their own spread: a remat that
+    # changed nothing would reproduce the plain peak and fail
+    old = {n: {k: v.clone() for k, v in d.items()} for n, d in host_params.items()}
+    runs = {}
+    for key, remat in (("plain", False), ("remat", True), ("plain_again", False)):
+        c = dataclasses.replace(cfg, remat=remat)
+        state = fresh()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        new, losses, _ = train_step.make_train_step(c, anchors)(state, data)
+        torch.cuda.synchronize()
+        runs[key] = (new.params, {k: float(v) for k, v in losses.items()},
+                     torch.cuda.max_memory_allocated() / 2**30,
+                     (torch.cuda.max_memory_allocated() - base) / 2**30)
+        del state, new
+    (p0, l0, peak0, over0), (p1, l1, peak1, over1) = runs["plain"], runs["remat"]
+    peak0b, over0b = runs["plain_again"][2:]
+    loss_rel = {k: abs(l1[k] - l0[k]) / abs(l0[k]) for k in l0}
+    if not max(loss_rel.values()) <= REMAT_LOSS:
+        raise AssertionError(f"remat losses off: {loss_rel}")
+    update_rel = _updates_within(p1, p0, old, REMAT_UPDATE)
+    spread = abs(over0 - over0b)
+    if not over1 < min(over0, over0b) - spread:
+        raise AssertionError(f"remat peak {over1} GiB over the state is not below the plain "
+                             f"step's {over0} / {over0b} GiB by more than their spread")
+    del runs, p0, p1
+
+    # (c) 8 host batches through prefetch onto the card, a step on each
+    rng = np.random.default_rng(seed + 13)
+    host = [train_batch(rng, TRAIN_BATCH, size, cfg.model.num_classes) for _ in range(8)]
+    state = fresh()
+    mismatched = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, (dev, meta) in enumerate(prefetch_to_device(
+            iter([(h, i) for i, h in enumerate(host)]), size=2, device=device,
+            transform=lambda item: item)):
+        if meta != i:
+            raise AssertionError(f"prefetch passed host part {meta} for batch {i}")
+        state, losses, _ = step(state, dev)
+        mismatched += [f"{i}/{k}" for k, v in host[i].items()
+                       if not (dev[k].is_cuda and torch.equal(dev[k].cpu(), torch.from_numpy(v)))]
+    torch.cuda.synchronize()
+    prefetch_ms = (time.perf_counter() - t0) * 1e3 / len(host)
+    if mismatched or state.step != len(host) or not torch.isfinite(losses["total"]):
+        raise AssertionError(f"prefetch: batches not equal to the host's: {mismatched}")
+    _emit({"phase": "parallel", "preset": cfg.model.preset_name, "batch": TRAIN_BATCH,
+           "dtype": cfg.model.compute_dtype, "backend": dist.get_backend(),
+           "world_size": dist.get_world_size(), "nccl_step_bit_exact": True,
+           "repeat_without_group_bit_exact": repeat_equal,
+           "remat": {"loss_rel_err": loss_rel, "update_rel_err_max": update_rel,
+                     "peak_mem_gib": {"no_remat": peak0, "remat": peak1,
+                                      "no_remat_again": peak0b},
+                     "peak_over_state_gib": {"no_remat": over0, "remat": over1,
+                                             "no_remat_again": over0b}},
+           "prefetch": {"batches": len(host), "bit_exact": True,
+                        "host_ms_per_step_with_prefetch": prefetch_ms}})
+
+
+# ---------------------------------------------------------------------------
+# 13. train_cli: the training entry point on the card
+# ---------------------------------------------------------------------------
+
+CLI_TRAIN, CLI_VALID = 64, 32
+#: the timing run's train images: ten steps an epoch at batch 32
+CLI_TIMED_TRAIN = 320
+
+
+class StagedProcessor:
+    """Stands in for ``data/pipeline._SampleProcessor`` (same constructor):
+    a sample's staged image, and its boxes as the pipeline's arrays. The
+    card machine has no OpenCV and no PIL, so the per-sample decode,
+    resize and augmentation cannot run there; they are held against the
+    JAX package's on the CPU (``tests/test_torch_pipeline.py``). Everything
+    around them runs as it is: the dataset files, the generators, the
+    forked workers and the shared-memory transport. The images are
+    registered before any worker forks, so that workers read them from
+    the memory they inherit."""
+
+    images: dict = {}
+
+    def __init__(self, preset, num_classes, aug_config, train, max_gt):
+        self.max_gt = max_gt
+
+    def __call__(self, sample):
+        from ssd_tensorflow_tpu_torch.data.transforms import boxes_to_arrays
+
+        tag, i = sample.filename.rsplit("/", 1)
+        boxes, labels, mask = boxes_to_arrays(sample.boxes, self.max_gt)
+        return self.images[tag][int(i)], boxes, labels, mask, sample.boxes
+
+
+def staged_dataset(root, seed: int, preset: str = "vgg512", n_train: int = CLI_TRAIN,
+                   n_valid: int = CLI_VALID) -> str:
+    """A dataset directory as ``process_dataset.py`` writes it
+    (``training-data.json``, ``{train,valid}-samples.pkl``) over ``n_train``
+    and ``n_valid`` staged uint8 images at the preset's size (vgg512: 512 x
+    512) with 1-8 gt boxes each, made from the seed; 20 classes. The images
+    live in :class:`StagedProcessor`; returns the directory."""
+    import json
+    import pickle
+
+    import numpy as np
+
+    from ssd_tensorflow_tpu_torch.presets import get_preset_by_name, preset_to_dict
+    from ssd_tensorflow_tpu_torch.types import Box, Point, Sample, Size
+
+    num_classes = 20
+    names = {i: f"class{i}" for i in range(num_classes)}
+    pre = get_preset_by_name(preset)
+    size = pre.image_size
+    root = Path(root)
+    root.mkdir(parents=True)
+    rng = np.random.default_rng(seed + 14)
+    for which, n in (("train", n_train), ("valid", n_valid)):
+        data = train_batch(rng, n, size.h, num_classes)
+        tag = f"{root}/{which}"
+        StagedProcessor.images[tag] = data["images"]
+        samples = [Sample(f"{tag}/{i}", [
+            Box(names[int(lab)], int(lab), Point(float(b[0]), float(b[1])),
+                Size(float(b[2]), float(b[3])))
+            for b, lab, m in zip(data["gt_boxes"][i], data["gt_labels"][i], data["gt_mask"][i])
+            if m], Size(size.w, size.h)) for i in range(n)]
+        with open(root / f"{which}-samples.pkl", "wb") as f:
+            pickle.dump(samples, f)
+    with open(root / "training-data.json", "w") as f:
+        json.dump({"preset": preset_to_dict(pre), "num-classes": num_classes,
+                   "colors": {v: [0, 0, 255] for v in names.values()},
+                   "lid2name": {str(k): v for k, v in names.items()},
+                   "lname2id": {v: k for k, v in names.items()}}, f)
+    return str(root)
+
+
+@contextlib.contextmanager
+def staged_cli(cli, threshold=None):
+    """The train CLI on :func:`staged_dataset` directories: the pipeline's
+    per-sample processor replaced by :class:`StagedProcessor`, and, given
+    ``threshold``, the steps' detect at that confidence threshold in place
+    of the CLI's 0.5."""
+    from ssd_tensorflow_tpu_torch.data import pipeline
+
+    detect = cli.DetectionConfig
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(pipeline, "_SampleProcessor", StagedProcessor))
+        if threshold is not None:
+            stack.enter_context(mock.patch.object(
+                cli, "DetectionConfig",
+                lambda **kw: detect(**dict(kw, confidence_threshold=threshold))))
+        yield
+
+
+class CliProbe:
+    """Wraps the CLI's train and eval steps: a CUDA event at the start and
+    end of each call, its losses, the state the first train call of a run
+    gets, every NMS stage's candidates and keep mask, and, for the train
+    calls of a run that ``profile`` names by their number in that run, the
+    device time under ``torch.profiler``."""
+
+    def __init__(self, profile: dict):
+        self.profile = profile
+        self.calls, self.keeps, self.first_states = [], [], []
+        self.busy_ms = {}
+        self._train_calls = {}
+
+    @contextlib.contextmanager
+    def patched(self, cli, run: str):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from ssd_tensorflow_tpu_torch.ops import postprocess
+        from ssd_tensorflow_tpu_torch.timing import device_kernels, per_call_ms
+
+        keep = postprocess._keep
+        make_train, make_eval = cli.make_train_step, cli.make_eval_step
+
+        def record_keep(*args):
+            out = keep(*args)
+            self.keeps.append((run, args, out))
+            return out
+
+        def wrap(fn, kind):
+            def call(*args):
+                profiled = False
+                if kind == "train":
+                    if run not in [r for r, _ in self.first_states]:
+                        self.first_states.append((run, args[0]))
+                    i = self._train_calls.get(run, 0)
+                    profiled = i in self.profile.get(run, ())
+                    self._train_calls[run] = i + 1
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                if profiled:
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        out = fn(*args)
+                        torch.cuda.synchronize()
+                    self.busy_ms.setdefault(run, []).append(per_call_ms(device_kernels(prof)))
+                else:
+                    out = fn(*args)
+                end.record()
+                self.calls.append({"run": run, "kind": kind, "start": start, "end": end,
+                                   "losses": out[-2], "profiled": profiled})
+                return out
+
+            return call
+
+        with mock.patch.object(cli, "make_train_step",
+                               lambda *a, **k: wrap(make_train(*a, **k), "train")), \
+                mock.patch.object(cli, "make_eval_step",
+                                  lambda *a, **k: wrap(make_eval(*a, **k), "eval")), \
+                mock.patch.object(postprocess, "_keep", record_keep):
+            yield self
+
+
+def _run_cli(cli, argv):
+    """``cli.main(argv)`` with its standard output captured: ``(rc, output)``."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def _cli_timing(probe, logs, runs, per_epoch: int, bare_step_ms: float):
+    """The CLI's own images/s (``StepTimer``) for the epochs after the
+    first, CUDA-event ms a step (the mean and the median of the start to
+    start intervals of consecutive train calls within an epoch after the
+    first, the profiled calls' intervals left out), each such call's own
+    span, the profiled calls' device busy time, the idle share ``1 - busy
+    / mean ms a step`` and the gap of the mean to the bare step."""
+    import re
+
+    import numpy as np
+
+    rates = {int(e): float(r) for run in runs for e, r in re.findall(
+        r"\[i\] Epoch (\d+) train throughput: ([0-9.]+) img/s", logs[run])}
+    later = [c for c in probe.calls if c["kind"] == "train" and c["run"] in runs][per_epoch:]
+    intervals = [a["start"].elapsed_time(b["start"]) for i, (a, b) in
+                 enumerate(zip(later, later[1:])) if (i + 1) % per_epoch and not a["profiled"]]
+    spans = [c["start"].elapsed_time(c["end"]) for c in later if not c["profiled"]]
+    step_ms = float(np.mean(intervals))
+    busy = [b for run in runs for b in probe.busy_ms.get(run, [])]
+    busy_ms = float(np.mean(busy))
+    return {"images_per_s_by_epoch": rates,
+            "images_per_s": float(np.mean([rates[e] for e in rates if e > 1])),
+            "step_interval_ms": intervals, "step_span_ms": spans, "ms_per_step": step_ms,
+            "median_ms_per_step": float(np.median(intervals)),
+            "busy_ms_per_step": busy, "idle_share": 1.0 - busy_ms / step_ms,
+            "bare_step_ms": bare_step_ms, "host_cost_ms_per_step": step_ms - bare_step_ms}
+
+
+def train_cli_path(seed: int, device, bare_step_ms: float):
+    """Phase 13: the train CLI on the card (see the module doc)."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import ssd_tensorflow_tpu_torch.cli.train as cli
+    from ssd_tensorflow_tpu_torch.models.ssd_vgg import init_params
+    from ssd_tensorflow_tpu_torch.parallel import train_step
+    from ssd_tensorflow_tpu_torch.utils.checkpoint import checkpoint_config, restore_checkpoint
+
+    if not dist.is_initialized():
+        raise AssertionError("phase 13 runs under phase 12's one-rank group")
+    per_epoch = CLI_TRAIN // TRAIN_BATCH
+    timed_per_epoch = CLI_TIMED_TRAIN // TRAIN_BATCH
+    # profile train calls of the first epochs, which the timing leaves out
+    probe = CliProbe({"a": {per_epoch - 1},
+                      "c_defaults": {timed_per_epoch - 3, timed_per_epoch - 1}})
+    out = {"phase": "train_cli", "preset": "vgg512", "batch": TRAIN_BATCH,
+           "train_images": CLI_TRAIN, "valid_images": CLI_VALID, "dtype": "bfloat16",
+           "dev_shm_free_gib": os.statvfs("/dev/shm").f_bavail * os.statvfs("/dev/shm").f_frsize
+           / 2**30, "cpu_count": os.cpu_count()}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = staged_dataset(Path(tmp) / "data", seed)
+        timed = staged_dataset(Path(tmp) / "timed", seed + 1, n_train=CLI_TIMED_TRAIN)
+        name, tb = str(Path(tmp) / "run_a"), str(Path(tmp) / "tb")
+        common = ["--batch-size", str(TRAIN_BATCH), "--checkpoint-interval", "1",
+                  "--tensorboard-dir", tb, "--device", device.type]
+        stress = ["--name", name, "--data-dir", data, "--num-workers", "0", *common]
+        threshold = train_config().detect.confidence_threshold
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        logs, launches = {}, {}
+        for run, argv, thr in (
+                ("a", stress + ["--epochs", "2"], threshold),
+                ("a_resumed", stress + ["--epochs", "3", "--continue-training", "yes"], threshold),
+                ("b_device_augment", stress + ["--epochs", "1", "--device-augment", "true",
+                                               "--name", str(Path(tmp) / "run_b")], threshold),
+                # the CLI's own threshold and input path: forked workers
+                # (one a core) and the shared-memory transport
+                ("c_defaults", ["--name", str(Path(tmp) / "run_c"), "--data-dir", timed,
+                                "--epochs", "2", *common], None)):
+            with probe.patched(cli, run), staged_cli(cli, thr):
+                (rc, logs[run]), launches[run] = counted(lambda: _run_cli(cli, argv))
+            if rc != 0:
+                raise AssertionError(f"train CLI run {run} exited {rc}:\n{logs[run][-3000:]}")
+        peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30
+
+        # the checkpoints, and the resumed run starting from e2 bit for bit
+        template = train_step.make_train_state(init_params(train_config().model),
+                                               train_config(), device="cpu")
+        ckpts = {f: restore_checkpoint(str(Path(name) / f"{f}.ckpt.npz"), template)
+                 for f in ("e1", "e2", "e3", "final")}
+        if [ckpts[f].step for f in ("e1", "e2", "e3", "final")] != [per_epoch * e for e in
+                                                                     (1, 2, 3, 3)]:
+            raise AssertionError(f"checkpoint steps: {[c.step for c in ckpts.values()]}")
+        if checkpoint_config(str(Path(name) / "final.ckpt.npz"))["epoch"] != 3:
+            raise AssertionError("final.ckpt.npz is not stamped with epoch 3")
+        resumed = dict(probe.first_states)["a_resumed"]
+        e2 = ckpts["e2"]
+        if not (resumed.step == e2.step and all(
+                torch.equal(resumed.params[n][k].cpu(), e2.params[n][k]) and
+                torch.equal(resumed.opt_state.trace[n][k].cpu(), e2.opt_state.trace[n][k])
+                for n in e2.params for k in e2.params[n])):
+            raise AssertionError("the resumed run did not start from e2.ckpt.npz bit for bit")
+        del ckpts, template, resumed, e2
+
+    # losses, NMS masks against the plain version, launches
+    for c in probe.calls:
+        if not all(torch.isfinite(v) for v in c["losses"].values()):
+            raise AssertionError(f"{c['run']} {c['kind']}: losses not finite: {c['losses']}")
+    kept = {}
+    for run, args, keep in probe.keeps:
+        kept.setdefault(run, []).append(
+            # at the CLI's own 0.5 a fresh model may leave NMS no candidate
+            check_keep({"keep": (args, keep)}, f"train CLI {run}",
+                       require_kept=run != "c_defaults")["kept"])
+    n_train = {r: sum(1 for c in probe.calls if c["run"] == r and c["kind"] == "train")
+               for r in launches}
+    n_eval = {r: sum(1 for c in probe.calls if c["run"] == r and c["kind"] == "eval")
+              for r in launches}
+    want_train = {"a": 2 * per_epoch, "a_resumed": per_epoch, "b_device_augment": per_epoch,
+                  "c_defaults": 2 * timed_per_epoch}
+    for run, n in launches.items():
+        if (n_train[run] != want_train[run] or n["nms_keep"] != n_train[run] + n_eval[run]
+                or n["fused_stem"] or n["fused_stem_uint8"] or n["int8_conv"]):
+            raise AssertionError(f"train CLI run {run}: {n_train[run]} train and {n_eval[run]} "
+                                 f"eval steps, launches {n}")
+    if len(probe.keeps) != sum(n["nms_keep"] for n in launches.values()):
+        raise AssertionError("an NMS stage of the CLI's steps was not recorded")
+
+    out.update({"runs": {r: {"rc": 0, "train_steps": n_train[r], "eval_steps": n_eval[r],
+                             "launches": launches[r]} for r in launches},
+                "checkpoints_restored": ["e1", "e2", "e3", "final"],
+                "resumed_from_e2_bit_exact": True, "losses_finite": True,
+                "nms_keeps_checked": len(probe.keeps), "nms_kept_per_call": kept,
+                "keep_bit_exact": True,
+                # the steps' detect at 0.01, where every image gives NMS its
+                # 200 candidates and the AP accounting its most boxes: a
+                # stress reading, not the CLI's own
+                "timing_threshold_0.01": _cli_timing(probe, logs, ("a", "a_resumed"),
+                                                     per_epoch, bare_step_ms),
+                # the CLI as a user runs it: its 0.5 and its default workers
+                "timing_cli_defaults": _cli_timing(probe, logs, ("c_defaults",),
+                                                   timed_per_epoch, bare_step_ms),
+                "peak_mem_gib": peak_mem_gib, "nms_launches": {r: n["nms_keep"] for r, n in
+                                                               launches.items()}})
+    _emit(out)
+    total = {k: sum(n[k] for n in launches.values()) for k in next(iter(launches.values()))}
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1744,7 +2257,7 @@ def main(argv=None) -> int:
     launches["int8"] = int8_path(Path(__file__).resolve().parent / INT8_BUNDLE, images,
                                  args.batch, device)
     # 6. the training step
-    launches["train"] = train_path(args.seed, device)
+    launches["train"], bare_step_ms = train_path(args.seed, device)
     # 7.-9. the two other families, int8 and float, and the real images
     root = Path(__file__).resolve().parent
     for name in FAMILY_BUNDLES:
@@ -1758,6 +2271,9 @@ def main(argv=None) -> int:
     launches["device_augment"] = device_augment_path(args.seed, device)
     for name in QAT_RUNS:
         launches.update(qat_path(name, root, args.seed, device))
+    # 12.-13. the one-rank NCCL group, remat, prefetch, and the train CLI
+    parallel_path(args.seed, device)
+    launches["train_cli"] = train_cli_path(args.seed, device, bare_step_ms)
     with torch.inference_mode():
         _, launches["fused_stem_pallas"] = counted(
             lambda: stem_cuda.fused_stem_pallas(model.params, images, MEAN_BGR))
@@ -1783,6 +2299,10 @@ def main(argv=None) -> int:
                             if n.get(counter) and (counter != "stem_probe" or p == path)}
 
     _emit({"kernels": kernels})
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
     _emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                   "count": torch.cuda.device_count()}})
     return 0

@@ -407,11 +407,27 @@ def apply_augment(draws: Draws, batch, anchors, cfg: AugmentConfig):
             "gt_boxes": boxes, "gt_labels": batch["gt_labels"], "gt_mask": mask}
 
 
-def make_augment_fn(cfg: AugmentConfig, anchors):
-    """The batch augmentation ``(generator, batch) -> batch``: the batch's
-    draws from ``generator`` (:func:`draw_augment`, made on the generator's
-    device and moved to the batch's), then :func:`apply_augment`. Tensors
-    stay on their device; numpy arrays are taken to the generator's."""
+def draws_rows(draws: Draws, rows: slice) -> Draws:
+    """The draws of ``rows`` of a batch."""
+    return Draws(**{f.name: getattr(draws, f.name)[rows] for f in dataclasses.fields(draws)})
+
+
+def step_generator(seed: int, epoch: int, batch_i: int, device) -> torch.Generator:
+    """The generator of one training step's augmentation on ``device``,
+    seeded from ``(seed, epoch, batch_i)`` alone: every rank of a data
+    parallel run builds the same one."""
+    state = np.random.SeedSequence([seed, epoch, batch_i]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device).manual_seed(int(state) >> 1)
+
+
+def make_augment_fn(cfg: AugmentConfig, anchors, rank: int = 0, world: int = 1):
+    """The batch augmentation ``(generator, batch) -> batch``: the draws of
+    the global batch (``world`` times the batch's rows) from ``generator``
+    (:func:`draw_augment`, made on the generator's device and moved to the
+    batch's), then :func:`apply_augment` of this ``rank``'s rows of them.
+    Every rank draws the same values, so an image's augmentation does not
+    depend on the world size. Tensors stay on their device; numpy arrays
+    are taken to the generator's."""
     anchors = torch.as_tensor(np.asarray(anchors, dtype=np.float32))
     cache = {}
 
@@ -421,7 +437,10 @@ def make_augment_fn(cfg: AugmentConfig, anchors):
         device = batch["images"].device
         if device not in cache:
             cache[device] = anchors.to(device)
-        draws = draw_augment(generator, batch["images"].shape[0], cfg)
+        b = batch["images"].shape[0]
+        draws = draw_augment(generator, b * world, cfg)
+        if world > 1:
+            draws = draws_rows(draws, slice(rank * b, (rank + 1) * b))
         return apply_augment(draws, batch, cache[device], cfg)
 
     return fn

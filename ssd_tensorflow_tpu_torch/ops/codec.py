@@ -22,6 +22,14 @@ def _log_rounded_once(x):
     return torch.log(x.double()).to(x.dtype)
 
 
+def _exp_rounded_once(x):
+    """float32 ``exp(x)`` rounded once, as :func:`_log_rounded_once`: the
+    card's ``expf`` can sit an ulp from the CPU's, and the decode then
+    truncates onto the integer canvas, where an ulp across a pixel edge
+    moves a box by a whole pixel."""
+    return torch.exp(x.double()).to(x.dtype)
+
+
 def encode_locations(boxes, anchors):
     """``(..., 4)`` center-form float32 boxes -> offsets ``(tx, ty, tw, th)``.
     Equal bit for bit on the CPU and the card (see :func:`_log_rounded_once`)."""
@@ -36,13 +44,14 @@ def encode_locations(boxes, anchors):
 
 def decode_locations(offsets, anchors):
     """Offsets -> center-form boxes, with the offsets clamped at 100.
-    The divisions are divisions on the card too (``boxes.true_div``); the
-    card's ``exp`` may still round one ulp apart from the CPU's."""
+    Equal bit for bit on the CPU and the card: the divisions are divisions
+    on the card too (``boxes.true_div``) and ``exp`` is rounded once
+    (:func:`_exp_rounded_once`)."""
     offsets = torch.clamp_max(offsets, DECODE_CLAMP)
     acx, acy, aw, ah = anchors.unbind(-1)
     tx, ty, tw, th = offsets.unbind(-1)
     cx = true_div(tx, 10.0) * aw + acx
     cy = true_div(ty, 10.0) * ah + acy
-    w = torch.exp(true_div(tw, 5.0)) * aw
-    h = torch.exp(true_div(th, 5.0)) * ah
+    w = _exp_rounded_once(true_div(tw, 5.0)) * aw
+    h = _exp_rounded_once(true_div(th, 5.0)) * ah
     return torch.stack([cx, cy, w, h], dim=-1)

@@ -1,1 +1,4 @@
-"""Training steps (sharding, remat and multi-host are not ported yet)."""
+"""Training: the train and eval steps (``train_step``), the process group
+and device mesh (``mesh``), data-parallel placement (``sharding``,
+``multihost``), host -> device prefetch (``prefetch``) and
+rematerialization (``remat``)."""

@@ -15,7 +15,16 @@ The optimizer is optax's ``sgd(lr_schedule, momentum)`` step for step:
 with ``count`` read before its increment. Its state is explicit tensors,
 a momentum dict that mirrors ``params``, so that a checkpoint carries it
 both ways (``utils/checkpoint.py`` writes the JAX package's layout).
-Sharding and rematerialization are not ported (ROADMAP.md queue 1 item 10).
+
+Data parallelism: under a process group (``parallel/mesh.py``), the state
+placed by :func:`shard_state` (rank 0's, broadcast) and each rank feeding
+its own rows of the batch (:func:`shard_batch`), the step averages the
+gradients and the losses over the group before the update: one
+``all_reduce`` of a float32 buffer, summed, then divided by the world
+size. The loss is a batch mean of per-sample terms (``models/loss.py``) and
+nothing normalizes across samples, so the mean of the ranks' means is the
+global batch's, and the losses returned are the global batch's.
+``TrainConfig.remat`` runs the forward under ``remat.checkpoint_dots_only``.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ssd_tensorflow_tpu_torch import resolve_device
 from ssd_tensorflow_tpu_torch.models.layers import full_float32
@@ -32,9 +42,14 @@ from ssd_tensorflow_tpu_torch.models.loss import total_loss
 from ssd_tensorflow_tpu_torch.models.ssd_vgg import ModelConfig, apply_model
 from ssd_tensorflow_tpu_torch.ops.matching import encode_targets_batch
 from ssd_tensorflow_tpu_torch.ops.postprocess import DetectionConfig, decode_detections
-
-_NOT_PORTED = ("is not ported: sharding and rematerialization are ROADMAP.md queue 1 "
-               "item 10 (parallelism)")
+from ssd_tensorflow_tpu_torch.parallel.mesh import mesh_device
+from ssd_tensorflow_tpu_torch.parallel.remat import checkpoint_dots_only
+from ssd_tensorflow_tpu_torch.parallel.sharding import (
+    average,
+    batch_rows,
+    replicate,
+    tensor_parallel_refusal,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +65,8 @@ class TrainConfig:
     weight_decay: float = 0.0005
     #: detections decoded inside the step (None = skip)
     detect: Optional[DetectionConfig] = DetectionConfig(confidence_threshold=0.5)
-    #: rematerialize the forward in the backward: not ported (raises)
+    #: rematerialize the forward in the backward pass (memory for
+    #: operations): ``remat.checkpoint_dots_only``
     remat: bool = False
 
 
@@ -139,9 +155,12 @@ def batch_targets(batch, anchors, cfg: TrainConfig):
 
 
 def model_outputs(params, images, cfg: TrainConfig, forward=None):
-    """``(logits, locs)`` of the differentiable forward, or of ``forward``."""
+    """``(logits, locs)`` of the differentiable forward, or of ``forward``;
+    with ``cfg.remat`` and gradients on, under ``checkpoint_dots_only``."""
     if forward is None:
-        return apply_model(params, images, cfg.model, inference=False)
+        forward = lambda p, x: apply_model(p, x, cfg.model, inference=False)  # noqa: E731
+    if cfg.remat and torch.is_grad_enabled():
+        forward = checkpoint_dots_only(forward)
     return forward(params, images)
 
 
@@ -177,10 +196,9 @@ def make_train_step(cfg: TrainConfig, anchors, forward=None):
     ``gt_labels (B, G)`` and ``gt_mask (B, G)`` (tensors or numpy; moved to
     the state's device). ``forward`` overrides the model forward
     ``(params, images) -> (logits, locs)``. The step returns a new state and
-    leaves the old one as it was; ``losses`` are detached 0-d tensors.
+    leaves the old one as it was; ``losses`` are detached 0-d tensors. Under a process
+    group the gradients and losses are averaged over it (the module doc).
     """
-    if cfg.remat:
-        raise NotImplementedError(f"TrainConfig.remat {_NOT_PORTED}")
     tx = make_optimizer(cfg)
     anchors = torch.as_tensor(np.asarray(anchors, dtype=np.float32))
     cache = {}
@@ -193,11 +211,13 @@ def make_train_step(cfg: TrainConfig, anchors, forward=None):
         with full_float32(cfg.model.dtype):
             losses, logits, locs = loss_terms(leaves, batch, anc, cfg, forward)
             flat = [v for d in leaves.values() for v in d.values()]
-            flat_grads = iter(torch.autograd.grad(losses["total"], flat))
-        grads = tree_map(lambda _: next(flat_grads), leaves)
+            flat_grads = list(torch.autograd.grad(losses["total"], flat))
+        losses = {k: v.detach().reshape(()).clone() for k, v in losses.items()}
         with torch.no_grad():
+            average(flat_grads + list(losses.values()))
+            flat_grads = iter(flat_grads)
+            grads = tree_map(lambda _: next(flat_grads), leaves)
             params, opt_state = tx.update(grads, state.opt_state, state.params)
-        losses = {k: v.detach() for k, v in losses.items()}
         dets = detect(logits, locs, anc, cfg)
         return TrainState(params=params, opt_state=opt_state, step=state.step + 1), losses, dets
 
@@ -206,7 +226,8 @@ def make_train_step(cfg: TrainConfig, anchors, forward=None):
 
 def make_eval_step(cfg: TrainConfig, anchors, forward=None):
     """Build the eval step ``(params, batch) -> (losses, detections)``: the
-    train step's losses and detections, no gradient and no update."""
+    train step's losses (under a process group, the global batch's) and
+    detections, no gradient and no update."""
     anchors = torch.as_tensor(np.asarray(anchors, dtype=np.float32))
     cache = {}
 
@@ -216,16 +237,39 @@ def make_eval_step(cfg: TrainConfig, anchors, forward=None):
         anc = _anchors_on(anchors, cache, device)
         with torch.no_grad(), full_float32(cfg.model.dtype):
             losses, logits, locs = loss_terms(params, batch, anc, cfg, forward)
+            losses = {k: v.reshape(()).clone() for k, v in losses.items()}
+            average(list(losses.values()))
         return losses, detect(logits, locs, anc, cfg)
 
     return step_fn
 
 
-def shard_state(state: TrainState, mesh, tensor_parallel: bool = False):
-    """Not ported: raises (ROADMAP.md queue 1 item 10)."""
-    raise NotImplementedError(f"shard_state {_NOT_PORTED}")
+def shard_state(state: TrainState, mesh, tensor_parallel: bool = False) -> TrainState:
+    """A copy of ``state`` placed on ``mesh``: on this process's device,
+    parameters, momentum, count and step replicated from rank 0 (one
+    broadcast). ``mesh=None`` (one process, no group) returns ``state``.
+    ``tensor_parallel`` is not ported and raises."""
+    if tensor_parallel:
+        raise NotImplementedError(tensor_parallel_refusal())
+    if mesh is None:
+        return state
+    device = mesh_device(mesh)
+    params = tree_map(lambda v: v.detach().to(device, torch.float32, copy=True), state.params)
+    trace = tree_map(lambda v: v.detach().to(device, torch.float32, copy=True),
+                     state.opt_state.trace)
+    counters = torch.tensor([state.opt_state.count, state.step], dtype=torch.float64,
+                            device=device)
+    replicate([v for t in (params, trace) for d in t.values() for v in d.values()])
+    dist.broadcast(counters, src=0)
+    count, step = (int(v) for v in counters.tolist())
+    return TrainState(params=params, opt_state=SGDState(trace=trace, count=count), step=step)
 
 
 def shard_batch(batch, mesh):
-    """Not ported: raises (ROADMAP.md queue 1 item 10)."""
-    raise NotImplementedError(f"shard_batch {_NOT_PORTED}")
+    """This process's rows of a global host batch (its leading dimension
+    split over the ``data`` dimension, in rank order), on its device.
+    ``mesh=None`` returns ``batch``."""
+    if mesh is None:
+        return batch
+    rows = batch_rows(len(next(iter(batch.values()))))
+    return _batch_on({k: v[rows] for k, v in batch.items()}, mesh_device(mesh))

@@ -210,3 +210,16 @@ def preset_to_dict(preset: SSDPreset) -> dict:
         "num_anchors": preset.num_anchors,
         "backbone": preset.backbone,
     }
+
+
+def preset_from_dict(d: dict) -> SSDPreset:
+    """The inverse of :func:`preset_to_dict`; a dict written before the
+    ``backbone`` field existed is VGG."""
+    return _preset(
+        d["name"],
+        tuple(d["image_size"]),
+        [(tuple(m["size"]), m["scale"], tuple(m["aspect_ratios"])) for m in d["maps"]],
+        d["extra_scale"],
+        d["num_anchors"],
+        d.get("backbone", "vgg"),
+    )

@@ -511,6 +511,26 @@ def test_decode_detections_launches_nms(cuda):
         assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), field
 
 
+
+def test_decode_locations_equals_the_cpu_bit_for_bit(cuda):
+    """The decode on the card gives the CPU's boxes bit for bit on offsets
+    of any size: its ``exp`` is rounded once from float64, where the
+    card's ``expf`` sits an ulp from the CPU's on some inputs, enough to
+    move a box across a pixel edge of the integer canvas."""
+    from ssd_tensorflow_tpu_torch.ops.anchors import anchors_for_preset
+    from ssd_tensorflow_tpu_torch.ops.boxes import clamp_boxes
+    from ssd_tensorflow_tpu_torch.ops.codec import decode_locations
+
+    anchors = torch.from_numpy(anchors_for_preset(ModelConfig(preset_name="vgg512").preset))
+    g = torch.Generator().manual_seed(6)
+    locs = torch.randn((16, anchors.shape[0], 4), generator=g) * 20
+    x = torch.linspace(-80, 80, 2 ** 20)
+    raw_cpu, raw_card = torch.exp(x), torch.exp(x.to(cuda)).cpu()
+    assert not torch.equal(raw_cpu, raw_card)  # what the rounding-once repairs
+    want = clamp_boxes(decode_locations(locs, anchors))
+    got = clamp_boxes(decode_locations(locs.to(cuda), anchors.to(cuda))).cpu()
+    assert torch.equal(got, want)
+
 def test_true_div_divides_on_the_card(cuda):
     """``x / 1000.0`` on a CUDA tensor is ``x * (1 / 1000)``, one bit off
     the CPU's division on some elements; ``boxes.true_div`` is not."""
@@ -741,3 +761,121 @@ def test_qat_export_on_the_card(cuda, tmp_path):
         str(tmp_path / "card.npz"))[0].values())
     assert int8_conv.int8_conv.launches - before[0] == n_convs > 0
     assert nms_cuda.nms_keep.launches - before[1] == 1 and dets.boxes.device.type == "cuda"
+
+
+# -- the parallel modules and the train CLI on the card -----------------------
+
+
+def test_prefetch_to_the_card_is_bit_exact(cuda):
+    from ssd_tensorflow_tpu_torch.parallel.prefetch import prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    host = [{"x": rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8),
+             "y": rng.normal(size=(4, 7)).astype(np.float32)} for _ in range(6)]
+    seen = 0
+    for i, (dev, meta) in enumerate(prefetch_to_device(iter([(h, i) for i, h in enumerate(host)]),
+                                                       device="cuda", transform=lambda it: it)):
+        assert meta == i and dev["x"].is_cuda
+        y = dev["y"] * 2  # a consumer's work on the current stream
+        assert torch.equal(dev["x"].cpu(), torch.from_numpy(host[i]["x"]))
+        assert torch.equal(y.cpu(), torch.from_numpy(host[i]["y"]) * 2)
+        seen += 1
+    assert seen == len(host)
+
+
+def _one_rank_group():
+    import os
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+
+
+@pytest.fixture
+def nccl_group(cuda):
+    """A one-rank NCCL group, as a one-process ``torchrun`` launch gives;
+    destroyed after the test."""
+    import os
+
+    import torch.distributed as dist
+
+    saved = {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                                            "MASTER_PORT")}
+    _one_rank_group()
+    try:
+        yield cuda
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def test_one_rank_nccl_step_equals_the_step_without_a_group(cuda):
+    import torch.distributed as dist
+
+    from ssd_tensorflow_tpu_torch.ops.anchors import anchors_for_preset
+    from ssd_tensorflow_tpu_torch.parallel import mesh, train_step
+
+    cfg = train_step.TrainConfig(model=ModelConfig(preset_name="test64", num_classes=5,
+                                                   compute_dtype="float32"))
+    anchors = anchors_for_preset(cfg.model.preset)
+    rng = np.random.default_rng(1)
+    batch = {"images": rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8),
+             "gt_boxes": np.tile(np.float32([[0.5, 0.5, 0.4, 0.3]]), (4, 2, 1)),
+             "gt_labels": np.ones((4, 2), np.int32), "gt_mask": np.ones((4, 2), bool)}
+    params = init_params(cfg.model, seed=2)
+    step = train_step.make_train_step(cfg, anchors)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        want, want_losses, _ = step(train_step.make_train_state(params, cfg, device=cuda), batch)
+        import os
+
+        env = dict(os.environ)
+        _one_rank_group()
+        try:
+            m = mesh.make_mesh(device="cuda")
+            assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+            got, losses, _ = step(train_step.shard_state(
+                train_step.make_train_state(params, cfg, device=cuda), m),
+                train_step.shard_batch(batch, m))
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            os.environ.clear()
+            os.environ.update(env)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    assert all(torch.equal(losses[k], want_losses[k]) for k in want_losses)
+    assert all(torch.equal(got.params[n][k], want.params[n][k]) for n in params
+               for k in params[n])
+
+
+def test_train_cli_epochs_on_the_card(nccl_group, tmp_path):
+    """Two epochs and a resumed third of the train CLI on the card, on a
+    staged test64 dataset (``chip_smoke.staged_dataset``; the card machine
+    has no OpenCV to decode images), with two forked workers over the
+    shared-memory transport, under a one-rank NCCL group."""
+    import chip_smoke
+    import ssd_tensorflow_tpu_torch.cli.train as cli
+    from ssd_tensorflow_tpu_torch.utils.checkpoint import checkpoint_config
+
+    data = chip_smoke.staged_dataset(tmp_path / "data", 0, preset="test64", n_train=16,
+                                     n_valid=8)
+    argv = ["--name", str(tmp_path / "p"), "--data-dir", data, "--batch-size", "8",
+            "--tensorboard-dir", str(tmp_path / "tb"), "--num-workers", "2",
+            "--checkpoint-interval", "1", "--device", "cuda"]
+    before = nms_cuda.nms_keep.launches
+    with chip_smoke.staged_cli(cli, threshold=0.01):
+        assert cli.main(argv + ["--epochs", "2"]) == 0
+        assert cli.main(argv + ["--epochs", "3", "--continue-training", "yes"]) == 0
+    assert nms_cuda.nms_keep.launches - before == 3 * (2 + 1)
+    final = str(tmp_path / "p" / "final.ckpt.npz")
+    assert checkpoint_config(final)["epoch"] == 3

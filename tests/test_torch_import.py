@@ -52,6 +52,32 @@ def test_inference_loads_nothing_of_training():
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
 
+def test_inference_loads_nothing_of_the_cli_pipeline_or_parallel():
+    """The serving façade imports none of the train CLI, the host data
+    pipeline or the parallel package (the process group, prefetch, remat)."""
+    code = (
+        "import sys\n"
+        "import ssd_tensorflow_tpu_torch.inference\n"
+        "loaded = [m for m in sys.modules if m.startswith(("
+        "'ssd_tensorflow_tpu_torch.cli', 'ssd_tensorflow_tpu_torch.data.pipeline',"
+        " 'ssd_tensorflow_tpu_torch.parallel'))]\n"
+        "assert not loaded, loaded\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_train_cli_pipeline_and_parallel_modules_are_scanned():
+    """The train CLI, the host pipeline, mAP, summaries and the parallel
+    modules are among the modules imported with ``jax`` blocked and scanned
+    for imports of the JAX package."""
+    sources = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {f"ssd_tensorflow_tpu_torch/{m}.py" for m in (
+        "cli/train", "data/pipeline", "data/transforms", "data/shm_queue",
+        "eval/average_precision", "utils/profiling", "utils/tensorboard", "utils/summaries",
+        "parallel/mesh", "parallel/multihost", "parallel/sharding", "parallel/prefetch",
+        "parallel/remat")} <= sources
+
+
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_names_no_jax_package(path):
     assert not _JAX_PACKAGE.search(path.read_text()), path

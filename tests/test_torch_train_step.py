@@ -226,14 +226,21 @@ def test_eval_step_matches_jax(setup):
 
 
 def test_unported_options_raise(setup):
-    _, anchors, _ = setup
+    """Tensor parallelism is the one part of the JAX package's parallelism
+    that is not ported: it raises, naming its ROADMAP item. Remat, state
+    and batch placement are ported (``tests/test_torch_parallel.py``)."""
+    from ssd_tensorflow_tpu_torch.parallel import mesh
+
+    jp, anchors, batch = setup
     _, tcfg = _cfgs("float32")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        train_step.make_train_step(dataclasses.replace(tcfg, remat=True), anchors)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        train_step.shard_state(None, None)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        train_step.shard_batch({}, None)
+    state = train_step.make_train_state(params_from_jax(jp), tcfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        train_step.shard_state(state, None, tensor_parallel=True)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        mesh.make_mesh(model=2, device="cpu")
+    assert train_step.shard_state(state, None) is state
+    assert train_step.shard_batch(batch, None) is batch
+    train_step.make_train_step(dataclasses.replace(tcfg, remat=True), anchors)(state, batch)
 
 
 def test_ssdvgg_facade(setup):
