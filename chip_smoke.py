@@ -167,8 +167,9 @@ non-zero, and the final line is printed only when every phase passed:
 13. train_cli: ``cli/train.main`` in this process on the card, under that
    NCCL group, on dataset directories as ``process_dataset.py`` writes them
    (``staged_dataset``: 512 x 512 uint8 images from the seed, 1-8 gt
-   boxes each, vgg512, 20 classes). The card machine has no OpenCV and no
-   PIL, so the per-sample decode, resize and augmentation cannot run there:
+   boxes each, vgg512, 20 classes). The per-sample decode, resize and
+   augmentation are staged (the card machine has no PIL, and its OpenCV,
+   where present, is another build than the CPU box's):
    ``StagedProcessor`` takes the place of the pipeline's sample processor
    and hands out the staged images; that processor is held against the JAX
    package's on the CPU by ``tests/test_torch_pipeline.py``. The rest of
@@ -195,6 +196,39 @@ non-zero, and the final line is printed only when every phase passed:
    first epoch under ``torch.profiler``, the idle share ``1 - busy / ms a
    step``, and the gap to phase 6's bare step: the CLI's host cost. Also
    peak memory, the free space of ``/dev/shm`` and the core count.
+14. serving_cli: the serving and evaluation CLIs (``cli/export_model``,
+   ``cli/detect``, ``cli/infer``) in this process on the card, on the 8
+   miniVOC test images of ``tests/torch_fixtures/serving_images.npz``
+   (``"host_io": "staged"``: ``StagedImageIO`` takes the place of
+   ``data/image_io``'s decode and resize and hands out the fixture's
+   pixels, decoded on the CPU box and held there against the port's own
+   image I/O; drawing and writing images only record their calls; the
+   rest of each CLI runs as it is). (a) export_model from a vgg512 bf16
+   checkpoint of seeded weights: the float bundle (the checkpoint's
+   parameters, config and labels), ``--torch-export`` at batch 2 (the
+   graph must hold ``ssd_torch::fused_stem``; the loaded program on the
+   card equals eager ``apply_result`` bit for bit and launches the stem
+   once a call) and ``--quantize --calibration-images`` on the staged
+   images, its activation scales within ``SERVING_CALIBRATION_GAP``
+   (relative) of the JAX package's in the fixture. (b) detect with the
+   shipped int8 bundle at its default batch of 32 (8 files padded),
+   threshold 0.01: each ``.txt`` dump equals ``detect_boxes`` of the same
+   batch, the detections match the fixture's JAX ones as phase 9's vgg512
+   (IoU >= 0.99, conf within 1e-4, the same count), an annotated image a
+   file; NMS once, ``int8_conv`` once a conv, no stem. (c) infer with that
+   bundle on a staged VOC tree of the 8 images (their XML annotations, a
+   ``test.txt``), ``--dump-predictions --pascal-summary --coco-results``
+   at 0.01: per-class AP and mAP within 1e-4 of the fixture's JAX values,
+   each ``.npy`` dump finite of shape (24564, 25), the Pascal files
+   written, the COCO results empty (VOC labels have no COCO category id,
+   as in the JAX package); then with the exported float bf16 bundle: NMS
+   and the stem once, its dumps against the same CLI with the stem's
+   plain version at phase 4's bounds. (d) each CLI on 3 batches of 32
+   real files, as it runs them: CUDA-event ms a batch, images/s, the
+   device's busy ms a batch under ``torch.profiler``, the idle share, the
+   bare ``run_scores`` (detect) or ``run`` (infer) of one batch and the
+   gap, the CLI's host cost; peak memory, and its rise over what the phase
+   found allocated.
 
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is ``{"ok": true, "device": {...}}``.
@@ -1898,9 +1932,9 @@ CLI_TIMED_TRAIN = 320
 class StagedProcessor:
     """Stands in for ``data/pipeline._SampleProcessor`` (same constructor):
     a sample's staged image, and its boxes as the pipeline's arrays. The
-    card machine has no OpenCV and no PIL, so the per-sample decode,
-    resize and augmentation cannot run there; they are held against the
-    JAX package's on the CPU (``tests/test_torch_pipeline.py``). Everything
+    per-sample decode, resize and augmentation are staged (the card
+    machine has no PIL, and its OpenCV, where present, is another build
+    than the CPU box's); they are held against the JAX package's on the CPU (``tests/test_torch_pipeline.py``). Everything
     around them runs as it is: the dataset files, the generators, the
     forked workers and the shared-memory transport. The images are
     registered before any worker forks, so that workers read them from
@@ -2193,6 +2227,450 @@ def train_cli_path(seed: int, device, bare_step_ms: float):
     return total
 
 
+#: the serving phase's fixture: 8 miniVOC test images decoded and resized
+#: on the CPU box, with the JAX package's results on them
+SERVING_IMAGES = "tests/torch_fixtures/serving_images.npz"
+#: the miniVOC split those images come from
+MINIVOC_TEST = "tests/fixtures/minivoc/test/VOCdevkit/VOC2007"
+#: how many of its test images (sorted by name) the serving phase runs
+SERVING_COUNT = 8
+#: the seed of the vgg512 parameters the serving phase exports (the
+#: fixture holds the JAX package's calibration of them)
+SERVING_SEED = 0
+
+
+def serving_names(root: Path):
+    """The serving fixture's image names: the first ``SERVING_COUNT`` miniVOC
+    test JPEGs by name (the two of ``REAL_IMAGES`` first)."""
+    jpegs = sorted((Path(root) / MINIVOC_TEST / "JPEGImages").glob("*.jpg"))
+    return [p.stem for p in jpegs[:SERVING_COUNT]]
+
+
+def staged_voc_dir(root: Path, dest: Path, names) -> str:
+    """A Pascal VOC tree at ``dest`` whose test split (``load_test_data``
+    reads VOC2012's) is the miniVOC images ``names``: their JPEG files and
+    XML annotations copied from ``MINIVOC_TEST`` and a ``test.txt`` listing
+    them. Returns the ``--data-dir``."""
+    import shutil
+
+    src = Path(root) / MINIVOC_TEST
+    voc = Path(dest) / "test" / "VOCdevkit" / "VOC2012"
+    for sub in ("Annotations", "JPEGImages", "ImageSets/Main"):
+        (voc / sub).mkdir(parents=True, exist_ok=True)
+    for n in names:
+        shutil.copy(src / "Annotations" / f"{n}.xml", voc / "Annotations")
+        shutil.copy(src / "JPEGImages" / f"{n}.jpg", voc / "JPEGImages")
+    (voc / "ImageSets" / "Main" / "test.txt").write_text("".join(f"{n}\n" for n in names))
+    return str(dest)
+
+
+#: the serving CLIs' default batch (the JAX package's detect and infer)
+SERVING_BATCH = 32
+#: how many batches each CLI runs in the phase's timing
+SERVING_TIMED = 3
+#: the largest relative gap allowed between the card's int8 calibration of
+#: the seeded vgg512 model on the staged images and the JAX package's CPU
+#: calibration in the fixture: the H100 gave 1.8e-6 (classifier6), float32
+#: sums in another order; the gate leaves ~50x that
+SERVING_CALIBRATION_GAP = 1e-4
+
+
+class StagedImageIO:
+    """Stands in for ``ssd_tensorflow_tpu_torch/data/image_io.py`` in the
+    serving phase. OpenCV builds differ between machines (a JPEG decode
+    or a resize may give other pixels), and the card machine's may be
+    missing, so the phase hands out the fixture's images, decoded and
+    resized on the CPU box by the JAX package's ``preprocess_files``, the
+    pixels the fixture's JAX results were taken on: ``imread`` of a fixture
+    file gives an image of the file's own size filled with the file's index
+    in the fixture, and ``resize`` of that image to the fixture's size gives
+    the fixture's pixels (any other size raises).
+    ``imwrite`` and ``draw_box`` record what they are given and draw or
+    write nothing. ``tests/test_torch_serving_fixture.py`` holds the port's
+    own ``image_io`` decode + resize to these pixels on the CPU."""
+
+    def __init__(self, names, images, sizes):
+        self.names = [str(n) for n in names]
+        self.images, self.sizes = images, [(int(w), int(h)) for w, h in sizes]
+        self.reads, self.writes, self.boxes = 0, [], 0
+
+    def imread(self, path):
+        import numpy as np
+
+        name = Path(path).stem
+        if name not in self.names:
+            raise AssertionError(f"staged imread: {path} is not a fixture image")
+        i = self.names.index(name)
+        w, h = self.sizes[i]
+        self.reads += 1
+        return np.full((h, w, 3), i, np.uint8)
+
+    def resize(self, img, size):
+        staged = self.images[int(img[0, 0, 0])]
+        if tuple(size) != (staged.shape[1], staged.shape[0]):
+            raise AssertionError(f"staged resize to {size}: the fixture holds "
+                                 f"{staged.shape[1]}x{staged.shape[0]}")
+        return staged.copy()
+
+    def imwrite(self, path, img):
+        self.writes.append((str(path), tuple(img.shape)))
+        return True
+
+    def draw_box(self, img, box, color):
+        self.boxes += 1
+
+    @contextlib.contextmanager
+    def patched(self):
+        from ssd_tensorflow_tpu_torch.data import image_io
+
+        with contextlib.ExitStack() as stack:
+            for name in ("imread", "resize", "imwrite", "draw_box"):
+                stack.enter_context(mock.patch.object(image_io, name, getattr(self, name)))
+            yield self
+
+
+class BatchClock:
+    """Marks each batch of a serving CLI: a CUDA event and the host clock
+    where ``InferenceModel.preprocess_files`` is called (a batch starts), and
+    once more where the CLI returns."""
+
+    def __init__(self):
+        self.marks = []
+
+    def mark(self):
+        import torch
+
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        self.marks.append((event, time.perf_counter()))
+
+    @contextlib.contextmanager
+    def patched(self):
+        from ssd_tensorflow_tpu_torch.inference import InferenceModel
+
+        preprocess = InferenceModel.preprocess_files
+
+        def marked(model, files):
+            self.mark()
+            return preprocess(model, files)
+
+        with mock.patch.object(InferenceModel, "preprocess_files", marked):
+            yield self
+        self.mark()
+
+    def batch_ms(self):
+        """CUDA-event ms of each batch, from its start to the next one's (or
+        to the CLI's return)."""
+        self.marks[-1][0].synchronize()
+        return [a.elapsed_time(b) for (a, _), (b, _) in zip(self.marks, self.marks[1:])]
+
+
+def _recording_ap(cli):
+    """``cli.APCalculator`` patched to keep what ``compute_aps`` returns."""
+    base = cli.APCalculator
+
+    class Recording(base):
+        last = None
+
+        def compute_aps(self):
+            Recording.last = super().compute_aps()
+            return Recording.last
+
+    return mock.patch.object(cli, "APCalculator", Recording), Recording
+
+
+def _txt_rows(directory):
+    """Every ``.txt`` dump line of a detect output, by image file."""
+    return {p.name: p.read_text().splitlines() for p in sorted(Path(directory).glob("*.txt"))}
+
+
+def _box_lines(rows):
+    """detect's ``.txt`` lines of ``[(conf, Box)]``."""
+    return [f"{b.label} {b.labelid} {b.center.x} {b.center.y} {b.size.w} {b.size.h}"
+            for _, b in rows]
+
+
+def _serving_timing(cli, argv, model, images, runs_bare, batches):
+    """The CLI's batches as it runs them, ``batches`` of ``SERVING_BATCH``
+    real files, with ``model`` already loaded (``from_bundle`` patched to
+    hand it out): the CUDA-event ms of each batch (``BatchClock``), then,
+    in a second run under ``torch.profiler``, the device's busy ms a batch
+    (kernels and copies); the idle share ``1 - busy / mean ms``; the bare
+    ``runs_bare`` (``run_scores`` for detect, ``run`` for infer with
+    ``--dump-predictions``) of one batch on the card, and the gap to the
+    mean, the CLI's host cost."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import torch
+
+    from ssd_tensorflow_tpu_torch.inference import InferenceModel
+    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms, device_kernels, per_call_ms
+
+    with mock.patch.object(InferenceModel, "from_bundle", lambda *a, **k: model):
+        clock = BatchClock()
+        torch.cuda.synchronize()
+        with clock.patched():
+            rc, log = _run_cli(cli, argv)
+        if rc != 0:
+            raise AssertionError(f"{cli.__name__} exited {rc}:\n{log[-3000:]}")
+        batch_ms = clock.batch_ms()
+        if len(batch_ms) != batches:
+            raise AssertionError(f"{cli.__name__} ran {len(batch_ms)} batches, not {batches}")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rc, _ = _run_cli(cli, argv)
+            torch.cuda.synchronize()
+        busy_ms = per_call_ms(device_kernels(prof, iters=batches))
+    x = torch.from_numpy(images).to(model.device)
+    with torch.inference_mode():
+        bare_ms = cuda_event_ms(lambda: runs_bare(x), iters=5, warmup=1)
+    mean_ms = sum(batch_ms) / len(batch_ms)
+    return {"batch": int(images.shape[0]), "batches": batches, "batch_ms": batch_ms,
+            "ms_per_batch": mean_ms, "images_per_s": images.shape[0] / mean_ms * 1e3,
+            "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / mean_ms,
+            "bare": runs_bare.__name__, "bare_ms": bare_ms, "host_cost_ms": mean_ms - bare_ms}
+
+
+def serving_cli_path(root: Path, device):
+    """Phase 14: the serving and evaluation CLIs on the card (see the
+    module doc)."""
+    import tempfile
+
+    import torch
+
+    import ssd_tensorflow_tpu_torch.cli.detect as detect_cli
+    import ssd_tensorflow_tpu_torch.cli.export_model as export_cli
+    import ssd_tensorflow_tpu_torch.cli.infer as infer_cli
+    from ssd_tensorflow_tpu_torch.inference import (
+        InferenceModel,
+        load_bundle,
+        model_config_to_dict,
+    )
+    from ssd_tensorflow_tpu_torch.models import ssd_vgg
+    from ssd_tensorflow_tpu_torch.ops import stem_cuda
+    from ssd_tensorflow_tpu_torch.parallel.train_step import TrainConfig, make_train_state
+    from ssd_tensorflow_tpu_torch.utils.checkpoint import save_checkpoint
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    with np.load(root / SERVING_IMAGES) as data:
+        fx = {k: data[k] for k in data.files}
+    names = [str(n) for n in fx["names"]]
+    if names != serving_names(root):
+        raise AssertionError(f"the fixture's images {names} are not {serving_names(root)}")
+    staged = StagedImageIO(names, fx["images"], fx["sizes"])
+    fields = ("boxes", "scores", "classes", "valid")
+    dev = ["--device", device.type]
+    out = {"phase": "serving_cli", "host_io": "staged", "images": len(names),
+           "bundle": INT8_BUNDLE}
+    launches = {}
+    torch.cuda.reset_peak_memory_stats()
+    mem_at_start = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as tmp, staged.patched():
+        tmp = Path(tmp)
+        data_dir = staged_voc_dir(root, tmp / "voc", names)
+        files = [str(Path(data_dir) / "test" / "VOCdevkit" / "VOC2012" / "JPEGImages" /
+                     f"{n}.jpg") for n in names]
+
+        # (a) export: the float bundle and the program, then the calibrated int8 bundle
+        t0 = time.perf_counter()
+        cfg = ssd_vgg.ModelConfig(preset_name="vgg512", num_classes=20)
+        params = ssd_vgg.init_params(cfg, seed=SERVING_SEED)
+        voc = {i: n for i, n in enumerate(
+            ("aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "cat", "chair",
+             "cow", "diningtable", "dog", "horse", "motorbike", "person", "pottedplant",
+             "sheep", "sofa", "train", "tvmonitor"))}
+        ckpt = str(tmp / "run" / "e1.ckpt.npz")
+        (tmp / "run").mkdir()
+        save_checkpoint(ckpt, make_train_state(params, TrainConfig(model=cfg), device="cpu"),
+                        {"model": model_config_to_dict(cfg), "epoch": 1,
+                         "lid2name": {str(k): v for k, v in voc.items()}})
+        float_bundle, program_path = str(tmp / "float.npz"), str(tmp / "model.pt2")
+        (rc, log), launches["export"] = counted(lambda: _run_cli(export_cli, [
+            "--checkpoint-file", ckpt, "--output-file", float_bundle, "--torch-export",
+            program_path, "--torch-export-batch-size", "2", *dev]))
+        if rc != 0:
+            raise AssertionError(f"export_model exited {rc}:\n{log[-3000:]}")
+        export_s = time.perf_counter() - t0
+        loaded, cfg_b, lid2name, scales = load_bundle(float_bundle)
+        if scales is not None or cfg_b != cfg or lid2name != voc or not all(
+                torch.equal(loaded[n][k], params[n][k]) for n in params for k in params[n]):
+            raise AssertionError("the float bundle is not the checkpoint's parameters")
+        int8_bundle = str(tmp / "int8.npz")
+        t0 = time.perf_counter()
+        (rc, log), launches["export_quantize"] = counted(lambda: _run_cli(export_cli, [
+            "--checkpoint-file", ckpt, "--output-file", int8_bundle, "--quantize",
+            "--calibration-images", *files, *dev]))
+        if rc != 0:
+            raise AssertionError(f"export_model --quantize exited {rc}:\n{log[-3000:]}")
+        quantize_s = time.perf_counter() - t0
+        _, _, _, card_scales = load_bundle(int8_bundle)
+        jax_scales = dict(zip((str(n) for n in fx["calibration_names"]),
+                              fx["calibration_scales"]))
+        if sorted(card_scales) != sorted(jax_scales):
+            raise AssertionError("the int8 bundle's scales name other layers than JAX's")
+        gaps = {k: abs(card_scales[k] - jax_scales[k]) / jax_scales[k] for k in jax_scales}
+        worst = max(gaps, key=gaps.get)
+        out["export"] = {"seconds": export_s, "quantize_seconds": quantize_s,
+                         "calibration_gap_max": gaps[worst], "calibration_gap_layer": worst,
+                         "calibration_gap_gate": SERVING_CALIBRATION_GAP}
+        if gaps[worst] > SERVING_CALIBRATION_GAP:
+            raise AssertionError(f"int8 calibration {worst}: {card_scales[worst]} against "
+                                 f"JAX's {jax_scales[worst]} ({gaps[worst]:.3g} relative)")
+
+        # the exported program on the card against the eager forward
+        t0 = time.perf_counter()
+        program = torch.export.load(program_path)
+        held = sorted({str(n.target) for n in program.graph.nodes if "ssd_torch" in str(n.target)})
+        if held != ["ssd_torch.fused_stem.default"]:
+            raise AssertionError(f"the exported program holds {held}, not the stem operator")
+        program = program.module()
+        eager = InferenceModel(params, cfg, device=device)
+        x2 = torch.from_numpy(fx["images"][:2]).to(device)
+        with torch.inference_mode():
+            got, launches["exported_program"] = counted(lambda: program(x2))
+            want = ssd_vgg.apply_result(eager.params, x2, eager.config)
+        if not torch.equal(got, want):
+            raise AssertionError(f"the exported program differs from the eager forward by "
+                                 f"{float((got - want).abs().max())}")
+        if launches["exported_program"]["fused_stem"] != 1:
+            raise AssertionError(f"exported program launches: {launches['exported_program']}")
+        out["torch_export"] = {"batch": 2, "bit_exact": True, "operators": held,
+                               "load_and_check_seconds": time.perf_counter() - t0}
+        del program, eager, got, want
+
+        # (b) detect: the shipped int8 bundle at the CLI's batch, 8 files padded
+        bundle = str(root / INT8_BUNDLE)
+        model = InferenceModel.from_bundle(bundle, device=device)
+        n_convs = len(model.act_scales)
+        (rc, log), launches["detect"] = counted(lambda: _run_cli(detect_cli, [
+            *files, "--model", bundle, "--output-dir", str(tmp / "detect"), "--threshold",
+            "0.01", *dev]))
+        if rc != 0:
+            raise AssertionError(f"detect exited {rc}:\n{log[-3000:]}")
+        n = launches["detect"]
+        if (n["nms_keep"] != 1 or n["int8_conv"] != n_convs or n["fused_stem"]
+                or n["fused_stem_uint8"]):
+            raise AssertionError(f"detect launches {n}")
+        padded = np.concatenate([fx["images"], np.repeat(fx["images"][-1:],
+                                                        SERVING_BATCH - len(names), 0)])
+        model.detection = type(model.detection)(top_k=200, confidence_threshold=0.01)
+        dets = model.run_scores(padded)
+        rows = model.detect_boxes(padded)
+        dumps = _txt_rows(tmp / "detect")
+        for i, name in enumerate(names):
+            if dumps[f"{name}.jpg.txt"] != _box_lines(rows[i]):
+                raise AssertionError(f"detect's dump of {name} is not detect_boxes' rows")
+        card = {f: getattr(dets, f)[: len(names)].cpu().numpy() for f in fields}
+        jax_dets = {f: fx[f"detect_{f}"] for f in fields}
+        if card["valid"].sum(1).tolist() != jax_dets["valid"].sum(1).tolist():
+            raise AssertionError(f"detect counts {card['valid'].sum(1)} against JAX's "
+                                 f"{jax_dets['valid'].sum(1)}")
+        out["detect"] = {"detections_per_image": card["valid"].sum(1).tolist(),
+                         "against_jax": match_detections(card, jax_dets, 0.99, 1e-4),
+                         "annotated_written": len([w for w in staged.writes
+                                                   if "/detect/" in w[0]]),
+                         "launches": n}
+        if out["detect"]["annotated_written"] != len(names):
+            raise AssertionError("detect did not write an annotated image a file")
+
+        # (c) infer: the int8 bundle on the staged VOC test split
+        common = ["--data-source", "pascal_voc", "--data-dir", data_dir, "--dump-predictions",
+                  "yes", "--pascal-summary", "yes", "--coco-results", "yes", "--threshold",
+                  "0.01", "--training-data", str(tmp / "none.json"), *dev]
+        patch_ap, recording = _recording_ap(infer_cli)
+        with patch_ap:
+            (rc, log), launches["infer"] = counted(lambda: _run_cli(infer_cli, [
+                "--bundle", bundle, "--output-dir", str(tmp / "infer"), *common]))
+        if rc != 0:
+            raise AssertionError(f"infer exited {rc}:\n{log[-3000:]}")
+        n = launches["infer"]
+        if (n["nms_keep"] != 1 or n["int8_conv"] != n_convs or n["fused_stem"]
+                or n["fused_stem_uint8"]):
+            raise AssertionError(f"infer launches {n}")
+        aps = recording.last
+        jax_aps = dict(zip((str(k) for k in fx["ap_names"]), fx["ap_values"]))
+        if sorted(aps) != sorted(jax_aps):
+            raise AssertionError(f"infer's classes {sorted(aps)} against JAX's {sorted(jax_aps)}")
+        ap_gap = max(abs(aps[k] - jax_aps[k]) for k in jax_aps)
+        map_gap = abs(sum(aps.values()) / len(aps) - sum(jax_aps.values()) / len(jax_aps))
+        if ap_gap > 1e-4 or map_gap > 1e-4:
+            raise AssertionError(f"infer's AP {aps} against JAX's {jax_aps}")
+        k_plus_5 = model.config.num_vars
+        for name in names:
+            dump = np.load(tmp / "infer" / f"{name}.jpg.npy")
+            if dump.shape != (model.preset.num_anchors, k_plus_5) or not np.isfinite(dump).all():
+                raise AssertionError(f"infer's dump of {name}: {dump.shape}, finite "
+                                     f"{bool(np.isfinite(dump).all())}")
+        summaries = sorted(p.name for p in (tmp / "infer").glob("comp4_det_test_*.txt"))
+        coco = json.loads((tmp / "infer" / "coco_results.json").read_text())
+        # the VOC source maps no label to a COCO category id: the writer
+        # skips every detection and says so, as the JAX package's does
+        if coco != [] or "skipped labels with no category id" not in log:
+            raise AssertionError(f"infer's COCO results with the VOC source: {coco[:3]}")
+        out["infer"] = {"mAP": sum(aps.values()) / len(aps), "ap_gap_max": ap_gap,
+                        "map_gap": map_gap, "dumps": len(names),
+                        "dump_shape": [model.preset.num_anchors, k_plus_5],
+                        "pascal_summary_files": len(summaries), "coco_results": len(coco),
+                        "launches": n}
+        if not summaries:
+            raise AssertionError("infer wrote no Pascal summary")
+
+        # infer once more with the exported float bf16 bundle, and its plain stem
+        with _recording_ap(infer_cli)[0]:
+            (rc, log), launches["infer_float"] = counted(lambda: _run_cli(infer_cli, [
+                "--bundle", float_bundle, "--output-dir", str(tmp / "float"), *common]))
+        if rc != 0:
+            raise AssertionError(f"infer of the float bundle exited {rc}:\n{log[-3000:]}")
+        n = launches["infer_float"]
+        if n["nms_keep"] != 1 or n["fused_stem"] != 1 or n["int8_conv"] or n["fused_stem_uint8"]:
+            raise AssertionError(f"infer of the float bundle launches {n}")
+        with mock.patch.object(stem_cuda, "fused_stem", stem_cuda.fused_stem_plain), \
+                _recording_ap(infer_cli)[0]:
+            rc, log = _run_cli(infer_cli, ["--bundle", float_bundle, "--output-dir",
+                                           str(tmp / "float_plain"), *common])
+        if rc != 0:
+            raise AssertionError(f"infer with the plain stem exited {rc}:\n{log[-3000:]}")
+        gaps = {"conf_max_abs": 0.0, "cls_share": 1.0, "locs_max_abs": 0.0}
+        k1 = cfg.num_classes + 1
+        for name in names:
+            a = np.load(tmp / "float" / f"{name}.jpg.npy")
+            b = np.load(tmp / "float_plain" / f"{name}.jpg.npy")
+            gaps["conf_max_abs"] = max(gaps["conf_max_abs"], float(np.abs(a[:, :k1] - b[:, :k1]).max()))
+            gaps["cls_share"] = min(gaps["cls_share"], float(np.mean(
+                a[:, :k1].argmax(-1) == b[:, :k1].argmax(-1))))
+            gaps["locs_max_abs"] = max(gaps["locs_max_abs"], float(np.abs(a[:, k1:] - b[:, k1:]).max()))
+        if not (gaps["conf_max_abs"] < 0.02 and gaps["cls_share"] >= 0.99
+                and gaps["locs_max_abs"] < 0.05):
+            raise AssertionError(f"the float bundle's stem kernel and plain stem disagree: {gaps}")
+        out["infer_float"] = {"launches": n, "plain_stem_agreement": gaps}
+
+        # (d) time: each CLI on SERVING_TIMED batches of SERVING_BATCH real files,
+        # the model loaded
+        per_batch = SERVING_BATCH // len(files)
+        many = files * (per_batch * SERVING_TIMED)
+        images = np.concatenate([fx["images"]] * per_batch)
+        model.detection = type(model.detection)(top_k=200, confidence_threshold=0.5)
+        out["detect"]["timing"] = _serving_timing(
+            detect_cli, [*many, "--model", bundle, "--output-dir", str(tmp / "t_detect"), *dev],
+            model, images, model.run_scores, SERVING_TIMED)
+        model.detection = type(model.detection)(top_k=200, confidence_threshold=0.01)
+        out["infer"]["timing"] = _serving_timing(
+            infer_cli, [*many, "--bundle", bundle, "--output-dir", str(tmp / "t_infer"),
+                        "--dump-predictions", "yes", "--pascal-summary", "yes",
+                        "--coco-results", "yes", "--threshold", "0.01", *dev],
+            model, images, model.run, SERVING_TIMED)
+    out.update({"staged_reads": staged.reads, "staged_writes": len(staged.writes),
+                "staged_boxes_drawn": staged.boxes,
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "held_at_start_gib": mem_at_start / 2**30,
+                "peak_over_start_gib": (torch.cuda.max_memory_allocated() - mem_at_start) / 2**30,
+                "seconds": time.perf_counter() - t_phase})
+    _emit(out)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2274,6 +2752,8 @@ def main(argv=None) -> int:
     # 12.-13. the one-rank NCCL group, remat, prefetch, and the train CLI
     parallel_path(args.seed, device)
     launches["train_cli"] = train_cli_path(args.seed, device, bare_step_ms)
+    # 14. the serving and evaluation CLIs
+    launches.update({f"serving_cli:{k}": v for k, v in serving_cli_path(root, device).items()})
     with torch.inference_mode():
         _, launches["fused_stem_pallas"] = counted(
             lambda: stem_cuda.fused_stem_pallas(model.params, images, MEAN_BGR))

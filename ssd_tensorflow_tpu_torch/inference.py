@@ -21,9 +21,11 @@ import numpy as np
 import torch
 
 from ssd_tensorflow_tpu_torch import resolve_device
+from ssd_tensorflow_tpu_torch.data import image_io
 from ssd_tensorflow_tpu_torch.models import quantized
 from ssd_tensorflow_tpu_torch.models.ssd_vgg import (
     ModelConfig,
+    apply_result,
     apply_scores,
     param_shapes,
     stage_conv_weights,
@@ -33,6 +35,7 @@ from ssd_tensorflow_tpu_torch.ops.postprocess import (
     DetectionConfig,
     Detections,
     decode_scores,
+    detect,
     detections_to_boxes,
 )
 from ssd_tensorflow_tpu_torch.utils.checkpoint import checkpoint_config, read_params
@@ -155,6 +158,22 @@ def load_params_from_train_checkpoint(path: str):
     return params, model_cfg, lid2name
 
 
+def load_calibration_images(files, h: int, w: int) -> np.ndarray:
+    """Decode and resize calibration images to a uint8 ``(N, h, w, 3)`` BGR
+    batch (``data/image_io.py``), as the JAX package's loader that the
+    export CLI's ``--quantize`` calibrates on."""
+    files = list(files)
+    if not files:
+        raise ValueError("no calibration images given")
+    out = np.zeros((len(files), h, w, 3), dtype=np.uint8)
+    for i, f in enumerate(files):
+        img = image_io.imread(f)
+        if img is None:
+            raise ValueError(f"cannot read calibration image {f!r}")
+        out[i] = image_io.resize(img, (w, h))
+    return out
+
+
 def _apply_overrides(model_cfg: ModelConfig, overrides: dict, int8: bool = False) -> ModelConfig:
     """``model_cfg`` with execution-backend fields replaced, as the JAX
     package's ``InferenceModel(overrides=...)`` does; never serialized.
@@ -245,6 +264,39 @@ class InferenceModel:
         params, cfg, lid2name, act_scales = load_bundle(path)
         return cls(params, cfg, lid2name, act_scales=act_scales, **kw)
 
+    def preprocess_files(self, files):
+        """Decode image files to a uint8 BGR batch at the preset's size
+        (bilinear resize, ``data/image_io.py``), as the JAX package's
+        façade: ``(images (N, H, W, 3), [(width, height) of each file])``."""
+        w, h = self.preset.image_size.w, self.preset.image_size.h
+        out = np.zeros((len(files), h, w, 3), dtype=np.uint8)
+        sizes = []
+        for i, f in enumerate(files):
+            img = image_io.imread(f)
+            if img is None:
+                raise FileNotFoundError(f)
+            sizes.append((img.shape[1], img.shape[0]))
+            out[i] = image_io.resize(img, (w, h))
+        return out, sizes
+
+    def _batch(self, images):
+        x = images if torch.is_tensor(images) else torch.from_numpy(np.ascontiguousarray(images))
+        return x.to(self.device)
+
+    def run(self, images):
+        """Forward + decode + NMS of ``(B, H, W, 3)`` uint8 BGR images,
+        keeping the raw result: ``(result (B, A, K+5), Detections)``, the
+        result the softmax probabilities then the 4 offsets of each anchor
+        (the int8 or the float forward, as the model was built), the
+        detections :func:`ops.postprocess.detect` of it."""
+        with torch.inference_mode():
+            x = self._batch(images)
+            if self.act_scales is not None:
+                result = quantized._forward(self.params, x, self.config)
+            else:
+                result = apply_result(self.params, x, self.config)
+            return result, detect(result, self.anchors, self.detection)
+
     def forward_scores(self, x):
         """Per-anchor ``(conf, cls, locs)`` of a uint8 batch on the device:
         the int8 or the float forward, as the model was built."""
@@ -255,9 +307,8 @@ class InferenceModel:
     def run_scores(self, images) -> Detections:
         """Forward + lazy softmax + decode + NMS of ``(B, H, W, 3)`` uint8
         BGR images (numpy or tensor); tensors stay on the device."""
-        x = images if torch.is_tensor(images) else torch.from_numpy(np.ascontiguousarray(images))
         with torch.inference_mode():
-            conf, cls, locs = self.forward_scores(x.to(self.device))
+            conf, cls, locs = self.forward_scores(self._batch(images))
             return decode_scores(conf, cls, locs, self.anchors, self.detection)
 
     def detect_boxes(self, images):

@@ -119,6 +119,14 @@ def decode_detections(probs, locs, anchors, cfg: DetectionConfig = DetectionConf
     return decode_scores(fg.amax(dim=-1), fg.argmax(dim=-1), locs, anchors, cfg)
 
 
+def detect(result, anchors, cfg: DetectionConfig = DetectionConfig()):
+    """Decode the network's fused ``result`` tensor ``(B, A, K+5)``,
+    ``concat(softmax(logits), locations)``: :func:`decode_detections` of its
+    ``K+1`` probabilities and 4 offsets."""
+    num_vars = result.shape[-1]
+    return decode_detections(result[..., : num_vars - 4], result[..., num_vars - 4:], anchors, cfg)
+
+
 def detections_to_boxes(dets: Detections, lid2name=None):
     """Detections -> per-image host lists of ``(conf, Box)`` tuples."""
     boxes = dets.boxes.cpu().numpy()

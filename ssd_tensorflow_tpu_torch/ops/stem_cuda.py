@@ -115,6 +115,63 @@ def _check_device(name, x, *others):
         raise ValueError(f"{name}: all operands must be on one device")
 
 
+def _check_stem_args(c1, b1, w2, b2):
+    if c1.dtype != torch.bfloat16 or c1.dim() != 4 or c1.shape[-1] != _C:
+        raise ValueError(f"fused_stem: c1 must be (B, H, W, 64) bf16, got "
+                         f"{tuple(c1.shape)} {c1.dtype}")
+    if c1.shape[1] % 2 or c1.shape[2] % 2:
+        raise ValueError(f"fused_stem: H and W must be even, got {c1.shape[1]}x{c1.shape[2]}")
+    if w2.shape != (_C, _C, 3, 3) or b1.shape != (_C,) or b2.shape != (_C,):
+        raise ValueError("fused_stem: expected w2 (64, 64, 3, 3), b1 and b2 (64,)")
+
+
+# The two kernels are operators of the ``ssd_torch`` library
+# (``torch.ops.ssd_torch.fused_stem`` / ``fused_stem_uint8``): the CPU
+# implementation is the plain version, the CUDA one the kernel's launch, and
+# a shape function lets ``torch.export`` trace a forward through them, so
+# that an exported program holds the kernel's operator and not its plain
+# version. Loading such a program needs this module imported.
+@torch.library.custom_op("ssd_torch::fused_stem", mutates_args=(), device_types="cpu")
+def _fused_stem_op(c1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                   b2: torch.Tensor) -> torch.Tensor:
+    return fused_stem_plain(c1, b1, w2, b2)
+
+
+@_fused_stem_op.register_kernel("cuda")
+def _fused_stem_cuda(c1, b1, w2, b2):
+    _check_device("fused_stem", c1, b1, w2, b2)
+    _check_stem_args(c1, b1, w2, b2)
+    if not c1.is_contiguous():
+        raise ValueError("fused_stem: c1 must be contiguous NHWC")
+    b, h, w, _ = c1.shape
+    out = torch.empty((b, h // 2, w // 2, _C), dtype=torch.bfloat16, device=c1.device)
+    if out.numel() == 0:
+        return out
+    # [dy*3 + dx][cout][cin], the kernel's shared-memory weight layout
+    w2t = w2.to(torch.bfloat16).permute(2, 3, 0, 1).contiguous()
+    b1f = b1.float().contiguous()
+    b2f = b2.float().contiguous()
+    _launch("stem", c1.device, (c1.data_ptr(), b1f.data_ptr(), w2t.data_ptr(), b2f.data_ptr(),
+                                out.data_ptr()), b, h, w)
+    _COUNTED["stem"].launches += 1
+    return out
+
+
+@_fused_stem_op.register_fake
+def _fused_stem_shape(c1, b1, w2, b2):
+    _check_stem_args(c1, b1, w2, b2)
+    b, h, w, _ = c1.shape
+    return c1.new_empty((b, h // 2, w // 2, _C))
+
+
+def _known_device(name, *tensors):
+    """The kernels' operators run on the CPU (plain version) and the card;
+    any other device raises here, before a shape function could accept it."""
+    for t in tensors:
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name}: unsupported device {t.device}")
+
+
 def fused_stem(c1, b1, w2, b2):
     """conv1_2 + ReLU + pool1 over conv1_1's un-biased output.
 
@@ -125,34 +182,13 @@ def fused_stem(c1, b1, w2, b2):
       b2: ``(64,)`` conv1_2 bias.
 
     Returns:
-      ``(B, H/2, W/2, 64)`` bf16 pool1. CUDA tensors run the kernel (and
+      ``(B, H/2, W/2, 64)`` bf16 pool1, through the operator
+      ``torch.ops.ssd_torch.fused_stem``: CUDA tensors run the kernel (and
       count one launch in ``fused_stem.launches``); CPU tensors the plain
       version.
     """
-    if c1.device.type == "cpu":
-        return fused_stem_plain(c1, b1, w2, b2)
-    _check_device("fused_stem", c1, b1, w2, b2)
-    if c1.dtype != torch.bfloat16 or c1.dim() != 4 or c1.shape[-1] != _C:
-        raise ValueError(f"fused_stem: c1 must be (B, H, W, 64) bf16, got "
-                         f"{tuple(c1.shape)} {c1.dtype}")
-    if not c1.is_contiguous():
-        raise ValueError("fused_stem: c1 must be contiguous NHWC")
-    b, h, w, _ = c1.shape
-    if h % 2 or w % 2:
-        raise ValueError(f"fused_stem: H and W must be even, got {h}x{w}")
-    if w2.shape != (_C, _C, 3, 3) or b1.shape != (_C,) or b2.shape != (_C,):
-        raise ValueError("fused_stem: expected w2 (64, 64, 3, 3), b1 and b2 (64,)")
-    out = torch.empty((b, h // 2, w // 2, _C), dtype=torch.bfloat16, device=c1.device)
-    if out.numel() == 0:
-        return out
-    # [dy*3 + dx][cout][cin], the kernel's shared-memory weight layout
-    w2t = w2.to(torch.bfloat16).permute(2, 3, 0, 1).contiguous()
-    b1f = b1.float().contiguous()
-    b2f = b2.float().contiguous()
-    _launch("stem", c1.device, (c1.data_ptr(), b1f.data_ptr(), w2t.data_ptr(), b2f.data_ptr(),
-                                out.data_ptr()), b, h, w)
-    fused_stem.launches += 1
-    return out
+    _known_device("fused_stem", c1, b1, w2, b2)
+    return torch.ops.ssd_torch.fused_stem(c1, b1, w2, b2)
 
 
 fused_stem.launches = 0
@@ -214,6 +250,55 @@ def uint8_stem_weights(params):
     return w1k.reshape(_C, 48), b1, w2t, p2["b"].float().contiguous()
 
 
+def _check_uint8_images(images):
+    if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[-1] != 3:
+        raise ValueError(f"fused_stem_uint8: images must be (B, H, W, 3) uint8, got "
+                         f"{tuple(images.shape)} {images.dtype}")
+    if images.shape[1] % 2 or images.shape[2] % 2:
+        raise ValueError(f"fused_stem_uint8: H and W must be even, got "
+                         f"{images.shape[1]}x{images.shape[2]}")
+
+
+def _conv1_params(w1, b1, w2, b2):
+    return {"conv1_1": {"w": w1, "b": b1}, "conv1_2": {"w": w2, "b": b2}}
+
+
+@torch.library.custom_op("ssd_torch::fused_stem_uint8", mutates_args=(), device_types="cpu")
+def _fused_stem_uint8_op(images: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                         w2: torch.Tensor, b2: torch.Tensor,
+                         mean_bgr: list[float]) -> torch.Tensor:
+    return fused_stem_uint8_plain(_conv1_params(w1, b1, w2, b2), images, mean_bgr)
+
+
+@_fused_stem_uint8_op.register_kernel("cuda")
+def _fused_stem_uint8_cuda(images, w1, b1, w2, b2, mean_bgr):
+    _check_uint8_images(images)
+    weights = uint8_stem_weights(_conv1_params(w1, b1, w2, b2))
+    _check_device("fused_stem_uint8", images, *weights)
+    if not images.is_contiguous():
+        raise ValueError("fused_stem_uint8: images must be contiguous NHWC")
+    if weights[0].shape != (_C, 48) or weights[2].shape != (9, _C, _C):
+        raise ValueError("fused_stem_uint8: expected conv1_1 (64, 3, 3, 3), conv1_2 (64, 64, 3, 3)")
+    b, h, w, _ = images.shape
+    out = torch.empty((b, h // 2, w // 2, _C), dtype=torch.bfloat16, device=images.device)
+    if out.numel() == 0:
+        return out
+    mean = torch.tensor(mean_bgr, dtype=torch.float32, device=images.device)
+    w1k, b1f, w2t, b2f = weights
+    _launch("stem_uint8", images.device, (images.data_ptr(), mean.data_ptr(), w1k.data_ptr(),
+                                          b1f.data_ptr(), w2t.data_ptr(), b2f.data_ptr(),
+                                          out.data_ptr()), b, h, w)
+    _COUNTED["stem_uint8"].launches += 1
+    return out
+
+
+@_fused_stem_uint8_op.register_fake
+def _fused_stem_uint8_shape(images, w1, b1, w2, b2, mean_bgr):
+    _check_uint8_images(images)
+    b, h, w, _ = images.shape
+    return images.new_empty((b, h // 2, w // 2, _C), dtype=torch.bfloat16)
+
+
 def fused_stem_uint8(params, images, mean_bgr, nine_taps: bool = False):
     """The whole stem (preprocess + conv1_1 + conv1_2 + pool1) in one
     kernel reading the raw uint8 image: counterpart of JAX
@@ -230,35 +315,20 @@ def fused_stem_uint8(params, images, mean_bgr, nine_taps: bool = False):
         one layout (``csrc/stem_uint8.cu``).
 
     Returns:
-      ``(B, H/2, W/2, 64)`` bf16 pool1. CUDA tensors run the kernel (and
-      count one launch in ``fused_stem_uint8.launches``); CPU tensors the
-      plain version.
+      ``(B, H/2, W/2, 64)`` bf16 pool1, through the operator
+      ``torch.ops.ssd_torch.fused_stem_uint8``: CUDA tensors run the kernel
+      (and count one launch in ``fused_stem_uint8.launches``); CPU tensors
+      the plain version.
     """
     del nine_taps
-    if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[-1] != 3:
-        raise ValueError(f"fused_stem_uint8: images must be (B, H, W, 3) uint8, got "
-                         f"{tuple(images.shape)} {images.dtype}")
-    b, h, w, _ = images.shape
-    if h % 2 or w % 2:
-        raise ValueError(f"fused_stem_uint8: H and W must be even, got {h}x{w}")
-    if images.device.type == "cpu":
-        return fused_stem_uint8_plain(params, images, mean_bgr)
-    weights = uint8_stem_weights(params)
-    _check_device("fused_stem_uint8", images, *weights)
-    if not images.is_contiguous():
-        raise ValueError("fused_stem_uint8: images must be contiguous NHWC")
-    if weights[0].shape != (_C, 48) or weights[2].shape != (9, _C, _C):
-        raise ValueError("fused_stem_uint8: expected conv1_1 (64, 3, 3, 3), conv1_2 (64, 64, 3, 3)")
-    out = torch.empty((b, h // 2, w // 2, _C), dtype=torch.bfloat16, device=images.device)
-    if out.numel() == 0:
-        return out
-    mean = torch.tensor(mean_bgr, dtype=torch.float32, device=images.device)
-    w1k, b1, w2t, b2 = weights
-    _launch("stem_uint8", images.device, (images.data_ptr(), mean.data_ptr(), w1k.data_ptr(),
-                                          b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
-                                          out.data_ptr()), b, h, w)
-    fused_stem_uint8.launches += 1
-    return out
+    _check_uint8_images(images)
+    p1, p2 = params["conv1_1"], params["conv1_2"]
+    _known_device("fused_stem_uint8", images, p1["w"], p1["b"], p2["w"], p2["b"])
+    return torch.ops.ssd_torch.fused_stem_uint8(images, p1["w"], p1["b"], p2["w"], p2["b"],
+                                                [float(m) for m in mean_bgr])
 
 
 fused_stem_uint8.launches = 0
+
+#: the wrappers whose ``launches`` each kernel's launch counts in
+_COUNTED = {"stem": fused_stem, "stem_uint8": fused_stem_uint8}

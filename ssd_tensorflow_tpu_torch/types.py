@@ -42,6 +42,11 @@ def prop2abs(center, size, imgsize):
     return int(cx - w2), int(cx + w2), int(cy - h2), int(cy + h2)
 
 
+def rgb2bgr(tpl):
+    """RGB color tuple -> BGR."""
+    return (tpl[2], tpl[1], tpl[0])
+
+
 def str2bool(v):
     """Parse a boolean CLI flag."""
     import argparse

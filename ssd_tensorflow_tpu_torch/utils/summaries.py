@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ssd_tensorflow_tpu_torch.types import Size, prop2abs
+from ssd_tensorflow_tpu_torch.data.image_io import draw_box
 from ssd_tensorflow_tpu_torch.utils.tensorboard import SummaryWriter
 
 
@@ -105,29 +105,3 @@ class NetSummary:
                 self.writer.add_histogram(
                     f"scale/{name}", np.asarray(leaf["scale"]), epoch
                 )
-
-
-def draw_box(img, box, color):
-    """Draw an annotated detection box (reference: utils.py:138-148)."""
-    import cv2
-
-    img_size = Size(img.shape[1], img.shape[0])
-    xmin, xmax, ymin, ymax = prop2abs(box.center, box.size, img_size)
-    img_box = np.copy(img)
-    cv2.rectangle(img_box, (xmin, ymin), (xmax, ymax), color, 2)
-    cv2.rectangle(
-        img_box, (xmin - 1, ymin), (xmax + 1, ymin - 20), color, cv2.FILLED
-    )
-    font = cv2.FONT_HERSHEY_SIMPLEX
-    cv2.putText(
-        img_box,
-        str(box.label),
-        (xmin + 5, ymin - 5),
-        font,
-        0.5,
-        (255, 255, 255),
-        1,
-        cv2.LINE_AA,
-    )
-    alpha = 0.8
-    cv2.addWeighted(img_box, alpha, img, 1.0 - alpha, 0, img)

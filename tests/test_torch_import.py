@@ -192,3 +192,33 @@ def test_qat_export_calibrates_on_cuda_by_default(tmp_path):
         qat.export_int8_bundle(path, str(tmp_path / "b.npz"), images)
     with pytest.raises(RuntimeError):
         torch.Generator("cuda")
+
+
+def test_serving_modules_are_scanned():
+    """The serving and evaluation CLIs, the data sources, host image I/O and
+    the result writers are among the modules imported with ``jax`` blocked
+    and scanned for imports of the JAX package."""
+    sources = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {f"ssd_tensorflow_tpu_torch/{m}.py" for m in (
+        "cli/detect", "cli/infer", "cli/export_model", "cli/process_dataset", "data/sources",
+        "data/source_pascal_voc", "data/source_coco", "data/source_synthetic", "data/image_io",
+        "eval/pascal_summary", "eval/coco_results")} <= sources
+
+
+def test_image_io_without_opencv_raises():
+    """Without OpenCV the port's image I/O raises with a clear message (the
+    package has no stand-in decoder); the serving modules still import."""
+    code = (
+        "import sys; sys.modules['cv2'] = None\n"
+        "import ssd_tensorflow_tpu_torch.cli.detect, ssd_tensorflow_tpu_torch.cli.infer\n"
+        "from ssd_tensorflow_tpu_torch.data import image_io\n"
+        "for call in (lambda: image_io.imread('x.jpg'), lambda: image_io.resize(None, (2, 2)),\n"
+        "             lambda: image_io.imwrite('x.jpg', None)):\n"
+        "    try:\n"
+        "        call()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'OpenCV' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError('no error without cv2')\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
