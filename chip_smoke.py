@@ -230,6 +230,40 @@ non-zero, and the final line is printed only when every phase passed:
    gap, the CLI's host cost; peak memory, and its rise over what the phase
    found allocated.
 
+15. multichip: data-parallel serving, tensor parallelism of conv6 / conv7
+   and the multichip dry run. (a) Under phase 12's one-rank NCCL group,
+   ``InferenceModel(mesh=make_mesh())`` of the shipped int8 bundle and of
+   the seeded vgg512 bf16 model (split stem) at b64 equal ``mesh=None``
+   bit for bit, launching NMS once, ``int8_conv`` once a conv (the bundle)
+   and ``fused_stem`` once (bf16); ``cli/detect.py --data-parallel 1``
+   writes the ``.txt`` files of ``--data-parallel 0`` (staged images, as
+   phase 14). (b) Four processes of this script (``--worker``) on the one
+   card in a gloo group over CUDA tensors (NCCL takes one process a
+   device): the int8 bundle at b64, 16 rows a process, must give one
+   process's b64 detections bit for bit (or, where cuBLAS / cuDNN choose
+   otherwise at 16 rows, phase 14's match: IoU >= 0.999, conf within
+   1e-4, the gap printed); NMS once a batch on every process; ms a batch
+   of each process (CUDA events over 5 batches), the four processes'
+   images/s together (they share one card: not a scaling figure) and each
+   one's peak memory. (c) Four processes on data 2 x model 2: the vgg512
+   float32 step at b8 (TF32 off, ``cudnn.deterministic``) from a common
+   state, its checkpoint gathered whole and written by rank 0, against
+   one process summing conv7 in the same two halves
+   (``conv7_in_two_halves``): each loss within 1e-5 relative, each leaf's
+   update within 1e-4 of its largest (or two ulps of its largest
+   parameter); against the plain one-process step, losses likewise and
+   every leaf's update but conv7's within 1e-4, conv7's weight and bias
+   and their momentum within 1e-3 (``TP_PLAIN_CONV7``: conv7's
+   pre-activations that change sides of the ReLU, counted by the halves
+   reference and held to ``TP_MAX_FLIPS``); the shard shapes, NMS once a
+   step on each process; then bf16 steps at b32, finite, CUDA-event ms a
+   step beside phase 6's one-process step, peak memory. (d)
+   ``multichip.entry()``'s vgg300 bf16 forward at b8, once: finite, of
+   shape (8, anchors, 25), each row's class probabilities summing to 1
+   within 1e-2, ``fused_stem`` launched once; then
+   ``multichip.dryrun_multichip(4)`` in a fresh process prints its ok line
+   with mesh data 2 x model 2.
+
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or of the JAX package.
@@ -1775,21 +1809,15 @@ REMAT_LOSS = 1e-3
 REMAT_UPDATE = 1e-2
 
 
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
-
-
 def join_one_rank_group():
     """The environment of a one-process ``torchrun`` launch: ``make_mesh``
     then joins an NCCL group of one rank."""
     import os
 
+    from ssd_tensorflow_tpu_torch.parallel.mesh import free_port
+
     os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
-                      MASTER_PORT=str(_free_port()))
+                      MASTER_PORT=str(free_port()))
 
 
 def _updates_within(new, ref, old, rel: float):
@@ -2671,10 +2699,442 @@ def serving_cli_path(root: Path, device):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 15. multichip: data-parallel serving, tensor parallelism and the dry run
+# ---------------------------------------------------------------------------
+
+#: processes of the phase's gloo runs, all on the one card
+MULTI_PROCS = 4
+#: the serving batch of (a) and (b): 16 rows a process in (b)
+MULTI_BATCH = 64
+#: batches each process times in (b)
+MULTI_TIMED = 5
+#: (b)'s hold where the 16-row batches' detections are not the 64-row
+#: batch's bit for bit (other cuBLAS / cuDNN algorithms): phase 14's match
+MULTI_MATCH_IOU, MULTI_MATCH_CONF = 0.999, 1e-4
+#: (c)'s float32 step on data 2 x model 2 against one process that sums
+#: conv7 in the same two halves (``conv7_in_two_halves``): each loss, and
+#: each leaf's update, relative to the leaf's largest
+TP_LOSS, TP_UPDATE = 1e-5, 1e-4
+#: the same against the plain one-process step: the losses and every leaf
+#: but conv7's at ``TP_LOSS`` / ``TP_UPDATE``. conv7's two float32 partial
+#: sums round apart from one sum, a pre-activation within that rounding of
+#: zero takes the other side of the ReLU, and each such flip moves conv7's
+#: weight and bias gradients by one position's term. On the H100 at vgg512
+#: b8: 2 flips, conv7's momentum 2.9e-4 and its bias update 2.5e-4 of
+#: their largest, equal to the gaps of one process summing conv7 in two
+#: halves; the next leaf, conv5_1, 5.1e-5. So conv7's weight and
+#: bias, and their momentum, are held to ``TP_PLAIN_CONV7``, and the flips
+#: the halves reference counts to ``TP_MAX_FLIPS`` (``TP_PLAIN_CONV7`` over
+#: the ~1.45e-4 that one flip was found to move them)
+TP_PLAIN_CONV7 = 1e-3
+TP_MAX_FLIPS = 6
+TP_FLOAT_BATCH, TP_BF16_BATCH = 8, 32
+
+
+@contextlib.contextmanager
+def conv7_in_two_halves(flips: list):
+    """Within the block, the training forward's conv7 sums its 1024 input
+    channels as two float32 partial sums of 512 added together, as conv7
+    split over a ``model`` group of two does; each call appends to
+    ``flips`` how many pre-activations take the other side of zero than
+    the whole conv's."""
+    import torch
+
+    from ssd_tensorflow_tpu_torch.models import layers, vgg16
+
+    whole_conv = vgg16.conv_relu_train
+
+    def conv(params, x, stride=1, padding="SAME", dilation=1):
+        w = params["w"]
+        if tuple(w.shape) != (1024, 1024, 1, 1):
+            return whole_conv(params, x, stride, padding, dilation)
+        half = w.shape[1] // 2
+        pre = (layers.conv2d(x[..., :half], w[:, :half])
+               + layers.conv2d(x[..., half:], w[:, half:])) + params["b"]
+        with torch.no_grad():
+            whole = layers.conv2d(x, w) + params["b"]
+            flips.append(int(((pre > 0) != (whole > 0)).sum()))
+        return torch.relu(pre)
+
+    with mock.patch.object(vgg16, "conv_relu_train", conv):
+        yield
+
+
+def _unlaunched_env() -> dict:
+    """This process's environment without the one-rank launch of phase 12."""
+    import os
+
+    return {k: v for k, v in os.environ.items()
+            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+
+
+def launch_workers(mode: str, payload: dict, n: int, timeout: float):
+    """``n`` processes of this script in worker ``mode`` on the card
+    (``parallel/mesh.spawn``, a ``torchrun`` launch's environment; every
+    ``LOCAL_RANK`` is the one card), in a gloo group over CUDA tensors;
+    each writes ``<out>.rank<r>.json``. Returns the reports; raises (after
+    stopping every process) when one fails or the time runs out."""
+    import os
+
+    from ssd_tensorflow_tpu_torch.parallel.mesh import spawn
+
+    env = dict(os.environ, OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1) // n)))
+    spawn(n, [sys.executable, str(Path(__file__).resolve()), "--worker", mode,
+              json.dumps(payload)], timeout, env=env, capture=True)
+    return [json.loads(Path(f"{payload['out']}.rank{r}.json").read_text()) for r in range(n)]
+
+
+def _sum_launches(reports, key):
+    total = {}
+    for rep in reports:
+        for k, v in rep[key].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def serve_worker(payload, rank: int):
+    """(b), one process: the int8 bundle served over a data mesh of every
+    process at batch ``MULTI_BATCH`` (its 16 rows), counted once, then
+    timed over ``MULTI_TIMED`` batches."""
+    import numpy as np
+    import torch
+
+    from ssd_tensorflow_tpu_torch.inference import InferenceModel
+    from ssd_tensorflow_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(device="cuda")
+    model = InferenceModel.from_bundle(payload["bundle"], device="cuda", mesh=mesh)
+    with np.load(payload["images"]) as f:
+        images = f["images"]
+    model.run_scores(images)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    dets, launches = counted(lambda: model.run_scores(images))
+    if rank == 0:
+        np.savez(f"{payload['out']}.dets.npz",
+                 **{f: getattr(dets, f).cpu().numpy() for f in ("boxes", "scores", "classes",
+                                                               "valid")})
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(MULTI_TIMED):
+        model.run_scores(images)
+    end.record()
+    torch.cuda.synchronize()
+    return {"launches": launches, "rows": int(images.shape[0]) // mesh.shape["data"],
+            "ms_per_batch": start.elapsed_time(end) / MULTI_TIMED,
+            "wall_s": time.perf_counter() - t0,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def tp_worker(payload, rank: int):
+    """(c), one process of data 2 x model 2: the float32 step from the
+    common state (TF32 off, ``cudnn.deterministic``), its gathered
+    checkpoint written by rank 0; then bf16 steps at b32, timed."""
+    import numpy as np
+    import torch
+
+    from ssd_tensorflow_tpu_torch.models.ssd_vgg import init_params
+    from ssd_tensorflow_tpu_torch.ops.anchors import anchors_for_preset
+    from ssd_tensorflow_tpu_torch.parallel.mesh import make_mesh
+    from ssd_tensorflow_tpu_torch.parallel import train_step
+    from ssd_tensorflow_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    mesh = make_mesh(model=2, device="cuda")
+    cfg16 = train_config()
+    cfg32 = dataclasses.replace(cfg16, model=dataclasses.replace(cfg16.model,
+                                                                 compute_dtype="float32"))
+    anchors = anchors_for_preset(cfg32.model.preset)
+    template = train_step.make_train_state(init_params(cfg32.model), cfg32, device="cuda")
+    state = train_step.shard_state(restore_checkpoint(payload["state"], template), mesh,
+                                   tensor_parallel=True)
+    del template
+    shapes = {f"{n}/{k}": list(state.params[n][k].shape)
+              for n in ("mod_conv6", "mod_conv7") for k in ("w", "b")}
+    with np.load(payload["batch"]) as f:
+        batch = train_step.shard_batch({k: f[k] for k in f.files}, mesh)
+    step32 = train_step.make_train_step(cfg32, anchors)
+    torch.backends.cudnn.deterministic = True
+    (new, losses, _), launches = counted(lambda: step32(state, batch))
+    torch.backends.cudnn.deterministic = False
+    save_checkpoint(payload["checkpoint"], new)
+    del state, new, batch
+
+    size = cfg16.model.preset.image_size.h
+    data = train_batch(np.random.default_rng(payload["seed"]), TP_BF16_BATCH, size,
+                       cfg16.model.num_classes)
+    state = train_step.shard_state(
+        train_step.make_train_state(init_params(cfg16.model, payload["seed"]), cfg16,
+                                    device="cuda"), mesh, tensor_parallel=True)
+    batch = train_step.shard_batch(data, mesh)
+    step16 = train_step.make_train_step(cfg16, anchors)
+    for _ in range(2):
+        state, l16, _ = step16(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    timed = 3
+    start.record()
+    for _ in range(timed):
+        state, l16, _ = step16(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    bf16 = {k: float(v) for k, v in l16.items()}
+    if not all(np.isfinite(v) for v in bf16.values()):
+        raise AssertionError(f"non-finite bf16 tensor-parallel losses {bf16}")
+    return {"losses": {k: float(v) for k, v in losses.items()}, "launches": launches,
+            "shapes": shapes, "bf16_losses": bf16, "bf16_ms_per_step": start.elapsed_time(end)
+            / timed, "bf16_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def run_worker(mode: str, payload: dict) -> int:
+    """The body of one worker process (``--worker``): join the gloo group
+    the parent's environment names, on the card, run ``mode``, write its
+    report."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from ssd_tensorflow_tpu_torch.parallel.mesh import local_device
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    local_device("cuda")
+    dist.init_process_group("gloo", rank=rank, world_size=int(os.environ["WORLD_SIZE"]))
+    try:
+        report = {"serve": serve_worker, "tp": tp_worker}[mode](payload, rank)
+        Path(f"{payload['out']}.rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def multichip_path(root: Path, seed: int, device, bare_step_ms: float):
+    """Phase 15: data-parallel serving under the one-rank NCCL group (a)
+    and over four gloo processes on the card (b), tensor parallelism of
+    conv6 / conv7 on data 2 x model 2 (c), and ``dryrun_multichip(4)`` on
+    the card (d) (see the module doc)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import ssd_tensorflow_tpu_torch.cli.detect as detect_cli
+    from ssd_tensorflow_tpu_torch.inference import InferenceModel
+    from ssd_tensorflow_tpu_torch.models import ssd_vgg
+    from ssd_tensorflow_tpu_torch.ops.anchors import anchors_for_preset
+    from ssd_tensorflow_tpu_torch.parallel import train_step
+    from ssd_tensorflow_tpu_torch.parallel.mesh import make_mesh
+    from ssd_tensorflow_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    t_phase = time.perf_counter()
+    fields = ("boxes", "scores", "classes", "valid")
+    bundle = str(root / INT8_BUNDLE)
+    out = {"phase": "multichip", "processes": MULTI_PROCS}
+    launches = {}
+    rng = np.random.default_rng(seed + 15)
+    images = rng.integers(0, 256, (MULTI_BATCH, 512, 512, 3), dtype=np.uint8)
+
+    # (a) the one-rank NCCL group of phase 12: a mesh of one, bit for bit
+    mesh = make_mesh(device="cuda")
+    if mesh is None or dist.get_backend() != "nccl" or mesh.shape != {"data": 1, "model": 1}:
+        raise AssertionError(f"phase 15 expects phase 12's one-rank NCCL group, got {mesh}")
+    cfg = ssd_vgg.ModelConfig(preset_name="vgg512", num_classes=20, compute_dtype="bfloat16")
+    params = ssd_vgg.init_params(cfg, seed=seed)
+    x = torch.from_numpy(images).to(device)
+    one_int8 = None
+    for name, build in (("int8", lambda m: InferenceModel.from_bundle(bundle, device=device,
+                                                                      mesh=m)),
+                        ("bf16", lambda m: InferenceModel(params, cfg, device=device, mesh=m))):
+        plain, meshed = build(None), build(mesh)
+        want = plain.run_scores(x)
+        got, n = counted(lambda: meshed.run_scores(x))
+        differ = [f for f in fields if not torch.equal(getattr(got, f), getattr(want, f))]
+        if differ:
+            raise AssertionError(f"{name}: the mesh of one differs from mesh=None in {differ}")
+        convs = len(plain.act_scales) if name == "int8" else 0
+        if (n["nms_keep"] != 1 or n["int8_conv"] != convs
+                or n["fused_stem"] != (name == "bf16") or n["fused_stem_uint8"]):
+            raise AssertionError(f"{name} served on the mesh of one launched {n}")
+        launches[f"mesh1_{name}"] = n
+        if name == "int8":
+            one_int8 = {f: getattr(want, f).cpu().numpy() for f in fields}
+            n_convs = convs
+        del plain, meshed, want, got
+    del x
+    with np.load(root / SERVING_IMAGES) as data:
+        fx = {k: data[k] for k in data.files}
+    names = [str(n) for n in fx["names"]]
+    staged = StagedImageIO(names, fx["images"], fx["sizes"])
+    files = [str(root / MINIVOC_TEST / "JPEGImages" / f"{n}.jpg") for n in names]
+    with tempfile.TemporaryDirectory() as tmp, staged.patched():
+        tmp = Path(tmp)
+        dumps = []
+        for dp in (0, 1):
+            (rc, log), n = counted(lambda: _run_cli(detect_cli, [
+                *files, "--model", bundle, "--output-dir", str(tmp / f"dp{dp}"), "--threshold",
+                "0.01", "--data-parallel", str(dp), "--device", device.type]))
+            if rc != 0:
+                raise AssertionError(f"detect --data-parallel {dp} exited {rc}:\n{log[-3000:]}")
+            dumps.append(_txt_rows(tmp / f"dp{dp}"))
+        if dumps[0] != dumps[1] or len(dumps[0]) != len(names):
+            raise AssertionError("detect --data-parallel 1 wrote other files than 0")
+        if n["nms_keep"] != 1 or n["int8_conv"] != n_convs:
+            raise AssertionError(f"detect --data-parallel 1 launched {n}")
+        launches["detect_dp1"] = n
+    out["a_mesh_of_one"] = {"backend": "nccl", "int8_bit_exact": True, "bf16_bit_exact": True,
+                            "detect_dp1_files_equal": True,
+                            "launches": {k: launches[k] for k in ("mesh1_int8", "mesh1_bf16",
+                                                                  "detect_dp1")}}
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (b) four processes serving the int8 bundle on the card under gloo
+        np.savez(tmp / "images.npz", images=images)
+        t0 = time.perf_counter()
+        reports = launch_workers("serve", {"bundle": bundle, "images": str(tmp / "images.npz"),
+                                           "out": str(tmp / "serve")}, MULTI_PROCS, 600)
+        serve_s = time.perf_counter() - t0
+        for r, rep in enumerate(reports):
+            n = rep["launches"]
+            if n["nms_keep"] != 1 or n["int8_conv"] != n_convs:
+                raise AssertionError(f"serving process {r} launched {n}")
+        with np.load(tmp / "serve.dets.npz") as f:
+            got = {k: f[k] for k in fields}
+        exact = all(np.array_equal(got[k], one_int8[k]) for k in fields)
+        serving = {"rows_per_process": reports[0]["rows"], "bit_exact_to_one_process": exact,
+                   "ms_per_batch_per_process": [rep["ms_per_batch"] for rep in reports],
+                   "images_per_s_four_processes_sharing_one_card":
+                       MULTI_BATCH * MULTI_TIMED / max(rep["wall_s"] for rep in reports),
+                   "peak_mem_gib_per_process": [rep["peak_mem_gib"] for rep in reports],
+                   "launches_per_process": [rep["launches"] for rep in reports],
+                   "seconds": serve_s}
+        if not exact:
+            if got["valid"].sum(1).tolist() != one_int8["valid"].sum(1).tolist():
+                raise AssertionError("gloo serving: detection counts differ from one process")
+            serving["against_one_process"] = match_detections(got, one_int8, MULTI_MATCH_IOU,
+                                                              MULTI_MATCH_CONF)
+        out["b_gloo_serving"] = serving
+        launches["gloo4_serve"] = _sum_launches(reports, "launches")
+
+        # (c) tensor parallelism: float32 b8 against one process, bf16 b32 timed
+        cfg16 = train_config()
+        cfg32 = dataclasses.replace(cfg16, model=dataclasses.replace(cfg16.model,
+                                                                     compute_dtype="float32"))
+        anchors = anchors_for_preset(cfg32.model.preset)
+        host = ssd_vgg.init_params(cfg32.model, seed)
+        state = train_step.make_train_state(host, cfg32, device=device)
+        save_checkpoint(str(tmp / "state.ckpt.npz"), state)
+        data = train_batch(np.random.default_rng(seed + 16), TP_FLOAT_BATCH, 512,
+                           cfg32.model.num_classes)
+        np.savez(tmp / "batch.npz", **data)
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        step32, flips = train_step.make_train_step(cfg32, anchors), []
+        try:
+            refs = {"plain": step32(state, data)}
+            with conv7_in_two_halves(flips):
+                refs["halves"] = step32(state, data)
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        refs = {k: (v[0].params, v[0].opt_state.trace, {n: float(x) for n, x in v[1].items()})
+                for k, v in refs.items()}
+        del state
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        reports = launch_workers("tp", {"state": str(tmp / "state.ckpt.npz"),
+                                        "batch": str(tmp / "batch.npz"), "seed": seed,
+                                        "checkpoint": str(tmp / "tp.ckpt.npz"),
+                                        "out": str(tmp / "tp")}, MULTI_PROCS, 900)
+        tp_s = time.perf_counter() - t0
+        if any(rep["losses"] != reports[0]["losses"] for rep in reports):
+            raise AssertionError("the tensor-parallel processes disagree on the losses")
+        want_shapes = {"mod_conv6/w": [512, 512, 3, 3], "mod_conv6/b": [512],
+                       "mod_conv7/w": [1024, 512, 1, 1], "mod_conv7/b": [1024]}
+        if any(rep["shapes"] != want_shapes for rep in reports):
+            raise AssertionError(f"shard shapes {[rep['shapes'] for rep in reports]}")
+        for r, rep in enumerate(reports):
+            if rep["launches"]["nms_keep"] != 1:
+                raise AssertionError(f"tensor-parallel process {r} launched {rep['launches']}")
+        template = train_step.make_train_state(host, cfg32, device="cpu")
+        gathered = restore_checkpoint(str(tmp / "tp.ckpt.npz"), template)
+        zeros = {n: {k: torch.zeros_like(v) for k, v in d.items()} for n, d in host.items()}
+        if not sum(flips) <= TP_MAX_FLIPS:
+            raise AssertionError(f"conv7 in two halves flips {flips} ReLUs, over {TP_MAX_FLIPS}")
+        against = {}
+        for name in ("halves", "plain"):
+            params, trace, losses = refs[name]
+            loss_rel = {k: abs(reports[0]["losses"][k] - v) / abs(v) for k, v in losses.items()}
+            if not max(loss_rel.values()) <= TP_LOSS:
+                raise AssertionError(f"tensor-parallel losses off the {name} step: {loss_rel}")
+            # against the plain step, conv7 apart at its own bound
+            conv7 = name == "plain"
+            parts = {"": ([n for n in host if not (conv7 and n == "mod_conv7")], TP_UPDATE)}
+            if conv7:
+                parts["_mod_conv7"] = (["mod_conv7"], TP_PLAIN_CONV7)
+            against[name] = {"loss_rel_err": loss_rel}
+            for key, (layers, tol) in parts.items():
+                old = {n: host[n] for n in layers}
+                against[name]["param_update_rel_err_max" + key] = _updates_within(
+                    gathered.params, params, old, tol)
+                against[name]["momentum_rel_err_max" + key] = _updates_within(
+                    gathered.opt_state.trace, trace, {n: zeros[n] for n in layers}, tol)
+        out["c_tensor_parallel"] = {
+            "mesh": {"data": 2, "model": 2}, "float32_batch": TP_FLOAT_BATCH,
+            "against_one_process_conv7_in_halves": against["halves"],
+            "against_one_process": against["plain"], "conv7_relu_flips": flips,
+            "shard_shapes": reports[0]["shapes"],
+            "bf16_batch": TP_BF16_BATCH,
+            "bf16_ms_per_step_per_process": [rep["bf16_ms_per_step"] for rep in reports],
+            "one_process_bf16_ms_per_step_phase6": bare_step_ms,
+            "bf16_losses": reports[0]["bf16_losses"],
+            "bf16_peak_mem_gib_per_process": [rep["bf16_peak_mem_gib"] for rep in reports],
+            "seconds": tp_s}
+        launches["tp_step"] = _sum_launches(reports, "launches")
+        del refs, gathered, template
+
+    # (d) the one-device entry, then the dry run hosting its four processes
+    from ssd_tensorflow_tpu_torch import multichip
+    from ssd_tensorflow_tpu_torch.presets import get_preset_by_name
+
+    fn, args = multichip.entry()
+    result, n = counted(lambda: fn(*args))
+    result = result.float()
+    anchors300 = anchors_for_preset(get_preset_by_name("vgg300")).shape[0]
+    probs = result[..., :21].sum(-1)
+    if (tuple(result.shape) != (8, anchors300, 25) or not bool(torch.isfinite(result).all())
+            or float((probs - 1).abs().max()) > 1e-2 or n["fused_stem"] != 1):
+        raise AssertionError(f"multichip.entry(): shape {tuple(result.shape)}, launches {n}, "
+                             f"probability sums off by {float((probs - 1).abs().max())}")
+    launches["entry"] = n
+    out["d_entry"] = {"shape": list(result.shape), "launches": n}
+    del fn, args, result, probs
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "from ssd_tensorflow_tpu_torch import multichip; "
+         f"multichip.dryrun_multichip({MULTI_PROCS})"],
+        cwd=str(root), env=_unlaunched_env(), capture_output=True, text=True, timeout=900)
+    ok = [ln for ln in proc.stdout.splitlines() if "dryrun_multichip ok" in ln]
+    if proc.returncode != 0 or not ok or "mesh={'data': 2, 'model': 2}" not in ok[0]:
+        raise AssertionError(f"dryrun_multichip({MULTI_PROCS}) on the card: rc "
+                             f"{proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    out["d_dryrun"] = {"line": ok[0], "seconds": time.perf_counter() - t0}
+    out["seconds"] = time.perf_counter() - t_phase
+    _emit(out)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--worker", nargs=2, metavar=("MODE", "PAYLOAD"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -2683,6 +3143,8 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check needs a GPU",
               file=sys.stderr)
         return 2
+    if args.worker:  # one process of phase 15's gloo runs
+        return run_worker(args.worker[0], json.loads(args.worker[1]))
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import numpy as np
 
@@ -2754,6 +3216,9 @@ def main(argv=None) -> int:
     launches["train_cli"] = train_cli_path(args.seed, device, bare_step_ms)
     # 14. the serving and evaluation CLIs
     launches.update({f"serving_cli:{k}": v for k, v in serving_cli_path(root, device).items()})
+    # 15. data-parallel serving, tensor parallelism and the dry run
+    launches.update({f"multichip:{k}": v
+                     for k, v in multichip_path(root, args.seed, device, bare_step_ms).items()})
     with torch.inference_mode():
         _, launches["fused_stem_pallas"] = counted(
             lambda: stem_cuda.fused_stem_pallas(model.params, images, MEAN_BGR))

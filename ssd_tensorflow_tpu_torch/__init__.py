@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from ssd_tensorflow_tpu_torch.presets import SSD_PRESETS, SSDPreset, get_preset_by_name
-from ssd_tensorflow_tpu_torch.types import Box, Point, Size
+from ssd_tensorflow_tpu_torch.types import Box, Label, Point, Sample, Size
 
 __version__ = "0.1.0"
 
@@ -40,9 +40,25 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def lazy_exports(package: str, names: dict):
+    """The ``__getattr__`` of a subpackage that exports ``names`` (public
+    name -> its module in ``package``): each is imported on first use, so
+    that importing one module of the subpackage loads no other."""
+    import importlib
+
+    def __getattr__(name):
+        if name not in names:
+            raise AttributeError(f"module {package!r} has no attribute {name!r}")
+        return getattr(importlib.import_module(f"{package}.{names[name]}"), name)
+
+    return __getattr__
+
+
 __all__ = [
     "Box",
+    "Label",
     "Point",
+    "Sample",
     "Size",
     "SSDPreset",
     "SSD_PRESETS",

@@ -8,9 +8,11 @@ annotated images and per-image ``.txt`` box dumps, one line ``label
 labelid cx cy w h`` a detection. Needs only the bundle, which carries the
 label map. The same flags as the JAX CLI, plus ``--device`` (``cuda``
 unless asked for ``cpu``); ``--pallas-stem`` and ``--padded-heads`` pass
-through as the façade's overrides, and ``--data-parallel N`` with N >= 1
-exits 1 (ROADMAP.md queue 1 item 12). Images are decoded, drawn and
-written through ``data/image_io.py``.
+through as the façade's overrides. ``--data-parallel N`` splits each
+batch over the N processes of a launch (``torchrun --nproc-per-node N -m
+ssd_tensorflow_tpu_torch.cli.detect --data-parallel N ...``, NCCL on the
+cards, gloo with ``--device cpu``); rank 0 writes the files. Images are
+decoded, drawn and written through ``data/image_io.py``.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import json
 import os
 import sys
 
-from ssd_tensorflow_tpu_torch.cli import DATA_PARALLEL_LEFT
+from ssd_tensorflow_tpu_torch.cli import leave_process_group, serving_mesh
 from ssd_tensorflow_tpu_torch.data import image_io
 from ssd_tensorflow_tpu_torch.inference import InferenceModel
 from ssd_tensorflow_tpu_torch.ops.postprocess import DetectionConfig
@@ -52,8 +54,9 @@ def build_parser():
     )
     parser.add_argument(
         "--data-parallel", type=int, default=0, metavar="N",
-        help="shard each batch over N devices; only 0 (one device) is available in the "
-        "port (ROADMAP.md queue 1 item 12)",
+        help="shard each batch over N devices (params replicated, batch split over the N "
+        "processes of a torchrun launch); 0 = single device. Batch size must be divisible "
+        "by N",
     )
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="where the model runs")
@@ -72,9 +75,15 @@ def main(argv=None):
         overrides["padded_heads"] = True
     if args.pallas_stem:
         overrides["pallas_stem"] = True
+    mesh = None
     if args.data_parallel:
-        print(DATA_PARALLEL_LEFT)
-        return 1
+        mesh, error = serving_mesh(args.data_parallel, args.batch_size, args.device,
+                                   "ssd_tensorflow_tpu_torch.cli.detect")
+        if error:
+            print(error)
+            return 1
+        print(f"[i] Data-parallel mesh: {args.data_parallel} devices")
+    writes = mesh is None or mesh.coordinate == {"data": 0, "model": 0}
     model = InferenceModel.from_bundle(
         args.model,
         detection=DetectionConfig(
@@ -82,6 +91,7 @@ def main(argv=None):
         ),
         overrides=overrides,
         device=args.device,
+        mesh=mesh,
     )
     # (incompatible --pallas-stem combinations are reported and dropped
     # by InferenceModel itself)
@@ -93,7 +103,8 @@ def main(argv=None):
                 k: tuple(v) for k, v in json.load(f)["colors"].items()
             }
 
-    os.makedirs(args.output_dir, exist_ok=True)
+    if writes:
+        os.makedirs(args.output_dir, exist_ok=True)
 
     files = args.files
     for off in range(0, len(files), args.batch_size):
@@ -101,6 +112,8 @@ def main(argv=None):
         padded = chunk + [chunk[-1]] * (args.batch_size - len(chunk))
         images, _ = model.preprocess_files(padded)
         boxes_list = model.detect_boxes(images)
+        if not writes:
+            continue
 
         for i, fname in enumerate(chunk):
             boxes = boxes_list[i]
@@ -125,7 +138,11 @@ def main(argv=None):
 
 
 def run():
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        leave_process_group()
+    sys.exit(rc)
 
 
 if __name__ == "__main__":

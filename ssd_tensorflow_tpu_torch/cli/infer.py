@@ -9,8 +9,11 @@ the detections, dumps the raw ``(A, K+5)`` predictions as ``.npy``
 eval-server and COCO results files. Batches are padded to
 ``--batch-size`` with the last file and trimmed, as the JAX CLI does. The
 same flags as the JAX CLI, plus ``--device`` (``cuda`` unless asked for
-``cpu``); ``--data-parallel N`` with N >= 1 exits 1 (ROADMAP.md queue 1
-item 12). Images are decoded and drawn through ``data/image_io.py``.
+``cpu``). ``--data-parallel N`` splits each batch over the N processes of
+a launch (``torchrun --nproc-per-node N -m
+ssd_tensorflow_tpu_torch.cli.infer --data-parallel N ...``); rank 0
+writes the files and prints AP. Images are decoded and drawn through
+``data/image_io.py``.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import sys
 
 import numpy as np
 
-from ssd_tensorflow_tpu_torch.cli import DATA_PARALLEL_LEFT
+from ssd_tensorflow_tpu_torch.cli import leave_process_group, serving_mesh
 from ssd_tensorflow_tpu_torch.data import image_io
 from ssd_tensorflow_tpu_torch.data.sources import load_data_source
 from ssd_tensorflow_tpu_torch.eval.average_precision import APCalculator, APs2mAP
@@ -78,8 +81,9 @@ def build_parser():
     )
     parser.add_argument(
         "--data-parallel", type=int, default=0, metavar="N",
-        help="shard each batch over N devices; only 0 (one device) is available in the "
-        "port (ROADMAP.md queue 1 item 12)",
+        help="shard each batch over N devices (params replicated, batch split over the N "
+        "processes of a torchrun launch); 0 = single device. Batch size must be divisible "
+        "by N",
     )
     parser.add_argument(
         "--pascal-summary", type=str2bool, default="False",
@@ -101,9 +105,6 @@ def main(argv=None):
 
     for k, v in sorted(vars(args).items()):
         print(f"[i] {k.replace('_', ' ').capitalize():24s}: {v}")
-    if args.data_parallel:
-        print(DATA_PARALLEL_LEFT)
-        return 1
 
     # checkpoint
     if args.bundle:
@@ -155,21 +156,31 @@ def main(argv=None):
 
     detection = DetectionConfig(top_k=200, confidence_threshold=args.threshold)
     overrides = {"padded_heads": True} if args.padded_heads else {}
+    mesh = None
+    if args.data_parallel:
+        mesh, error = serving_mesh(args.data_parallel, args.batch_size, args.device,
+                                   "ssd_tensorflow_tpu_torch.cli.infer")
+        if error:
+            print(error)
+            return 1
+        print(f"[i] Data-parallel mesh:    {args.data_parallel} devices")
+    writes = mesh is None or mesh.coordinate == {"data": 0, "model": 0}
     if args.bundle:
         model = InferenceModel.from_bundle(
-            args.bundle, detection=detection, overrides=overrides, device=args.device
+            args.bundle, detection=detection, overrides=overrides, device=args.device, mesh=mesh
         )
     else:
         model = InferenceModel.from_checkpoint(
-            ckpt_path, detection=detection, overrides=overrides, device=args.device
+            ckpt_path, detection=detection, overrides=overrides, device=args.device, mesh=mesh
         )
 
-    os.makedirs(args.output_dir, exist_ok=True)
+    if writes:
+        os.makedirs(args.output_dir, exist_ok=True)
 
-    ap_calc = APCalculator() if (args.compute_stats and gt_by_file) else None
-    summary = PascalSummary() if args.pascal_summary else None
+    ap_calc = APCalculator() if (writes and args.compute_stats and gt_by_file) else None
+    summary = PascalSummary() if writes and args.pascal_summary else None
     coco_results = None
-    if args.coco_results:
+    if writes and args.coco_results:
         coco_results = CocoResultsWriter(
             image_ids=getattr(source, "image_ids", None),
             cat_ids=getattr(source, "cat_ids", None),
@@ -200,6 +211,8 @@ def main(argv=None):
         else:
             # throughput scores path (lazy softmax)
             boxes_list = model.detect_boxes(images)
+        if not writes:
+            continue
 
         for i, fname in enumerate(chunk):
             boxes = boxes_list[i]
@@ -245,7 +258,11 @@ def main(argv=None):
 
 
 def run():
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        leave_process_group()
+    sys.exit(rc)
 
 
 if __name__ == "__main__":

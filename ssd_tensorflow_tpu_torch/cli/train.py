@@ -338,10 +338,10 @@ def main(argv=None):
         qat_fwd = qat.make_qat_forward(model_cfg, act_scales)
         train_step = qat.make_qat_train_step(train_cfg, anchors, act_scales)
         # evaluate the network QAT optimizes, not the float one
-        eval_step = make_eval_step(train_cfg, anchors, forward=qat_fwd)
+        eval_step = make_eval_step(train_cfg, anchors, forward=qat_fwd, mesh=mesh)
     else:
         train_step = make_train_step(train_cfg, anchors)
-        eval_step = make_eval_step(train_cfg, anchors)
+        eval_step = make_eval_step(train_cfg, anchors, mesh=mesh)
 
     augment_fn = None
     if args.device_augment:

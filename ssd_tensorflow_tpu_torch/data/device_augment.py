@@ -407,6 +407,18 @@ def apply_augment(draws: Draws, batch, anchors, cfg: AugmentConfig):
             "gt_boxes": boxes, "gt_labels": batch["gt_labels"], "gt_mask": mask}
 
 
+def augment_image(key, img_u8, boxes, labels, mask, anchors, cfg: AugmentConfig):
+    """The whole chain for one image, the JAX package's ``augment_image``:
+    ``img_u8 (H, W, 3)`` uint8, ``boxes (G, 4)``, ``labels (G,)``, ``mask
+    (G,)`` -> ``(image (out_h, out_w, 3) uint8, boxes, labels, mask)``.
+    ``key`` is a ``torch.Generator`` to draw from, or the :class:`Draws`
+    of one image."""
+    draws = key if isinstance(key, Draws) else draw_augment(key, 1, cfg)
+    out = apply_augment(draws, {"images": img_u8[None], "gt_boxes": boxes[None],
+                                "gt_labels": labels[None], "gt_mask": mask[None]}, anchors, cfg)
+    return out["images"][0], out["gt_boxes"][0], out["gt_labels"][0], out["gt_mask"][0]
+
+
 def draws_rows(draws: Draws, rows: slice) -> Draws:
     """The draws of ``rows`` of a batch."""
     return Draws(**{f.name: getattr(draws, f.name)[rows] for f in dataclasses.fields(draws)})

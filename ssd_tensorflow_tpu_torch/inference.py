@@ -214,7 +214,8 @@ def _apply_overrides(model_cfg: ModelConfig, overrides: dict, int8: bool = False
 
 
 class InferenceModel:
-    """End-to-end detector: uint8 BGR batch -> detections, on one device.
+    """End-to-end detector: uint8 BGR batch -> detections, on one device,
+    or data-parallel over a mesh.
 
     With ``act_scales`` given, ``params`` are int8 q-params (an int8
     bundle's, or ``models/quantized.quantize_weights[_folded]``'; a family
@@ -223,13 +224,35 @@ class InferenceModel:
     the float path, of any family. ``overrides`` holds
     execution-backend fields of the model config, applied per run and
     never serialized (see :func:`_apply_overrides`).
+
+    Data-parallel serving (``mesh`` from ``parallel/mesh.make_mesh``): the
+    parameters are rank 0's, broadcast to every process, which runs on
+    its own device (``device`` is ignored) and takes its rows of each
+    batch, split over the mesh's ``data`` dimension; a batch that does not
+    divide raises. The whole program is per image, so each process
+    computes its rows alone, and ``run`` / ``run_scores`` gather the whole
+    batch's result onto every process (``sharding.gather_rows``).
+    ``mesh=None`` is one device.
     """
 
     def __init__(self, params, model_cfg: ModelConfig, lid2name=None,
                  detection: DetectionConfig | None = None, overrides: dict | None = None,
-                 device="cuda", act_scales: dict | None = None):
+                 device="cuda", act_scales: dict | None = None, mesh=None):
         if overrides:
             model_cfg = _apply_overrides(model_cfg, overrides, int8=act_scales is not None)
+        self.mesh = mesh
+        if mesh is not None:
+            from ssd_tensorflow_tpu_torch.parallel.mesh import mesh_device
+            from ssd_tensorflow_tpu_torch.parallel.sharding import replicate
+
+            # broadcast on the device (NCCL takes no host tensors), then
+            # staged from the host as without a mesh
+            device = mesh_device(mesh)
+            params = {name: {key: v.detach().to(device, copy=True) for key, v in leaves.items()}
+                      for name, leaves in params.items()}
+            replicate([v for leaves in params.values() for v in leaves.values()])
+            params = {name: {key: v.cpu() for key, v in leaves.items()}
+                      for name, leaves in params.items()}
         self.device = resolve_device(device)
         self.config = model_cfg
         self.preset = model_cfg.preset
@@ -280,22 +303,51 @@ class InferenceModel:
         return out, sizes
 
     def _batch(self, images):
+        """The batch on the device: under a mesh, this process's rows."""
         x = images if torch.is_tensor(images) else torch.from_numpy(np.ascontiguousarray(images))
+        if self.mesh is not None:
+            from ssd_tensorflow_tpu_torch.parallel.sharding import batch_rows
+
+            b, d = x.shape[0], self.mesh.shape["data"]
+            if b % d:
+                raise ValueError(
+                    f"batch {b} not divisible by the data-parallel mesh "
+                    f"size {d} — pad the batch (fixed shapes keep one "
+                    "compiled program anyway, see cli/infer.py)"
+                )
+            x = x[batch_rows(b, self.mesh)]
         return x.to(self.device)
+
+    def _whole(self, *tensors):
+        """``tensors`` (this process's rows) as the whole batch's: gathered
+        over the mesh's ``data`` group, or as they are without a mesh."""
+        if self.mesh is None:
+            return tensors
+        from ssd_tensorflow_tpu_torch.parallel.sharding import gather_rows
+
+        return gather_rows(list(tensors), self.mesh)
+
+    def _whole_detections(self, dets: Detections) -> Detections:
+        return Detections(*self._whole(dets.boxes, dets.scores, dets.classes, dets.valid))
 
     def run(self, images):
         """Forward + decode + NMS of ``(B, H, W, 3)`` uint8 BGR images,
         keeping the raw result: ``(result (B, A, K+5), Detections)``, the
         result the softmax probabilities then the 4 offsets of each anchor
         (the int8 or the float forward, as the model was built), the
-        detections :func:`ops.postprocess.detect` of it."""
+        detections :func:`ops.postprocess.detect` of it; under a mesh, the
+        whole batch's on every process."""
         with torch.inference_mode():
             x = self._batch(images)
             if self.act_scales is not None:
                 result = quantized._forward(self.params, x, self.config)
             else:
                 result = apply_result(self.params, x, self.config)
-            return result, detect(result, self.anchors, self.detection)
+            dets = detect(result, self.anchors, self.detection)
+            if self.mesh is None:
+                return result, dets
+            (result,) = self._whole(result)
+            return result, self._whole_detections(dets)
 
     def forward_scores(self, x):
         """Per-anchor ``(conf, cls, locs)`` of a uint8 batch on the device:
@@ -306,10 +358,12 @@ class InferenceModel:
 
     def run_scores(self, images) -> Detections:
         """Forward + lazy softmax + decode + NMS of ``(B, H, W, 3)`` uint8
-        BGR images (numpy or tensor); tensors stay on the device."""
+        BGR images (numpy or tensor); tensors stay on the device. Under a
+        mesh, the whole batch's detections on every process."""
         with torch.inference_mode():
             conf, cls, locs = self.forward_scores(self._batch(images))
-            return decode_scores(conf, cls, locs, self.anchors, self.detection)
+            dets = decode_scores(conf, cls, locs, self.anchors, self.detection)
+            return dets if self.mesh is None else self._whole_detections(dets)
 
     def detect_boxes(self, images):
         """Detections as host lists of ``(conf, Box)`` with label names."""

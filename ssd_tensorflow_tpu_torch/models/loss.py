@@ -65,22 +65,33 @@ def multibox_loss(logits, locs, labels, num_classes: int):
     return {"confidence": confidence, "localization": localization}
 
 
-def l2_regularizer(params):
+def l2_regularizer(params, shards=None):
     """``0.5 * sum(w^2)`` over every layer's conv filter ``"w"`` in float32.
     Staged inference leaves (the heads' ``"wb"``) are not parameters and
-    are skipped."""
-    total = 0.0
-    for leaf in params.values():
+    are skipped. With ``shards`` (a ``parallel/tensor_parallel.ModelShards``)
+    the terms of the layers it splits are this process's shards': they are
+    summed over its ``model`` group, so the value is the whole model's on
+    every process and each shard's gradient stays its own."""
+    total, split = 0.0, 0.0
+    for name, leaf in params.items():
         if isinstance(leaf, dict) and "w" in leaf:
             w = leaf["w"].float()
-            total = total + 0.5 * (w * w).sum()
+            term = 0.5 * (w * w).sum()
+            if shards is not None and name in shards.layers:
+                split = split + term
+            else:
+                total = total + term
+    if torch.is_tensor(split):
+        total = total + shards.sum(split)
     return total
 
 
-def total_loss(logits, locs, labels, params, num_classes: int, weight_decay: float):
-    """``confidence + localization + weight_decay * l2``."""
+def total_loss(logits, locs, labels, params, num_classes: int, weight_decay: float,
+               shards=None):
+    """``confidence + localization + weight_decay * l2`` (``shards``: see
+    :func:`l2_regularizer`)."""
     losses = multibox_loss(logits, locs, labels, num_classes)
-    l2 = weight_decay * l2_regularizer(params)
+    l2 = weight_decay * l2_regularizer(params, shards)
     losses["l2"] = l2
     losses["total"] = losses["confidence"] + losses["localization"] + l2
     return losses

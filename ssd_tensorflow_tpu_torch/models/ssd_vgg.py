@@ -233,19 +233,20 @@ def preprocess(images, config: ModelConfig):
     return (images.float() - mean).to(config.dtype)
 
 
-def _backbone(params, images, config: ModelConfig, train: bool = False):
+def _backbone(params, images, config: ModelConfig, train: bool = False, shards=None):
     """Preprocess + VGG trunk -> (conv4_3, mod_conv7), NHWC. The uint8
     stem preprocesses inside its kernel, from images cast to uint8 as in
     the JAX package. A float32 forward and the training forward (``train``)
-    run the conv1 block as plain convolutions."""
+    run the conv1 block as plain convolutions. ``shards``: conv6 / conv7
+    tensor-parallel (``vgg16.apply_backbone``)."""
     if train or config.dtype != torch.bfloat16:
         return vgg16.apply_backbone(params, preprocess(images, config), config.a_trous,
-                                    train=train)
+                                    train=train, shards=shards)
     if config.pallas_stem_variant == "uint8":
         pool1 = vgg16.conv1_block_uint8(params, images.to(torch.uint8), config.mean_bgr)
     else:
         pool1 = vgg16.conv1_block(params, preprocess(images, config))
-    return vgg16.apply_backbone(params, pool1, config.a_trous, from_pool1=True)
+    return vgg16.apply_backbone(params, pool1, config.a_trous, from_pool1=True, shards=shards)
 
 
 def _extra_maps(params, conv4_3, x, config: ModelConfig, train: bool = False):
@@ -267,7 +268,7 @@ def _extra_maps(params, conv4_3, x, config: ModelConfig, train: bool = False):
     return maps
 
 
-def _feature_maps(params, images, config: ModelConfig, train: bool = False):
+def _feature_maps(params, images, config: ModelConfig, train: bool = False, shards=None):
     """Backbone + extra layers -> the preset's multibox source maps (NHWC).
     A family walks its module's ``walk_feature_maps`` with the float conv
     executor: the inference one, or with ``train`` the training one."""
@@ -275,7 +276,7 @@ def _feature_maps(params, images, config: ModelConfig, train: bool = False):
     if fam is not None:
         return fam.walk_feature_maps(params, preprocess(images, config), config.preset,
                                      float_conv_executor(params, inference=not train))
-    return _extra_maps(params, *_backbone(params, images, config, train), config, train)
+    return _extra_maps(params, *_backbone(params, images, config, train, shards), config, train)
 
 
 def bias_in_layers(params, config: ModelConfig):
@@ -318,7 +319,7 @@ def _head_maps(params, maps, config: ModelConfig, train: bool = False):
     return out
 
 
-def apply_model(params, images, config: ModelConfig, *, inference: bool = True):
+def apply_model(params, images, config: ModelConfig, *, inference: bool = True, shards=None):
     """Forward pass of ``(B, H, W, 3)`` raw BGR images.
 
     Returns ``(logits, locs)``: ``(B, A, K+1)`` float32 class logits and
@@ -329,10 +330,13 @@ def apply_model(params, images, config: ModelConfig, *, inference: bool = True):
     the training route, differentiable, with the JAX package's training
     math (two roundings per bf16 conv, see ``layers.conv2d_train``). The
     JAX package's ``apply_model`` defaults to ``inference=False``.
+
+    ``shards`` (a ``parallel/tensor_parallel.ModelShards``): ``params``
+    hold this process's shard of conv6 / conv7, run tensor-parallel.
     """
     train = not inference
     with full_float32(config.dtype):
-        maps = _feature_maps(params, images, config, train)
+        maps = _feature_maps(params, images, config, train, shards)
         heads = _head_maps(params, maps, config, train)
     out = anchor_order(heads, config).float()
     return out[:, :, : config.num_classes + 1], out[:, :, config.num_classes + 1 :]

@@ -63,7 +63,7 @@ def conv1_block_uint8(params, images, mean_bgr):
 
 
 def apply_backbone(params, x, a_trous: bool = True, from_pool1: bool = False,
-                   train: bool = False):
+                   train: bool = False, shards=None):
     """VGG-16 trunk -> (conv4_3 relu, mod_conv7 relu), NHWC.
 
     pool5 is 3x3 stride-1 SAME; conv6 is the rate-6 dilated conv.
@@ -72,6 +72,11 @@ def apply_backbone(params, x, a_trous: bool = True, from_pool1: bool = False,
     differentiable training conv (``layers.conv_relu_train``), the conv1
     block included, as plain convolutions and a pool: the JAX package's
     training forward never takes a stem kernel.
+
+    ``shards`` (a ``parallel/tensor_parallel.ModelShards``) says that
+    ``params`` hold this process's shard of conv6 / conv7
+    (``parallel/sharding.shard_params``): conv6 then runs column-parallel
+    and conv7 row-parallel over its ``model`` group, on either route.
     """
     conv = conv_relu_train if train else conv_relu
     conv4_3 = None
@@ -84,9 +89,11 @@ def apply_backbone(params, x, a_trous: bool = True, from_pool1: bool = False,
         if name in _POOL_AFTER:
             x = max_pool(x, 2, 2)
     x = max_pool(x, 3, 1)
-    x = conv(params["mod_conv6"], x, dilation=6 if a_trous else 1)
-    x = conv(params["mod_conv7"], x)
-    return conv4_3, x
+    if shards is None:
+        x = conv(params["mod_conv6"], x, dilation=6 if a_trous else 1)
+        return conv4_3, conv(params["mod_conv7"], x)
+    x = conv(params["mod_conv6"], shards.copy_in(x), dilation=6 if a_trous else 1)
+    return conv4_3, shards.row_conv_relu(params["mod_conv7"], x)
 
 
 def decimate_fc6(fc6_w: np.ndarray, fc6_b: np.ndarray):

@@ -9,10 +9,11 @@ cells — the order the multibox heads' outputs are concatenated in.
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 
 import numpy as np
 
-from ssd_tensorflow_tpu_torch.presets import SSDPreset
+from ssd_tensorflow_tpu_torch.presets import SSDPreset, get_preset_by_name
 
 
 def _box_sizes_for_preset(preset: SSDPreset):
@@ -51,3 +52,16 @@ def anchors_for_preset(preset: SSDPreset) -> np.ndarray:
             f"anchor count mismatch: {anchors.shape[0]} != {preset.num_anchors}"
         )
     return anchors
+
+
+@lru_cache(maxsize=None)
+def anchors_by_name(preset_name: str) -> np.ndarray:
+    """The anchors of a named preset, cached (read-only)."""
+    a = anchors_for_preset(get_preset_by_name(preset_name))
+    a.setflags(write=False)
+    return a
+
+
+def num_anchors_per_map(preset: SSDPreset):
+    """Anchors contributed by each feature map."""
+    return [m.size.w * m.size.h * m.num_shapes for m in preset.maps]

@@ -19,11 +19,22 @@ both ways (``utils/checkpoint.py`` writes the JAX package's layout).
 Data parallelism: under a process group (``parallel/mesh.py``), the state
 placed by :func:`shard_state` (rank 0's, broadcast) and each rank feeding
 its own rows of the batch (:func:`shard_batch`), the step averages the
-gradients and the losses over the group before the update: one
-``all_reduce`` of a float32 buffer, summed, then divided by the world
-size. The loss is a batch mean of per-sample terms (``models/loss.py``) and
-nothing normalizes across samples, so the mean of the ranks' means is the
-global batch's, and the losses returned are the global batch's.
+gradients and the losses over the ``data`` group of the mesh the state
+was placed on (every process of the group where it names none) before
+the update: one ``all_reduce`` of a float32
+buffer, summed, then divided by the group's size. The loss is a batch
+mean of per-sample terms (``models/loss.py``) and nothing normalizes
+across samples, so the mean of the ranks' means is the global batch's,
+and the losses returned are the global batch's.
+
+Tensor parallelism: ``shard_state(tensor_parallel=True)`` on a mesh with
+a ``model`` dimension keeps each process's slice of conv6 / conv7 and of
+their momentum (``sharding.shard_params``) and records the mesh on the
+state; the forward and the L2 term sum over its ``model`` group
+(``parallel/tensor_parallel.ModelShards``), so every
+process of a ``model`` group holds the same losses and the same
+gradients of the whole leaves, and its own shard's gradient. Averaging
+over ``data`` only keeps two shards from being mixed.
 ``TrainConfig.remat`` runs the forward under ``remat.checkpoint_dots_only``.
 """
 
@@ -47,9 +58,13 @@ from ssd_tensorflow_tpu_torch.parallel.remat import checkpoint_dots_only
 from ssd_tensorflow_tpu_torch.parallel.sharding import (
     average,
     batch_rows,
+    gather_params,
+    group_of,
     replicate,
-    tensor_parallel_refusal,
+    shard_params,
+    use_tensor_parallel,
 )
+from ssd_tensorflow_tpu_torch.parallel.tensor_parallel import model_shards
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,9 +96,27 @@ class SGDState:
 
 @dataclasses.dataclass
 class TrainState:
+    """Parameters, optimizer state and step; :func:`shard_state` records
+    the ``mesh`` it placed them on and whether conv6 / conv7 and their
+    momentum are this process's shards (``tensor_parallel``)."""
+
     params: dict
     opt_state: SGDState
     step: int
+    mesh: object = None
+    tensor_parallel: bool = False
+
+    def gathered(self) -> "TrainState":
+        """The state with whole leaves on every process: a
+        tensor-parallel state's shards gathered over its mesh's ``model``
+        group (``sharding.gather_params``, a collective every process of
+        the mesh enters); any other state as it is."""
+        if not self.tensor_parallel:
+            return self
+        trace = gather_params(self.opt_state.trace, self.mesh)
+        return TrainState(params=gather_params(self.params, self.mesh),
+                          opt_state=SGDState(trace=trace, count=self.opt_state.count),
+                          step=self.step, mesh=self.mesh)
 
 
 def tree_map(fn, tree):
@@ -154,22 +187,28 @@ def batch_targets(batch, anchors, cfg: TrainConfig):
                                     batch["gt_mask"].bool(), anchors, cfg.model.num_classes)
 
 
-def model_outputs(params, images, cfg: TrainConfig, forward=None):
+def model_outputs(params, images, cfg: TrainConfig, forward=None, shards=None):
     """``(logits, locs)`` of the differentiable forward, or of ``forward``;
-    with ``cfg.remat`` and gradients on, under ``checkpoint_dots_only``."""
+    with ``cfg.remat`` and gradients on, under ``checkpoint_dots_only``.
+    ``shards``: conv6 / conv7 tensor-parallel (``ssd_vgg.apply_model``),
+    which only the model's own forward runs."""
     if forward is None:
-        forward = lambda p, x: apply_model(p, x, cfg.model, inference=False)  # noqa: E731
+        forward = lambda p, x: apply_model(p, x, cfg.model, inference=False,  # noqa: E731
+                                           shards=shards)
+    elif shards is not None:
+        raise ValueError("tensor parallelism runs the model's own forward, not a given one")
     if cfg.remat and torch.is_grad_enabled():
         forward = checkpoint_dots_only(forward)
     return forward(params, images)
 
 
-def loss_terms(params, batch, anchors, cfg: TrainConfig, forward=None):
+def loss_terms(params, batch, anchors, cfg: TrainConfig, forward=None, shards=None):
     """``(losses, logits, locs)`` of a batch: its targets, the forward and
     ``models/loss.total_loss``."""
     labels = batch_targets(batch, anchors, cfg)
-    logits, locs = model_outputs(params, batch["images"], cfg, forward)
-    losses = total_loss(logits, locs, labels, params, cfg.model.num_classes, cfg.weight_decay)
+    logits, locs = model_outputs(params, batch["images"], cfg, forward, shards)
+    losses = total_loss(logits, locs, labels, params, cfg.model.num_classes, cfg.weight_decay,
+                        shards)
     return losses, logits, locs
 
 
@@ -197,7 +236,9 @@ def make_train_step(cfg: TrainConfig, anchors, forward=None):
     the state's device). ``forward`` overrides the model forward
     ``(params, images) -> (logits, locs)``. The step returns a new state and
     leaves the old one as it was; ``losses`` are detached 0-d tensors. Under a process
-    group the gradients and losses are averaged over it (the module doc).
+    group the gradients and losses are averaged over the ``data`` group of
+    the state's mesh, and a tensor-parallel state runs conv6 / conv7 over
+    its ``model`` group (the module doc).
     """
     tx = make_optimizer(cfg)
     anchors = torch.as_tensor(np.asarray(anchors, dtype=np.float32))
@@ -208,26 +249,32 @@ def make_train_step(cfg: TrainConfig, anchors, forward=None):
         batch = _batch_on(batch, device)
         anc = _anchors_on(anchors, cache, device)
         leaves = tree_map(lambda v: v.detach().requires_grad_(True), state.params)
+        shards = model_shards(state.mesh, state.tensor_parallel)
         with full_float32(cfg.model.dtype):
-            losses, logits, locs = loss_terms(leaves, batch, anc, cfg, forward)
+            losses, logits, locs = loss_terms(leaves, batch, anc, cfg, forward, shards)
             flat = [v for d in leaves.values() for v in d.values()]
             flat_grads = list(torch.autograd.grad(losses["total"], flat))
         losses = {k: v.detach().reshape(()).clone() for k, v in losses.items()}
         with torch.no_grad():
-            average(flat_grads + list(losses.values()))
+            average(flat_grads + list(losses.values()), group_of(state.mesh, "data"))
             flat_grads = iter(flat_grads)
             grads = tree_map(lambda _: next(flat_grads), leaves)
             params, opt_state = tx.update(grads, state.opt_state, state.params)
         dets = detect(logits, locs, anc, cfg)
-        return TrainState(params=params, opt_state=opt_state, step=state.step + 1), losses, dets
+        new = dataclasses.replace(state, params=params, opt_state=opt_state, step=state.step + 1)
+        return new, losses, dets
 
     return step_fn
 
 
-def make_eval_step(cfg: TrainConfig, anchors, forward=None):
+def make_eval_step(cfg: TrainConfig, anchors, forward=None, mesh=None,
+                   tensor_parallel: bool = False):
     """Build the eval step ``(params, batch) -> (losses, detections)``: the
-    train step's losses (under a process group, the global batch's) and
-    detections, no gradient and no update."""
+    train step's losses (under a process group, the global batch's,
+    averaged over ``mesh``'s ``data`` group) and detections, no gradient and
+    no update. ``params`` of a state that ``shard_state`` placed on
+    ``mesh`` with ``tensor_parallel`` need the same two arguments here."""
+    shards = model_shards(mesh, tensor_parallel)
     anchors = torch.as_tensor(np.asarray(anchors, dtype=np.float32))
     cache = {}
 
@@ -236,9 +283,9 @@ def make_eval_step(cfg: TrainConfig, anchors, forward=None):
         batch = _batch_on(batch, device)
         anc = _anchors_on(anchors, cache, device)
         with torch.no_grad(), full_float32(cfg.model.dtype):
-            losses, logits, locs = loss_terms(params, batch, anc, cfg, forward)
+            losses, logits, locs = loss_terms(params, batch, anc, cfg, forward, shards)
             losses = {k: v.reshape(()).clone() for k, v in losses.items()}
-            average(list(losses.values()))
+            average(list(losses.values()), group_of(mesh, "data"))
         return losses, detect(logits, locs, anc, cfg)
 
     return step_fn
@@ -247,10 +294,11 @@ def make_eval_step(cfg: TrainConfig, anchors, forward=None):
 def shard_state(state: TrainState, mesh, tensor_parallel: bool = False) -> TrainState:
     """A copy of ``state`` placed on ``mesh``: on this process's device,
     parameters, momentum, count and step replicated from rank 0 (one
-    broadcast). ``mesh=None`` (one process, no group) returns ``state``.
-    ``tensor_parallel`` is not ported and raises."""
-    if tensor_parallel:
-        raise NotImplementedError(tensor_parallel_refusal())
+    broadcast); with ``tensor_parallel`` on a mesh with ``model`` > 1, each
+    process then keeps its slice of conv6 / conv7 and of their momentum
+    (``sharding.shard_params``). The state records ``mesh``, for the train
+    step and the checkpoint writer. ``mesh=None`` (one process, no group)
+    returns ``state``."""
     if mesh is None:
         return state
     device = mesh_device(mesh)
@@ -262,14 +310,18 @@ def shard_state(state: TrainState, mesh, tensor_parallel: bool = False) -> Train
     replicate([v for t in (params, trace) for d in t.values() for v in d.values()])
     dist.broadcast(counters, src=0)
     count, step = (int(v) for v in counters.tolist())
-    return TrainState(params=params, opt_state=SGDState(trace=trace, count=count), step=step)
+    tensor_parallel = use_tensor_parallel(mesh, tensor_parallel)
+    if tensor_parallel:
+        params, trace = shard_params(params, mesh), shard_params(trace, mesh)
+    return TrainState(params=params, opt_state=SGDState(trace=trace, count=count), step=step,
+                      mesh=mesh, tensor_parallel=tensor_parallel)
 
 
 def shard_batch(batch, mesh):
     """This process's rows of a global host batch (its leading dimension
-    split over the ``data`` dimension, in rank order), on its device.
+    split over the mesh's ``data`` dimension, in order), on its device.
     ``mesh=None`` returns ``batch``."""
     if mesh is None:
         return batch
-    rows = batch_rows(len(next(iter(batch.values()))))
+    rows = batch_rows(len(next(iter(batch.values()))), mesh)
     return _batch_on({k: v[rows] for k, v in batch.items()}, mesh_device(mesh))

@@ -9,6 +9,7 @@ in proportional center form ``(cx, cy, w, h)``. The dataset pickles that
 
 from __future__ import annotations
 
+import math
 from collections import namedtuple
 
 Label = namedtuple("Label", ["name", "color"])
@@ -16,6 +17,8 @@ Size = namedtuple("Size", ["w", "h"])
 Point = namedtuple("Point", ["x", "y"])
 Sample = namedtuple("Sample", ["filename", "boxes", "imgsize"])
 Box = namedtuple("Box", ["label", "labelid", "center", "size"])
+Score = namedtuple("Score", ["idx", "score"])
+Overlap = namedtuple("Overlap", ["best", "good"])
 
 #: The virtual canvas all protocol-sensitive IoU math is computed on.
 #: Proportional boxes are integerized onto a 1000x1000 grid and use the
@@ -40,6 +43,29 @@ def prop2abs(center, size, imgsize):
     cx = center.x * imgsize.w
     cy = center.y * imgsize.h
     return int(cx - w2), int(cx + w2), int(cy - h2), int(cy + h2)
+
+
+def box_is_valid(box):
+    """Whether none of a box's parameters is NaN or infinite."""
+    return not any(math.isnan(x) or math.isinf(x)
+                   for x in (box.center.x, box.center.y, box.size.w, box.size.h))
+
+
+def normalize_box(box):
+    """A valid box clamped to the 1000x1000 canvas (its integer corners,
+    with ``xmin <= xmax`` and ``ymin <= ymax`` kept for degenerate boxes);
+    an invalid one as it is."""
+    if not box_is_valid(box):
+        return box
+    xmin, xmax, ymin, ymax = prop2abs(box.center, box.size, CANVAS)
+    xmin = max(xmin, 0)
+    xmax = min(xmax, CANVAS.w - 1)
+    ymin = max(ymin, 0)
+    ymax = min(ymax, CANVAS.h - 1)
+    xmin = min(xmin, xmax)
+    ymin = min(ymin, ymax)
+    center, size = abs2prop(xmin, xmax, ymin, ymax, CANVAS)
+    return Box(box.label, box.labelid, center, size)
 
 
 def rgb2bgr(tpl):

@@ -12,7 +12,10 @@ the other wrote:
 
 Files are named ``e{N}.ckpt.npz`` per epoch and ``final.ckpt.npz`` at the
 end; :class:`CheckpointManager` writes on a worker thread and keeps the
-newest ``max_to_keep`` epochs. A training state crosses over as
+newest ``max_to_keep`` epochs. A tensor-parallel state is written whole
+(its shards gathered; rank 0 writes), so every file is an unsharded
+state's, as the JAX package saves whole arrays; ``shard_state`` slices it
+again after a restore. A training state crosses over as
 ``{"params", "trace", "count", "step"}`` in the JAX layout
 (:func:`train_state_to_jax` / :func:`train_state_from_jax`);
 :func:`read_params` reads only the params, for inference.
@@ -112,9 +115,25 @@ def _read_state(path: str, shapes: dict) -> dict:
     return tree
 
 
+def _whole_state(state: TrainState):
+    """``(state with whole leaves, whether this process writes)``. A
+    tensor-parallel state (``parallel/train_step.shard_state(
+    tensor_parallel=True)``) is gathered over its mesh's ``model`` group, a
+    collective that every process must enter, and only rank 0 writes; the
+    file is then the unsharded state's. Any other state is written by
+    whoever saves it."""
+    if not state.tensor_parallel:
+        return state, True
+    return state.gathered(), torch.distributed.get_rank() == 0
+
+
 def save_checkpoint(path: str, state: TrainState, config: dict | None = None):
-    """Synchronously write ``state`` to ``path`` (.npz, atomic rename)."""
-    _write(path, _leaves(train_state_to_jax(state)), config)
+    """Synchronously write ``state`` to ``path`` (.npz, atomic rename); a
+    tensor-parallel state as its whole leaves, by rank 0 (every process
+    calls this)."""
+    state, writes = _whole_state(state)
+    if writes:
+        _write(path, _leaves(train_state_to_jax(state)), config)
 
 
 def read_params(path: str, shapes: dict) -> dict:
@@ -202,8 +221,11 @@ class CheckpointManager:
                 pass
 
     def save(self, epoch, state: TrainState, final: bool = False) -> str:
-        leaves = _leaves(train_state_to_jax(state))
+        state, writes = _whole_state(state)
         path = os.path.join(self.directory, "final.ckpt.npz" if final else f"e{epoch}.ckpt.npz")
+        if not writes:
+            return path
+        leaves = _leaves(train_state_to_jax(state))
         config = dict(self.config or {}, epoch=int(epoch))
 
         def work():

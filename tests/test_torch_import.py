@@ -222,3 +222,12 @@ def test_image_io_without_opencv_raises():
         "        raise AssertionError('no error without cv2')\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_multichip_and_tensor_parallel_modules_are_scanned():
+    """The dry run and the tensor-parallel functions are among the modules
+    imported with ``jax`` blocked and scanned for imports of the JAX
+    package."""
+    sources = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {"ssd_tensorflow_tpu_torch/multichip.py",
+            "ssd_tensorflow_tpu_torch/parallel/tensor_parallel.py"} <= sources

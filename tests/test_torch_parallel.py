@@ -45,7 +45,7 @@ from ssd_tensorflow_tpu.parallel import train_step as jax_ts
 from ssd_tensorflow_tpu.presets import get_preset_by_name
 from ssd_tensorflow_tpu_torch.data import device_augment as da
 from ssd_tensorflow_tpu_torch.models import ssd_vgg
-from ssd_tensorflow_tpu_torch.parallel import mesh, multihost, prefetch, remat, sharding
+from ssd_tensorflow_tpu_torch.parallel import mesh, multihost, prefetch, remat, sharding, tensor_parallel
 from ssd_tensorflow_tpu_torch.parallel import train_step
 from ssd_tensorflow_tpu_torch.presets import get_preset_by_name as port_preset
 from ssd_tensorflow_tpu_torch.utils.checkpoint import (
@@ -266,16 +266,26 @@ def test_global_batch_defaults_to_cuda():
             multihost.make_global_batch(batch, None)
 
 def test_one_process_mesh_and_its_refusals():
+    """One process has no group and no mesh; a mesh that needs more
+    devices than the world has, or a model dimension that does not divide
+    it, raises with the JAX package's messages (tensor parallelism itself
+    runs on 4 gloo ranks in ``tests/test_torch_multichip.py``)."""
     assert not mesh.launched() and mesh.make_mesh(device="cpu") is None
-    assert mesh.world() == (0, 1)
+    assert mesh.make_mesh(data=1, model=1, device="cpu") is None
+    assert mesh.world() == (0, 1) and tensor_parallel.model_shards(None) is None
     with pytest.raises(ValueError, match=re.escape("mesh 2x1 needs 2 devices, have 1")):
         mesh.make_mesh(data=2, device="cpu")
     with pytest.raises(ValueError, match=re.escape("mesh 16x1 needs 16 devices, have 8")):
         jax_mesh.make_mesh(data=16)  # the JAX package's message, for the form
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match=re.escape("1 devices not divisible by model=2")):
         mesh.make_mesh(model=2, device="cpu")
+    with pytest.raises(ValueError, match=re.escape("8 devices not divisible by model=3")):
+        jax_mesh.make_mesh(model=3)
+    with pytest.raises(ValueError, match=re.escape("mesh 1x2 needs 2 devices, have 1")):
+        mesh.make_mesh(data=1, model=2, device="cpu")
     assert sharding.batch_rows(6) == slice(0, 6)
     assert sharding.replicate([torch.ones(2)])[0].tolist() == [1.0, 1.0]
+    assert not sharding.use_tensor_parallel(None)
 
 
 def test_shard_state_and_batch_without_a_group(setup):
@@ -284,8 +294,10 @@ def test_shard_state_and_batch_without_a_group(setup):
     state = train_step.make_train_state(params_from_jax(jp), tcfg, device="cpu")
     assert train_step.shard_state(state, None) is state
     assert train_step.shard_batch(batches[0], None) is batches[0]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        train_step.shard_state(state, None, tensor_parallel=True)
+    # without a mesh, tensor parallelism is the plain path, as the JAX
+    # package's ``use_tp`` is on a mesh without a model axis
+    assert train_step.shard_state(state, None, tensor_parallel=True) is state
+    assert state.mesh is None and not state.tensor_parallel
 
 
 def test_remat_equals_no_remat_and_jax_remat(setup):

@@ -226,17 +226,19 @@ def test_eval_step_matches_jax(setup):
 
 
 def test_unported_options_raise(setup):
-    """Tensor parallelism is the one part of the JAX package's parallelism
-    that is not ported: it raises, naming its ROADMAP item. Remat, state
-    and batch placement are ported (``tests/test_torch_parallel.py``)."""
+    """Every option of the JAX package's parallelism is ported: without a
+    process group, ``tensor_parallel=True`` is the plain path (the JAX
+    package's ``use_tp`` on a mesh without a model axis) and a model
+    dimension the one process cannot hold raises the JAX package's
+    message; remat, state and batch placement run as the step's options
+    (``tests/test_torch_parallel.py``, ``tests/test_torch_multichip.py``)."""
     from ssd_tensorflow_tpu_torch.parallel import mesh
 
     jp, anchors, batch = setup
     _, tcfg = _cfgs("float32")
     state = train_step.make_train_state(params_from_jax(jp), tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        train_step.shard_state(state, None, tensor_parallel=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    assert train_step.shard_state(state, None, tensor_parallel=True) is state
+    with pytest.raises(ValueError, match="not divisible by model=2"):
         mesh.make_mesh(model=2, device="cpu")
     assert train_step.shard_state(state, None) is state
     assert train_step.shard_batch(batch, None) is batch

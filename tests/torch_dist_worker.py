@@ -22,6 +22,23 @@ Modes:
   is this rank) with its output captured; write the return code, the
   printed valid mAPs, the local train sample count and each generator's
   batch count.
+- ``serve``: ``InferenceModel.from_bundle(payload["bundle"], mesh=...)``
+  on a data-parallel mesh of every rank (rank 0's parameters: the other
+  ranks perturb theirs first), ``run_scores`` and ``run`` of the images in
+  ``payload["images"]``; write this rank's detections and result, and the
+  message of a batch that does not divide. With ``payload["one"]``, the
+  same in one process with ``mesh=None``.
+- ``tp_step``: a ``make_mesh(model=2)`` mesh; the state ``payload["state"]``
+  placed by ``shard_state(tensor_parallel=True)``; per batch of
+  ``payload["batches"]`` a train step (and with ``payload["remat"]`` the
+  same step under remat) saved through ``save_checkpoint`` (whole leaves,
+  rank 0 writes), then restored and sharded again for the next; the
+  eval step's losses, the shards' shapes and the unsharded L2; and the
+  first step of a data-parallel state placed on a data-only mesh made
+  before the ``model=2`` one (it averages over its own mesh).
+- ``cli_serve``: ``cli.detect.main`` or ``cli.infer.main`` (``payload["cli"]``)
+  of ``payload["argv"]`` (``{rank}`` in an argument is this rank); write
+  the return code and the output.
 """
 
 from __future__ import annotations
@@ -31,48 +48,23 @@ import io
 import json
 import os
 import re
-import socket
-import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def run_ranks(mode: str, world: int, payload: dict, timeout: float = 240.0):
-    """Run ``mode`` on ``world`` gloo ranks; returns their outputs. Fails
-    (and kills every rank) when one exits non-zero or the timeout passes."""
-    port = free_port()
+    """Run ``mode`` on ``world`` gloo ranks (``parallel/mesh.spawn``, 2
+    threads each); returns their outputs. Fails (and kills every rank) when
+    one exits non-zero or the timeout passes."""
+    from ssd_tensorflow_tpu_torch.parallel.mesh import spawn
+
     env = {k: v for k, v in os.environ.items() if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
-    env.update(OMP_NUM_THREADS="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-               WORLD_SIZE=str(world))
-    procs = []
-    for rank in range(world):
-        procs.append(subprocess.Popen(
-            [sys.executable, __file__, mode, json.dumps(payload)],
-            env=dict(env, RANK=str(rank), LOCAL_RANK=str(rank)), cwd=str(ROOT),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-    logs = []
-    try:
-        for p in procs:
-            out, _ = p.communicate(timeout=timeout)
-            logs.append(out.decode(errors="replace"))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for rank, (p, log) in enumerate(zip(procs, logs)):
-        if p.returncode != 0:
-            raise AssertionError(f"rank {rank} exited {p.returncode}:\n{log[-4000:]}")
-    return logs
+    env["OMP_NUM_THREADS"] = "2"
+    return spawn(world, [sys.executable, __file__, mode, json.dumps(payload)], timeout, env=env,
+                 cwd=str(ROOT), capture=True)
 
 
 def _train_cfg(spec: dict):
@@ -193,6 +185,121 @@ def _cli(payload):
                    "local_train_samples": int(local.group(1)) if local else None}, f)
 
 
+def _dets_arrays(dets, prefix=""):
+    return {prefix + f: getattr(dets, f).numpy() for f in ("boxes", "scores", "classes", "valid")}
+
+
+def _serve(payload):
+    import numpy as np
+    import torch
+
+    from ssd_tensorflow_tpu_torch.inference import InferenceModel, load_bundle
+    from ssd_tensorflow_tpu_torch.ops.postprocess import DetectionConfig
+    from ssd_tensorflow_tpu_torch.parallel.mesh import make_mesh, world
+
+    mesh = None if payload.get("one") else make_mesh(device="cpu")
+    rank, _ = world()
+    params, cfg, lid2name, act_scales = load_bundle(payload["bundle"])
+    if rank:  # replicated from rank 0: another rank's own values must not count
+        params = {n: {k: v + 1 if v.dtype == torch.float32 else v for k, v in d.items()}
+                  for n, d in params.items()}
+    model = InferenceModel(params, cfg, lid2name, act_scales=act_scales, device="cpu",
+                           detection=DetectionConfig(**payload["detection"]), mesh=mesh)
+    with np.load(payload["images"]) as f:
+        images = f["images"]
+    out = _dets_arrays(model.run_scores(images))
+    result, dets = model.run(torch.from_numpy(images))
+    out.update(_dets_arrays(dets, "run_"), result=result.numpy())
+    try:
+        model.run_scores(images[:len(images) - 1])
+        out["indivisible"] = np.array("")
+    except ValueError as e:
+        out["indivisible"] = np.array(str(e))
+    np.savez(f"{payload['out']}.rank{rank}.npz", **out)
+
+
+def _tp_step(payload):
+    import numpy as np
+
+    from ssd_tensorflow_tpu_torch.models.loss import l2_regularizer
+    from ssd_tensorflow_tpu_torch.models.ssd_vgg import init_params
+    from ssd_tensorflow_tpu_torch.ops.anchors import anchors_for_preset
+    from ssd_tensorflow_tpu_torch.parallel.mesh import make_mesh, world
+    from ssd_tensorflow_tpu_torch.parallel.sharding import batch_rows
+    from ssd_tensorflow_tpu_torch.parallel.tensor_parallel import model_shards
+    from ssd_tensorflow_tpu_torch.parallel.train_step import (
+        make_eval_step,
+        make_train_state,
+        make_train_step,
+        shard_batch,
+        shard_state,
+    )
+    from ssd_tensorflow_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    cfg = _train_cfg(payload["cfg"])
+    dp_mesh = make_mesh(device="cpu")
+    mesh = make_mesh(model=2, device="cpu")
+    rank, _ = world()
+    template = make_train_state(init_params(cfg.model), cfg, device="cpu")
+    anchors = anchors_for_preset(cfg.model.preset)
+    steps = {"": make_train_step(cfg, anchors)}
+    if payload.get("remat"):
+        import dataclasses
+
+        steps[".remat"] = make_train_step(dataclasses.replace(cfg, remat=True), anchors)
+    with np.load(payload["batches"]) as f:
+        batches = {k: f[k] for k in f.files}
+    out, report = payload["out"], {"losses": [], "shapes": {}}
+    start = payload["state"]
+    for i in range(len(batches["images"])):
+        batch = {k: v[i] for k, v in batches.items()}
+        state = shard_state(restore_checkpoint(start, template), mesh, tensor_parallel=True)
+        if i == 0:
+            report["shapes"] = {f"{t}/{n}/{k}": list(tree[n][k].shape)
+                                for t, tree in (("params", state.params),
+                                                ("trace", state.opt_state.trace))
+                                for n in ("mod_conv6", "mod_conv7") for k in ("w", "b")}
+            report["l2"] = float(l2_regularizer(state.params, model_shards(mesh)))
+            evaluate = make_eval_step(cfg, anchors, mesh=mesh, tensor_parallel=True)
+            report["eval"] = {k: float(v) for k, v in evaluate(
+                state.params, shard_batch(batch, mesh))[0].items()}
+            rows = batch_rows(len(batch["images"]), mesh)
+            report["rows"] = [rows.start, rows.stop]
+            dp_state = shard_state(restore_checkpoint(start, template), dp_mesh)
+            report["dp_losses"] = {k: float(v) for k, v in steps[""](
+                dp_state, shard_batch(batch, dp_mesh))[1].items()}
+        for suffix, step in steps.items():
+            new, losses, _ = step(state, shard_batch(batch, mesh))
+            save_checkpoint(f"{out}.step{i}{suffix}.ckpt.npz", new)
+            if not suffix:
+                report["losses"].append({k: float(v) for k, v in losses.items()})
+            else:
+                report["remat_losses"] = {k: float(v) for k, v in losses.items()}
+        start = f"{out}.step{i}.ckpt.npz"
+        steps.pop(".remat", None)
+    with open(f"{out}.rank{rank}.json", "w") as f:
+        json.dump(report, f)
+
+
+def _cli_serve(payload):
+    import importlib
+
+    from ssd_tensorflow_tpu_torch.parallel.mesh import world
+
+    cli = importlib.import_module(f"ssd_tensorflow_tpu_torch.cli.{payload['cli']}")
+    rank = int(os.environ["RANK"])
+    buf = io.StringIO()
+    stdout, sys.stdout = sys.stdout, buf
+    try:
+        rc = cli.main([a.format(rank=rank) for a in payload["argv"]])
+    finally:
+        sys.stdout = stdout
+    sys.stdout.write(buf.getvalue())
+    assert world() == (rank, int(os.environ["WORLD_SIZE"]))
+    with open(payload["out"].format(rank=rank), "w") as f:
+        json.dump({"rc": rc, "log": buf.getvalue()}, f)
+
+
 if __name__ == "__main__":
     sys.modules["jax"] = None  # the port runs without JAX
     sys.path.insert(0, str(ROOT))
@@ -201,7 +308,8 @@ if __name__ == "__main__":
     torch.set_num_threads(2)
     mode, payload = sys.argv[1], json.loads(sys.argv[2])
     try:
-        {"step": _step, "augment": _augment, "cli": _cli}[mode](payload)
+        {"step": _step, "augment": _augment, "cli": _cli, "serve": _serve, "tp_step": _tp_step,
+         "cli_serve": _cli_serve}[mode](payload)
     finally:
         import torch.distributed as dist
 
