@@ -264,6 +264,36 @@ non-zero, and the final line is printed only when every phase passed:
    ``multichip.dryrun_multichip(4)`` in a fresh process prints its ok line
    with mesh data 2 x model 2.
 
+16. learning: evidence that the port learns, on the card, through the
+   port's tools as their ``main`` wires them. (a) ``tools/
+   torch_overfit_sanity.py``: vgg300 bf16, 3 classes, its 32 synthetic
+   images (seed 7) in one batch, lr 1e-3, from the port's
+   ``init_params(seed=0)``, 2000 steps with an eval at step 300 and at
+   2000 (detect top 64 at 0.3, the VOC AP): train mAP >= 0.90 at step 2000
+   (the JAX package's record on its chip is 0.97); the step-300 mAP is
+   recorded beside the tool's ``--map-target`` 0.5, not held (when a run
+   memorizes moves with the draw, in either package; this one first
+   reaches 0.5 near step 350: ``tests/torch_overfit_witness.py``). Every
+   loss finite, the step-300 eval leaves the parameters as they were, each eval launches
+   NMS once and its keep mask and detections are held as in phase 6; the
+   losses every 50 steps, CUDA-event ms a step (the median after 10
+   steps), seconds and peak memory. (b) The trained state saved by
+   ``CheckpointManager`` with its model config and 3-class label map, its
+   32 images staged as both splits of a dataset
+   (``staged_dataset(splits=...)``, ``StagedProcessor``), then
+   ``tools/torch_qat_finetune.main`` with ``--epochs 10 --batch-size 32
+   --calib-images 32 --lr 1e-4 --output``: the valid mAPs at top 200 and
+   0.01 of the float model >= 0.90, of PTQ and QAT int8 each within 0.05
+   of it, every epoch loss finite, NMS once an eval with its keep mask
+   against ``nms_keep_plain``, ``int8_conv`` once a conv of each int8
+   eval. (c) The QAT checkpoint exported by ``cli/export_model.py
+   --quantize`` with no calibration images (calibration patched to
+   raise): the bundle's activation scales equal the checkpoint's
+   ``qat_act_scales``; ``InferenceModel.from_bundle`` on the card,
+   ``run_scores`` of the 32 images (NMS once, ``int8_conv`` once a conv,
+   the keep mask held) and their VOC mAP within 1e-3 of (b)'s QAT int8
+   mAP.
+
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX or of the JAX package.
@@ -1982,12 +2012,16 @@ class StagedProcessor:
 
 
 def staged_dataset(root, seed: int, preset: str = "vgg512", n_train: int = CLI_TRAIN,
-                   n_valid: int = CLI_VALID) -> str:
+                   n_valid: int = CLI_VALID, splits: dict | None = None,
+                   names: dict | None = None) -> str:
     """A dataset directory as ``process_dataset.py`` writes it
     (``training-data.json``, ``{train,valid}-samples.pkl``) over ``n_train``
     and ``n_valid`` staged uint8 images at the preset's size (vgg512: 512 x
-    512) with 1-8 gt boxes each, made from the seed; 20 classes. The images
-    live in :class:`StagedProcessor`; returns the directory."""
+    512) with 1-8 gt boxes each, made from the seed, 20 classes; or over the
+    given ``splits`` (``{"train": batch, "valid": batch}``, each as
+    :func:`train_batch` returns it, at the preset's size) with the label map
+    ``names``. The images live in :class:`StagedProcessor`; returns the
+    directory."""
     import json
     import pickle
 
@@ -1996,26 +2030,27 @@ def staged_dataset(root, seed: int, preset: str = "vgg512", n_train: int = CLI_T
     from ssd_tensorflow_tpu_torch.presets import get_preset_by_name, preset_to_dict
     from ssd_tensorflow_tpu_torch.types import Box, Point, Sample, Size
 
-    num_classes = 20
-    names = {i: f"class{i}" for i in range(num_classes)}
+    names = names or {i: f"class{i}" for i in range(20)}
     pre = get_preset_by_name(preset)
     size = pre.image_size
     root = Path(root)
     root.mkdir(parents=True)
-    rng = np.random.default_rng(seed + 14)
-    for which, n in (("train", n_train), ("valid", n_valid)):
-        data = train_batch(rng, n, size.h, num_classes)
+    if splits is None:
+        rng = np.random.default_rng(seed + 14)
+        splits = {which: train_batch(rng, n, size.h, len(names))
+                  for which, n in (("train", n_train), ("valid", n_valid))}
+    for which, data in splits.items():
         tag = f"{root}/{which}"
         StagedProcessor.images[tag] = data["images"]
         samples = [Sample(f"{tag}/{i}", [
             Box(names[int(lab)], int(lab), Point(float(b[0]), float(b[1])),
                 Size(float(b[2]), float(b[3])))
             for b, lab, m in zip(data["gt_boxes"][i], data["gt_labels"][i], data["gt_mask"][i])
-            if m], Size(size.w, size.h)) for i in range(n)]
+            if m], Size(size.w, size.h)) for i in range(len(data["images"]))]
         with open(root / f"{which}-samples.pkl", "wb") as f:
             pickle.dump(samples, f)
     with open(root / "training-data.json", "w") as f:
-        json.dump({"preset": preset_to_dict(pre), "num-classes": num_classes,
+        json.dump({"preset": preset_to_dict(pre), "num-classes": len(names),
                    "colors": {v: [0, 0, 255] for v in names.values()},
                    "lid2name": {str(k): v for k, v in names.items()},
                    "lname2id": {v: k for k, v in names.items()}}, f)
@@ -3130,6 +3165,267 @@ def multichip_path(root: Path, seed: int, device, bare_step_ms: float):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 16. learning: the port learns, is finetuned, exported and served on the card
+# ---------------------------------------------------------------------------
+
+#: the overfit run (``tools/torch_overfit_sanity.py``): 32 images of its
+#: data (seed 7), all in one batch, from the port's ``init_params(seed=0)``;
+#: the steps of its evals and the least train mAP there (None: recorded
+#: beside the tool's ``--map-target``, not held: when a run memorizes moves
+#: with the draw, in either package,
+#: ``tests/torch_overfit_witness.py``; the JAX package's record on its chip
+#: is 0.97 at step 2000)
+LEARN_IMAGES = 32
+LEARN_EVALS = {300: None, 2000: 0.90}
+LEARN_MAP_TARGET = 0.5
+#: steps left out of the median ms a step
+LEARN_WARMUP = 10
+#: the QAT finetune of the overfit state (``tools/torch_qat_finetune.py``)
+LEARN_QAT_ARGS = ["--epochs", "10", "--batch-size", "32", "--calib-images", "32", "--lr", "1e-4"]
+#: the least float mAP, and how far under it PTQ and QAT int8 may fall
+LEARN_FLOAT_MAP = 0.90
+LEARN_INT8_GAP = 0.05
+#: the served bundle's mAP against the QAT tool's int8 mAP: the same int8
+#: network, its softmax taken lazily (``reduce_head_maps``)
+LEARN_SERVED_GAP = 1e-3
+
+
+def _tool(name: str):
+    """A module of ``tools/`` (scripts, not a package) by name."""
+    import importlib
+
+    tools = str(Path(__file__).resolve().parent / "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    return importlib.import_module(name)
+
+
+def _launch_delta(run):
+    """``run()`` and the kernels it launched, read without setting any
+    count to 0 (inside a :func:`counted` run): ``(result, {kernel: n})``."""
+    wrappers = _launch_counts()
+    before = {name: fn.launches for name, fn in wrappers.items()}
+    result = run()
+    return result, {name: fn.launches - before[name] for name, fn in wrappers.items()}
+
+
+def overfit_run(device):
+    """Phase 16 (a): ``torch_overfit_sanity``'s functions as its ``main``
+    wires them, with the evals of :data:`LEARN_EVALS` -> ``(cfg, state,
+    batch, report, launches of each eval)``."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from ssd_tensorflow_tpu_torch.models.ssd_vgg import init_params
+
+    ov = _tool("torch_overfit_sanity")
+    t0 = time.perf_counter()
+    batch = ov.first_batch(ov.make_dataset(LEARN_IMAGES, np.random.default_rng(7)),
+                           LEARN_IMAGES)
+    cfg = ov.train_config()  # vgg300, bf16, lr 1e-3
+    params = init_params(cfg.model, seed=0)
+    state, train_step, eval_step = ov.setup(cfg, params, device)
+    spans, losses = [], []
+
+    def timed_step(state, batch):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = train_step(state, batch)
+        end.record()
+        spans.append((start, end))
+        losses.append(torch.stack(list(out[1].values())))
+        return out
+
+    logged, evals, launches, done, printed = [], {}, {}, 0, io.StringIO()
+    for stop, least in LEARN_EVALS.items():
+        with contextlib.redirect_stdout(printed):
+            state, log = ov.train(state, timed_step, batch, stop - done, first=done)
+        logged += log
+        done = stop
+        before = {n: {k: v.clone() for k, v in d.items()} for n, d in state.params.items()}
+        with recording_detect() as rec:
+            (aps, mAP, _), n = counted(lambda: ov.evaluate(eval_step, state.params, batch))
+        if not all(torch.equal(before[name][k], v) for name, d in state.params.items()
+                   for k, v in d.items()):
+            raise AssertionError(f"the overfit eval at step {stop} changed the parameters")
+        del before
+        if (n["nms_keep"] != 1 or n["fused_stem"] or n["fused_stem_uint8"] or n["int8_conv"]):
+            raise AssertionError(f"the overfit eval at step {stop} launched {n}")
+        launches[stop] = n
+        evals[stop] = {"mAP": mAP, "least": least,
+                       "meets_map_target": bool(mAP >= LEARN_MAP_TARGET),
+                       "aps": aps, **check_detect(rec, f"overfit eval at {stop}")}
+        if least is not None and not mAP >= least:
+            raise AssertionError(f"overfit train mAP {mAP} after {stop} steps, below {least}; "
+                                 f"losses every 50 steps: {logged}")
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(torch.stack(losses)).all()):
+        raise AssertionError(f"non-finite overfit losses: {logged}")
+    step_ms = [a.elapsed_time(b) for a, b in spans]
+    report = {"init": "init_params(seed=0)", "preset": cfg.model.preset_name,
+              "dtype": cfg.model.compute_dtype,
+              "images": LEARN_IMAGES, "batch": LEARN_IMAGES, "lr": cfg.lr_values[0],
+              "steps": done, "losses_every_50": logged, "losses_finite": True,
+              "evals": evals, "evals_left_parameters_unchanged": True,
+              "ms_per_step_median": float(np.median(step_ms[LEARN_WARMUP:])),
+              "ms_per_step_mean": float(np.mean(step_ms[LEARN_WARMUP:])),
+              "first_step_ms": step_ms[0], "seconds": time.perf_counter() - t0}
+    return cfg, state, batch, report, launches
+
+
+def qat_finetune_run(cfg, state, batch, tmp: Path, device):
+    """Phase 16 (b): the overfit state saved with the port's
+    ``CheckpointManager``, its images staged as both splits of a dataset,
+    and ``torch_qat_finetune.main`` on them -> ``(report, QAT checkpoint,
+    launches of main)``."""
+    import io
+
+    import numpy as np
+
+    from ssd_tensorflow_tpu_torch.data import pipeline
+    from ssd_tensorflow_tpu_torch.inference import model_config_to_dict
+    from ssd_tensorflow_tpu_torch.ops import postprocess
+    from ssd_tensorflow_tpu_torch.utils.checkpoint import CheckpointManager, checkpoint_config
+
+    ov, qf = _tool("torch_overfit_sanity"), _tool("torch_qat_finetune")
+    t0 = time.perf_counter()
+    project, output = tmp / "overfit", tmp / "overfit_qat"
+    mgr = CheckpointManager(str(project), {
+        "model": model_config_to_dict(cfg.model),
+        "lid2name": {str(k): v for k, v in ov.LID2NAME.items()}})
+    try:
+        mgr.save(1, state)
+    finally:
+        mgr.close()
+    data = staged_dataset(tmp / "overfit_data", 0, preset=cfg.model.preset_name,
+                          splits={"train": batch, "valid": batch}, names=ov.LID2NAME)
+    evals, epochs, keeps = [], [], []
+    real_eval, real_finetune, real_keep = qf.evaluate, qf.finetune, postprocess._keep
+
+    def evaluate(*args, **kw):
+        mAP, n = _launch_delta(lambda: real_eval(*args, **kw))
+        evals.append({"mAP": mAP, "launches": n})
+        return mAP
+
+    def finetune(*args, **kw):
+        out = real_finetune(*args, **kw)
+        epochs.extend(out[1])
+        return out
+
+    def keep(*args):
+        out = real_keep(*args)
+        keeps.append((args, out))
+        return out
+
+    argv = ["--name", str(project), "--data-dir", data, *LEARN_QAT_ARGS, "--output", str(output),
+            "--device", device.type]
+    printed = io.StringIO()
+    with mock.patch.object(pipeline, "_SampleProcessor", StagedProcessor), \
+            mock.patch.object(qf, "evaluate", evaluate), \
+            mock.patch.object(qf, "finetune", finetune), \
+            mock.patch.object(postprocess, "_keep", keep), contextlib.redirect_stdout(printed):
+        rc, launches = counted(lambda: qf.main(argv))
+    ckpt = str(output / "final.ckpt.npz")
+    if rc != 0:
+        raise AssertionError(f"torch_qat_finetune exited {rc}:\n{printed.getvalue()[-3000:]}")
+    n_convs = len(checkpoint_config(ckpt)["qat_act_scales"])
+    maps = [e["mAP"] for e in evals]
+    n_epochs = int(LEARN_QAT_ARGS[LEARN_QAT_ARGS.index("--epochs") + 1])
+    if len(evals) != 3 or len(epochs) != n_epochs or not np.isfinite(epochs).all():
+        raise AssertionError(f"QAT finetune: mAPs {maps}, epoch losses {epochs}")
+    m_float, m_ptq, m_qat = maps
+    for e, int8 in zip(evals, (0, n_convs, n_convs)):
+        n = e["launches"]
+        if (n["nms_keep"] != 1 or n["int8_conv"] != int8 or n["fused_stem"]
+                or n["fused_stem_uint8"]):
+            raise AssertionError(f"QAT finetune eval launched {n} (int8 convs {int8})")
+    if launches["nms_keep"] != 3 or launches["int8_conv"] != 2 * n_convs:
+        raise AssertionError(f"torch_qat_finetune.main launched {launches}")
+    kept = [check_keep({"keep": k}, "QAT finetune eval")["kept"] for k in keeps]
+    if len(kept) != 3:
+        raise AssertionError(f"{len(kept)} NMS stages recorded for 3 evals")
+    if not (m_float >= LEARN_FLOAT_MAP and m_ptq >= m_float - LEARN_INT8_GAP
+            and m_qat >= m_float - LEARN_INT8_GAP):
+        raise AssertionError(f"QAT finetune mAPs float {m_float}, PTQ {m_ptq}, QAT {m_qat}: "
+                             f"float must reach {LEARN_FLOAT_MAP}, int8 stay within "
+                             f"{LEARN_INT8_GAP} of it")
+    report = {"args": LEARN_QAT_ARGS, "valid_map": {"float": m_float, "ptq_int8": m_ptq,
+                                                    "qat_int8": m_qat},
+              "epoch_losses": epochs, "int8_convs": n_convs,
+              "evals_launches": [e["launches"] for e in evals], "nms_kept": kept,
+              "keep_bit_exact": True, "seconds": time.perf_counter() - t0}
+    return report, ckpt, launches
+
+
+def served_bundle_run(ckpt, batch, m_qat, tmp: Path, device):
+    """Phase 16 (c): the QAT checkpoint exported by ``cli/export_model.py
+    --quantize`` (calibration patched to raise) and served by
+    ``InferenceModel.from_bundle(...).run_scores`` -> ``(report, launches)``."""
+    import torch
+
+    from ssd_tensorflow_tpu_torch.cli import export_model
+    from ssd_tensorflow_tpu_torch.inference import InferenceModel, load_bundle
+    from ssd_tensorflow_tpu_torch.ops.postprocess import DetectionConfig, detections_to_boxes
+    from ssd_tensorflow_tpu_torch.utils.checkpoint import checkpoint_config
+
+    t0 = time.perf_counter()
+    bundle = str(tmp / "overfit_qat.ssdtpu.npz")
+    with no_calibration():
+        rc, printed = _run_cli(export_model, ["--checkpoint-file", ckpt, "--output-file", bundle,
+                                              "--quantize", "--device", device.type])
+    if rc != 0:
+        raise AssertionError(f"export_model --quantize exited {rc}:\n{printed[-3000:]}")
+    stored = checkpoint_config(ckpt)["qat_act_scales"]
+    if load_bundle(bundle)[3] != stored:
+        raise AssertionError("the exported bundle's activation scales are not the checkpoint's")
+    model = InferenceModel.from_bundle(
+        bundle, device=device, detection=DetectionConfig(top_k=200, confidence_threshold=0.01))
+    images = torch.from_numpy(batch["images"]).to(device)
+    with recording_detect() as rec:
+        dets, launches = counted(lambda: model.run_scores(images))
+    if (launches["nms_keep"] != 1 or launches["int8_conv"] != len(stored)
+            or launches["fused_stem"] or launches["fused_stem_uint8"]):
+        raise AssertionError(f"the served bundle launched {launches}")
+    keep = check_keep(rec, "served bundle")
+    _, served = _tool("torch_overfit_sanity").train_map(
+        detections_to_boxes(dets, model.lid2name), batch)
+    if not abs(served - m_qat) <= LEARN_SERVED_GAP:
+        raise AssertionError(f"the served bundle's mAP {served} is not the QAT tool's {m_qat}")
+    return {"scales_equal_checkpoint": True, "int8_convs": len(stored), "mAP": served,
+            "gap_to_qat_int8": served - m_qat, "launches": launches, **keep,
+            "seconds": time.perf_counter() - t0}, launches
+
+
+def learning_path(device):
+    """Phase 16: (a) the overfit run, (b) its QAT finetune, (c) its export
+    and serving (see the module doc) -> the launches of each path."""
+    import tempfile
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, state, batch, overfit, eval_launches = overfit_run(device)
+    overfit["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    with tempfile.TemporaryDirectory() as tmp:
+        qat, ckpt, qat_launches = qat_finetune_run(cfg, state, batch, Path(tmp), device)
+        del state
+        served, served_launches = served_bundle_run(ckpt, batch, qat["valid_map"]["qat_int8"],
+                                                    Path(tmp), device)
+    _emit({"phase": "learning", "overfit": overfit, "qat_finetune": qat,
+           "served_bundle": served, "seconds": time.perf_counter() - t0,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    overfit_eval = {k: sum(n[k] for n in eval_launches.values())
+                    for k in next(iter(eval_launches.values()))}
+    return {"learning:overfit_eval": overfit_eval, "learning:qat_eval": qat_launches,
+            "learning:served_bundle": served_launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3219,6 +3515,8 @@ def main(argv=None) -> int:
     # 15. data-parallel serving, tensor parallelism and the dry run
     launches.update({f"multichip:{k}": v
                      for k, v in multichip_path(root, args.seed, device, bare_step_ms).items()})
+    # 16. the port learns: overfit, QAT finetune, export and serve
+    launches.update(learning_path(device))
     with torch.inference_mode():
         _, launches["fused_stem_pallas"] = counted(
             lambda: stem_cuda.fused_stem_pallas(model.params, images, MEAN_BGR))

@@ -66,11 +66,6 @@ def average(tensors, group=None):
     return _flat_collective(tensors, mean)
 
 
-def group_of(mesh, name: str):
-    """``mesh``'s group along ``name``; ``None`` (the world) without a mesh."""
-    return None if mesh is None else mesh.get_group(name)
-
-
 def use_tensor_parallel(mesh, tensor_parallel: bool = True) -> bool:
     """Whether ``_TP_RULES`` apply: asked for, on a mesh with ``model`` > 1
     (the JAX package's ``use_tp``)."""

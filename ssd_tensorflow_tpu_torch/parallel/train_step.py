@@ -20,12 +20,13 @@ Data parallelism: under a process group (``parallel/mesh.py``), the state
 placed by :func:`shard_state` (rank 0's, broadcast) and each rank feeding
 its own rows of the batch (:func:`shard_batch`), the step averages the
 gradients and the losses over the ``data`` group of the mesh the state
-was placed on (every process of the group where it names none) before
-the update: one ``all_reduce`` of a float32
+was placed on before the update: one ``all_reduce`` of a float32
 buffer, summed, then divided by the group's size. The loss is a batch
 mean of per-sample terms (``models/loss.py``) and nothing normalizes
 across samples, so the mean of the ranks' means is the global batch's,
-and the losses returned are the global batch's.
+and the losses returned are the global batch's. A state that no mesh
+placed takes no collective, inside a process group too: it is one
+process's model, as the JAX package's step on one device.
 
 Tensor parallelism: ``shard_state(tensor_parallel=True)`` on a mesh with
 a ``model`` dimension keeps each process's slice of conv6 / conv7 and of
@@ -59,7 +60,6 @@ from ssd_tensorflow_tpu_torch.parallel.sharding import (
     average,
     batch_rows,
     gather_params,
-    group_of,
     replicate,
     shard_params,
     use_tensor_parallel,
@@ -235,10 +235,11 @@ def make_train_step(cfg: TrainConfig, anchors, forward=None):
     ``gt_labels (B, G)`` and ``gt_mask (B, G)`` (tensors or numpy; moved to
     the state's device). ``forward`` overrides the model forward
     ``(params, images) -> (logits, locs)``. The step returns a new state and
-    leaves the old one as it was; ``losses`` are detached 0-d tensors. Under a process
-    group the gradients and losses are averaged over the ``data`` group of
-    the state's mesh, and a tensor-parallel state runs conv6 / conv7 over
-    its ``model`` group (the module doc).
+    leaves the old one as it was; ``losses`` are detached 0-d tensors. The
+    gradients and losses of a state placed on a mesh are averaged over its
+    ``data`` group, and a tensor-parallel state runs conv6 / conv7 over its
+    ``model`` group; a state on no mesh takes no collective (the module
+    doc).
     """
     tx = make_optimizer(cfg)
     anchors = torch.as_tensor(np.asarray(anchors, dtype=np.float32))
@@ -256,7 +257,8 @@ def make_train_step(cfg: TrainConfig, anchors, forward=None):
             flat_grads = list(torch.autograd.grad(losses["total"], flat))
         losses = {k: v.detach().reshape(()).clone() for k, v in losses.items()}
         with torch.no_grad():
-            average(flat_grads + list(losses.values()), group_of(state.mesh, "data"))
+            if state.mesh is not None:
+                average(flat_grads + list(losses.values()), state.mesh.get_group("data"))
             flat_grads = iter(flat_grads)
             grads = tree_map(lambda _: next(flat_grads), leaves)
             params, opt_state = tx.update(grads, state.opt_state, state.params)
@@ -270,8 +272,8 @@ def make_train_step(cfg: TrainConfig, anchors, forward=None):
 def make_eval_step(cfg: TrainConfig, anchors, forward=None, mesh=None,
                    tensor_parallel: bool = False):
     """Build the eval step ``(params, batch) -> (losses, detections)``: the
-    train step's losses (under a process group, the global batch's,
-    averaged over ``mesh``'s ``data`` group) and detections, no gradient and
+    train step's losses (given a ``mesh``, the global batch's, averaged
+    over its ``data`` group) and detections, no gradient and
     no update. ``params`` of a state that ``shard_state`` placed on
     ``mesh`` with ``tensor_parallel`` need the same two arguments here."""
     shards = model_shards(mesh, tensor_parallel)
@@ -285,7 +287,8 @@ def make_eval_step(cfg: TrainConfig, anchors, forward=None, mesh=None,
         with torch.no_grad(), full_float32(cfg.model.dtype):
             losses, logits, locs = loss_terms(params, batch, anc, cfg, forward, shards)
             losses = {k: v.reshape(()).clone() for k, v in losses.items()}
-            average(list(losses.values()), group_of(mesh, "data"))
+            if mesh is not None:
+                average(list(losses.values()), mesh.get_group("data"))
         return losses, detect(logits, locs, anc, cfg)
 
     return step_fn

@@ -11,7 +11,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "ssd_tensorflow_tpu_torch"
-TOOLS = [ROOT / "tools" / f"torch_{name}.py" for name in ("profile", "stem_probe", "conv_epilogue", "stem_bench", "kernel_bench", "int8_probe")]
+TOOLS = sorted((ROOT / "tools").glob("torch_*.py"))
 _JAX_PACKAGE = re.compile(r"^\s*(from|import)\s+(ssd_tensorflow_tpu|jax)(\.|\s|$)", re.M)
 
 
@@ -222,6 +222,16 @@ def test_image_io_without_opencv_raises():
         "        raise AssertionError('no error without cv2')\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_port_tools_are_scanned():
+    """Every port tool, ``tools/torch_*.py``, is imported with ``jax``
+    blocked and scanned for imports of the JAX package: the learning tools
+    among them."""
+    sources = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {f"tools/torch_{name}.py" for name in (
+        "overfit_sanity", "qat_finetune", "convert_vgg_weights", "profile", "stem_probe",
+        "conv_epilogue", "stem_bench", "kernel_bench", "int8_probe")} <= sources
 
 
 def test_multichip_and_tensor_parallel_modules_are_scanned():

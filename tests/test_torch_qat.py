@@ -28,7 +28,8 @@ Tolerances:
 """
 
 import json
-from functools import partial
+import sys
+from pathlib import Path
 from unittest import mock
 
 import jax
@@ -49,6 +50,9 @@ from ssd_tensorflow_tpu_torch.models import qat, quantized, ssd_vgg
 from ssd_tensorflow_tpu_torch.parallel import train_step
 from ssd_tensorflow_tpu_torch.utils.checkpoint import checkpoint_config, save_checkpoint
 from ssd_tensorflow_tpu_torch.weights import params_from_jax, params_to_jax
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+from torch_qat_grids import Grids  # noqa: E402
 
 K = 3
 PRESETS = ["test64", "rtest64", "mntest64"]
@@ -172,46 +176,6 @@ def test_fake_quant_act_gates_at_saturation():
 # ---------------------------------------------------------------------------
 
 
-class _Grids:
-    """JAX's activation grids, recorded from inside its jitted programs and
-    handed to the port's quantizers in the same order: with equal grids
-    every other step of
-    the two forwards must agree to float32 rounding. The port's own grid of
-    each quantizer input is kept, to count the roundings that differ."""
-
-    def __init__(self):
-        self.jax, self.port, self.calls = {}, [], 0
-
-    def recording(self, real):
-        """JAX's ``fake_quant_act``, reporting its grid to the host."""
-        traced = iter(range(10 ** 6))
-
-        def fq(x, scale):
-            grid = jnp.clip(jnp.round(x / scale), -127, 127)
-            jax.debug.callback(partial(self.jax.__setitem__, next(traced)), grid)
-            return real(x, scale)
-        return fq
-
-    def forced(self):
-        """The port's ``fake_quant_act`` with JAX's grid in place of its own
-        rounding (the clipped STE from the port's input)."""
-        def fq(x, scale):
-            s = scale if torch.is_tensor(scale) else torch.tensor(scale, dtype=torch.float32)
-            self.port.append(torch.clamp(torch.round(x.detach() / s), -127, 127).numpy())
-            grid = torch.tensor(np.asarray(self.jax[self.calls], np.float32))
-            self.calls += 1
-            in_range = (x.abs() <= 127.5 * scale).to(x.dtype)
-            return (grid * scale).detach() + in_range * (x - x.detach())
-        return fq
-
-    def differing(self):
-        """``(roundings the port would take otherwise, all roundings)``."""
-        assert self.calls == len(self.jax) > 0
-        grids = [self.jax[i] for i in range(self.calls)]
-        return (sum(int((a != b).sum()) for a, b in zip(grids, self.port)),
-                sum(g.size for g in grids))
-
-
 #: VGG leaves whose gradient passes a max-pool: on the fake-quant grid a
 #: conv's outputs are ``a * s * N + b`` with integer ``N``, so two inputs
 #: of a window can tie in exact arithmetic, and each library's float32
@@ -245,7 +209,7 @@ def test_qat_forward_and_gradients_match_jax(setup):
     The roundings the port takes otherwise are counted, and the port's
     forward left to its own roundings is held to argmax >= 99 %."""
     preset, jp, jcfg, tcfg, img, scales = setup
-    grids = _Grids()
+    grids = Grids()
     with mock.patch.object(jax_qat, "fake_quant_act", grids.recording(jax_qat.fake_quant_act)):
         jfwd = jax_qat.make_qat_forward(jcfg, scales)
         (_, (jl, jloc)), jgrad = jax.jit(jax.value_and_grad(
@@ -288,7 +252,7 @@ def test_two_qat_train_steps_match_jax(setup):
              "gt_mask": np.ones((4, 2), bool)}
     jtcfg = jax_ts.TrainConfig(model=jcfg, lr_values=(0.001,), lr_boundaries=(), detect=None)
     ttcfg = train_step.TrainConfig(model=tcfg, lr_values=(0.001,), lr_boundaries=(), detect=None)
-    grids = _Grids()
+    grids = Grids()
     with mock.patch.object(jax_qat, "fake_quant_act", grids.recording(jax_qat.fake_quant_act)):
         jstep = jax_qat.make_qat_train_step(jtcfg, anchors, scales, donate=False)
         js = jax_ts.make_train_state(jp, jtcfg)
@@ -297,7 +261,6 @@ def test_two_qat_train_steps_match_jax(setup):
         for i in range(2):
             js, jl, _ = jstep(js, batch)
             jax.block_until_ready(jl)
-            grids.port, grids.calls = [], 0
             with mock.patch.object(qat, "fake_quant_act", grids.forced()):
                 ts, tl, _ = tstep(ts, batch)
             for k in jl:

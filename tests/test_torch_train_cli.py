@@ -34,7 +34,6 @@ Each multi-process run has its own timeout (``tests/torch_dist_worker.py``).
 import io
 import json
 import os
-import pickle
 import random
 import shutil
 import signal
@@ -50,8 +49,6 @@ cv2 = pytest.importorskip("cv2")
 
 import ssd_tensorflow_tpu.cli.train as jax_cli  # noqa: E402
 from ssd_tensorflow_tpu.ops.postprocess import DetectionConfig as JaxDetectionConfig  # noqa: E402
-from ssd_tensorflow_tpu.presets import get_preset_by_name, preset_to_dict  # noqa: E402
-from ssd_tensorflow_tpu.types import Box, Point, Sample, Size  # noqa: E402
 from ssd_tensorflow_tpu.utils import checkpoint as jax_ckpt  # noqa: E402
 import ssd_tensorflow_tpu_torch.cli.train as port_cli  # noqa: E402
 from ssd_tensorflow_tpu_torch.ops.postprocess import DetectionConfig  # noqa: E402
@@ -61,41 +58,8 @@ from ssd_tensorflow_tpu_torch.utils.checkpoint import (  # noqa: E402
 )
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+from torch_datasets import make_dataset as _make_dataset  # noqa: E402
 from torch_dist_worker import run_ranks  # noqa: E402
-
-
-def _make_dataset(root, n_train, n_valid, valid_samples=None, seed=0):
-    """A test64 dataset dir like ``tests/test_e2e.py``'s; returns
-    ``(data_dir, valid_samples)``."""
-    img_dir = os.path.join(root, "images")
-    os.makedirs(img_dir, exist_ok=True)
-    rng = np.random.default_rng(seed)
-
-    def make_sample(i):
-        img = rng.integers(0, 40, (160, 160, 3), dtype=np.uint8)
-        cx, cy, s = rng.uniform(0.3, 0.7), rng.uniform(0.3, 0.7), 0.3
-        x0, y0 = int((cx - s / 2) * 160), int((cy - s / 2) * 160)
-        x1, y1 = int((cx + s / 2) * 160), int((cy + s / 2) * 160)
-        img[y0:y1, x0:x1] = (200, 220, 240)
-        path = os.path.join(img_dir, f"img{i:03d}.jpg")
-        cv2.imwrite(path, img)
-        return Sample(path, [Box("square", 0, Point(cx, cy), Size(s, s))], Size(160, 160))
-
-    train = [make_sample(i) for i in range(n_train)]
-    if valid_samples is None:
-        valid_samples = [make_sample(100 + i) for i in range(n_valid)]
-    data_dir = os.path.join(root, "data")
-    os.makedirs(data_dir, exist_ok=True)
-    with open(os.path.join(data_dir, "train-samples.pkl"), "wb") as f:
-        pickle.dump(train, f)
-    with open(os.path.join(data_dir, "valid-samples.pkl"), "wb") as f:
-        pickle.dump(valid_samples, f)
-    with open(os.path.join(data_dir, "training-data.json"), "w") as f:
-        json.dump({"preset": preset_to_dict(get_preset_by_name("test64")), "num-classes": 1,
-                   "colors": {"square": [0, 0, 255]}, "lid2name": {"0": "square"},
-                   "lname2id": {"square": 0},
-                   "augmentation": {"sampler_trials": 3, "expand_probability": 0.3}}, f)
-    return data_dir, valid_samples
 
 
 @pytest.fixture(autouse=True)

@@ -28,6 +28,7 @@ Tolerances:
 import dataclasses
 import sys
 from pathlib import Path
+from unittest import mock
 
 import jax
 import numpy as np
@@ -181,6 +182,27 @@ def test_one_bf16_step_matches_jax(setup, jax_float32_step):
         for k in jf[n]:
             if np.abs(jf[n][k]).max():
                 assert _rel(tu[n][k], jf[n][k]) <= 2 * _rel(ju[n][k], jf[n][k]) + 0.01, (n, k)
+
+
+def test_a_state_on_no_mesh_takes_no_collective(setup, jax_float32_step):
+    """Inside a process group, a state that no mesh placed is one process's
+    model, as the JAX package's step on one device: its train and eval
+    steps call no collective, and their losses are the JAX package's."""
+    jp, anchors, batch = setup
+    _, jl, _ = jax_float32_step
+    jcfg, tcfg = _cfgs("float32")
+    jel, _ = jax_ts.make_eval_step(jcfg, anchors)(jp, batch)
+
+    def collective(*args, **kwargs):
+        raise AssertionError("a collective on a state that no mesh placed")
+
+    with mock.patch.object(torch.distributed, "is_initialized", lambda: True), \
+            mock.patch.object(torch.distributed, "all_reduce", collective):
+        _, tl, _ = _port_step(jp, anchors, batch, tcfg)
+        tel, _ = train_step.make_eval_step(tcfg, anchors)(params_from_jax(jp), batch)
+    for got, want in ((tl, jl), (tel, jel)):
+        for k in want:
+            assert abs(float(got[k]) - float(want[k])) <= 1e-5 * abs(float(want[k])), k
 
 
 def test_lr_schedule_boundaries():
