@@ -61,6 +61,7 @@ from ssd_tensorflow_tpu_torch.models.ssd_vgg import (
     reduce_head_maps,
 )
 from ssd_tensorflow_tpu_torch.ops.int8_conv import int8_conv
+from ssd_tensorflow_tpu_torch.utils.profiling import span
 
 
 def _hwio(w) -> np.ndarray:
@@ -136,8 +137,10 @@ def quantize_weights_folded(params, act_amax=None) -> dict:
 def quantize(x, inv):
     """int8 ``clip(round(float32(x) * inv), -127, 127)``; ``inv`` is the
     staged float32 inverse scale, ``(1,)`` or one per channel (a tensor, so
-    that a bf16 ``x`` is multiplied in float32)."""
-    return torch.mul(x, inv).round_().clamp_(-127, 127).to(torch.int8)
+    that a bf16 ``x`` is multiplied in float32). A span
+    ``ssd.int8.quantize`` while a profiler runs."""
+    with span("ssd.int8.quantize"):
+        return torch.mul(x, inv).round_().clamp_(-127, 127).to(torch.int8)
 
 
 def _qconv(layer, x, stride=1, padding="SAME", dilation=1, relu=True):
@@ -173,10 +176,12 @@ def _qconv_executor(staged):
 def requant(sums, layer, relu=True):
     """``bf16(act(sums * m + b))``: the multiply-add in float32, rounded
     once to bf16 as it is stored; ReLU then on the bf16 values (rounding
-    is monotone and keeps 0, so it commutes with ReLU)."""
-    out = torch.empty(sums.shape, dtype=torch.bfloat16, device=sums.device)
-    torch.addcmul(layer["b"], sums, layer["mult"], out=out)
-    return out.relu_() if relu else out
+    is monotone and keeps 0, so it commutes with ReLU). A span
+    ``ssd.int8.requant`` while a profiler runs."""
+    with span("ssd.int8.requant"):
+        out = torch.empty(sums.shape, dtype=torch.bfloat16, device=sums.device)
+        torch.addcmul(layer["b"], sums, layer["mult"], out=out)
+        return out.relu_() if relu else out
 
 
 def _walk(conv, x, l2_scale, config: ModelConfig):

@@ -38,7 +38,10 @@ whose transforms are not exact on integers.
 
 A CUDA tensor runs the card route or raises; CPU tensors take the plain
 version. ``int8_conv.launches`` counts the card route's calls (one a
-convolution, however many chunks).
+convolution, however many chunks). While a profiler runs, each chunk's
+im2col (the first also pads the input) is a span ``ssd.int8.im2col`` and
+each GEMM (``_gemm_into``, with any padding copy) a span
+``ssd.int8.gemm`` (``utils/profiling.span``).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from ssd_tensorflow_tpu_torch.models.layers import _same_pads
+from ssd_tensorflow_tpu_torch.utils.profiling import span
 
 #: the most bytes of im2col a chunk of whole images may take (at least one image)
 IM2COL_BYTES = 1 << 30
@@ -187,12 +191,13 @@ def _gemm_into(a, wt: Int8Weight, dst):
     """``dst`` ``(M, cout)`` int32 = ``a`` ``(M, Kp)`` int8 @ the staged
     filter; straight into ``dst`` unless N or M needs padding."""
     m = a.shape[0]
-    if m > _MIN_ROWS and wt.wk.shape[0] == wt.cout:
-        torch._int_mm(a, wt.wk.t(), out=dst)
-        return
-    if m <= _MIN_ROWS:
-        a = torch.cat([a, a.new_zeros((_MIN_ROWS + 1 - m, a.shape[1]))])
-    dst.copy_(torch._int_mm(a, wt.wk.t())[:m, : wt.cout])
+    with span("ssd.int8.gemm"):
+        if m > _MIN_ROWS and wt.wk.shape[0] == wt.cout:
+            torch._int_mm(a, wt.wk.t(), out=dst)
+            return
+        if m <= _MIN_ROWS:
+            a = torch.cat([a, a.new_zeros((_MIN_ROWS + 1 - m, a.shape[1]))])
+        dst.copy_(torch._int_mm(a, wt.wk.t())[:m, : wt.cout])
 
 
 def int8_conv_im2col(xq, wt: Int8Weight, stride: int = 1, padding: str = "SAME",
@@ -210,13 +215,15 @@ def int8_conv_im2col(xq, wt: Int8Weight, stride: int = 1, padding: str = "SAME",
     if wt.kh == wt.kw == 1 and stride == 1 and kp == wt.cin:
         _gemm_into(xq.contiguous().view(-1, wt.cin), wt, out.view(-1, wt.cout))
         return out
-    xp = _padded_words(xq, wt, ph, pw)
     chunk = chunk_images(b, ho, wo, kp, chunk_bytes)
-    cols = torch.empty((chunk, ho, wo, kp), dtype=torch.int8, device=xq.device)
-    cols[..., wt.kh * wt.kw * wt.cp:] = 0  # K padding: no tap writes it
     for b0 in range(0, b, chunk):
         n = min(chunk, b - b0)
-        _im2col(xp[b0:b0 + n], wt, stride, dilation, ho, wo, cols[:n])
+        with span("ssd.int8.im2col"):  # the first chunk's also pads the input
+            if b0 == 0:
+                xp = _padded_words(xq, wt, ph, pw)
+                cols = torch.empty((chunk, ho, wo, kp), dtype=torch.int8, device=xq.device)
+                cols[..., wt.kh * wt.kw * wt.cp:] = 0  # K padding: no tap writes it
+            _im2col(xp[b0:b0 + n], wt, stride, dilation, ho, wo, cols[:n])
         _gemm_into(cols[:n].view(-1, kp), wt, out[b0:b0 + n].view(-1, wt.cout))
     return out
 

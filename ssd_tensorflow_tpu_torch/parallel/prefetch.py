@@ -8,6 +8,10 @@ records an event. The consumer makes its current stream wait on that event
 and marks every tensor as used on it (``record_stream``), so that the
 caching allocator does not hand the memory to another batch while the
 consumer's stream may still read it.
+
+While a profiler runs, the producer's pinning and copy of each batch is a
+span ``ssd.prefetch.put`` and the consumer's wait for the next batch a
+span ``ssd.prefetch.wait`` (``utils/profiling.span``).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from ssd_tensorflow_tpu_torch import resolve_device
+from ssd_tensorflow_tpu_torch.utils.profiling import span
 
 
 def _tree_map(fn, tree):
@@ -71,15 +76,17 @@ def _prefetch(iterator, size, device, transform, put_fn):
     err = []
 
     def put(x, stream):
-        if put_fn is not None:
-            return put_fn(x), None
-        if device.type != "cuda":
-            return _tree_map(lambda a: _as_tensor(a).to(device), x), None
-        with torch.cuda.stream(stream):
-            out = _tree_map(lambda a: _as_tensor(a).pin_memory().to(device, non_blocking=True), x)
-            event = torch.cuda.Event()
-            event.record(stream)
-        return out, event
+        with span("ssd.prefetch.put"):
+            if put_fn is not None:
+                return put_fn(x), None
+            if device.type != "cuda":
+                return _tree_map(lambda a: _as_tensor(a).to(device), x), None
+            with torch.cuda.stream(stream):
+                out = _tree_map(lambda a: _as_tensor(a).pin_memory().to(device, non_blocking=True),
+                                x)
+                event = torch.cuda.Event()
+                event.record(stream)
+            return out, event
 
     def producer():
         try:
@@ -101,7 +108,8 @@ def _prefetch(iterator, size, device, transform, put_fn):
     t = threading.Thread(target=producer, daemon=True)
     t.start()
     while True:
-        item = q.get()
+        with span("ssd.prefetch.wait"):
+            item = q.get()
         if item is done:
             t.join()
             if err:

@@ -65,6 +65,7 @@ from ssd_tensorflow_tpu_torch.parallel.sharding import (
     use_tensor_parallel,
 )
 from ssd_tensorflow_tpu_torch.parallel.tensor_parallel import model_shards
+from ssd_tensorflow_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,11 +205,15 @@ def model_outputs(params, images, cfg: TrainConfig, forward=None, shards=None):
 
 def loss_terms(params, batch, anchors, cfg: TrainConfig, forward=None, shards=None):
     """``(losses, logits, locs)`` of a batch: its targets, the forward and
-    ``models/loss.total_loss``."""
-    labels = batch_targets(batch, anchors, cfg)
-    logits, locs = model_outputs(params, batch["images"], cfg, forward, shards)
-    losses = total_loss(logits, locs, labels, params, cfg.model.num_classes, cfg.weight_decay,
-                        shards)
+    ``models/loss.total_loss``, each a span (``ssd.step.targets``,
+    ``ssd.step.forward``, ``ssd.step.loss``) while a profiler runs."""
+    with span("ssd.step.targets"):
+        labels = batch_targets(batch, anchors, cfg)
+    with span("ssd.step.forward"):
+        logits, locs = model_outputs(params, batch["images"], cfg, forward, shards)
+    with span("ssd.step.loss"):
+        losses = total_loss(logits, locs, labels, params, cfg.model.num_classes,
+                            cfg.weight_decay, shards)
     return losses, logits, locs
 
 
@@ -239,7 +244,10 @@ def make_train_step(cfg: TrainConfig, anchors, forward=None):
     gradients and losses of a state placed on a mesh are averaged over its
     ``data`` group, and a tensor-parallel state runs conv6 / conv7 over its
     ``model`` group; a state on no mesh takes no collective (the module
-    doc).
+    doc). While a profiler runs, the step's parts are spans, in order:
+    ``ssd.step.targets``, ``.forward``, ``.loss`` (:func:`loss_terms`),
+    ``.backward`` (any remat recompute in it), ``.optimizer`` (the update,
+    not the mesh's averaging) and ``.detect``.
     """
     tx = make_optimizer(cfg)
     anchors = torch.as_tensor(np.asarray(anchors, dtype=np.float32))
@@ -254,15 +262,18 @@ def make_train_step(cfg: TrainConfig, anchors, forward=None):
         with full_float32(cfg.model.dtype):
             losses, logits, locs = loss_terms(leaves, batch, anc, cfg, forward, shards)
             flat = [v for d in leaves.values() for v in d.values()]
-            flat_grads = list(torch.autograd.grad(losses["total"], flat))
+            with span("ssd.step.backward"):
+                flat_grads = list(torch.autograd.grad(losses["total"], flat))
         losses = {k: v.detach().reshape(()).clone() for k, v in losses.items()}
         with torch.no_grad():
             if state.mesh is not None:
                 average(flat_grads + list(losses.values()), state.mesh.get_group("data"))
             flat_grads = iter(flat_grads)
             grads = tree_map(lambda _: next(flat_grads), leaves)
-            params, opt_state = tx.update(grads, state.opt_state, state.params)
-        dets = detect(logits, locs, anc, cfg)
+            with span("ssd.step.optimizer"):
+                params, opt_state = tx.update(grads, state.opt_state, state.params)
+        with span("ssd.step.detect"):
+            dets = detect(logits, locs, anc, cfg)
         new = dataclasses.replace(state, params=params, opt_state=opt_state, step=state.step + 1)
         return new, losses, dets
 

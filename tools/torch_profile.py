@@ -34,21 +34,29 @@ object (and writes it to ``--out``):
   adds, max-pool, copies): the whole forward's time less its timed parts;
 * ``run_scores_ms``: the whole ``InferenceModel.run_scores`` per batch;
 * ``profile``: a ``torch.profiler`` window over a few chained batches:
-  device busy time per batch, the kernels with the most device time, and
-  the idle share, ``1 - busy / event_ms_per_batch`` (the same chained
-  batches timed with CUDA events, untraced); ``window_idle_share`` is the
-  traced window's, whose CPU tracing slows the host.
+  the same batches timed with CUDA events, untraced
+  (``event_ms_per_batch``), and by the host's clock in the window
+  (``window_wall_ms_per_batch``), device busy time (a sum of kernel
+  times) per batch, the kernels with the most device time, and
+  ``span_ms_per_batch``: the device busy ms of the operations launched
+  inside each of the program's ``ssd.*`` spans
+  (``utils/profiling.span_device_ms``), such as the int8 path's
+  ``ssd.int8.quantize``, ``.im2col``, ``.gemm`` and ``.requant``. The
+  device's idle share is the benchmark's (``h100bench/``,
+  ``idle_share.*``).
 
 With ``--train``: the vgg512 bf16 SGD train step
 (``parallel/train_step.make_train_step``) at ``--batch`` (default 32) on
 one batch of uint8 images with 1-8 gt boxes each, weights from the seed.
-``stages_ms`` times each part of the step alone on the inputs one step
-gives it: targets (``encode_targets_batch``), the training forward
-(building its autograd graph), loss + hard-negative mining + L2, the
-backward (``torch.autograd.grad``), the optimizer update and the
-detect (softmax + ``decode_detections``, NMS the kernel); ``step_ms`` is
-the whole step, and ``profile`` a window over 3 chained steps. The train
-configuration is ``chip_smoke.train_config()``'s.
+``stages_ms`` is each part of the step in the profiled window, the
+device busy ms a step of the operations launched inside its span:
+targets (``ssd.step.targets``, ``encode_targets_batch``), the training
+forward (``.forward``), loss + hard-negative mining + L2 (``.loss``),
+the backward (``.backward``, ``torch.autograd.grad``), the optimizer
+update (``.optimizer``) and the detect (``.detect``, softmax +
+``decode_detections``, NMS the kernel); ``step_ms`` is the whole step,
+and ``profile`` a window over 3 chained steps. The train configuration
+is ``chip_smoke.train_config()``'s.
 
 With ``--qat mobilenet320|vgg512``: the QAT train step
 (``models/qat.make_qat_train_step``) of ``chip_smoke.py``'s phase 11, the
@@ -56,9 +64,10 @@ shipped bundle's dequantized weights in float32, the activation grid
 calibrated on 8 augmented images, at ``--batch`` (default 32 / 8) on a
 batch augmented on the card (``data/device_augment.py``). ``stages_ms``
 as with ``--train`` (the forward is the fake-quant one) plus
-``augment``; ``augment_stages_ms`` splits the augmentation into its draws,
-the photometric distortion, the geometry (sampler, remap, the positive
-fallback's IoU) and the window resampling.
+``augment`` (timed alone with CUDA events); ``augment_stages_ms``
+splits the augmentation into its draws, the photometric distortion, the
+geometry (sampler, remap, the positive fallback's IoU) and the window
+resampling.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -269,47 +278,13 @@ def _family_float_stages(model, images):
     return out
 
 
-def _train_stages(cfg, state, batch, anchors, forward=None):
-    """``{stage: ms}`` of the train step, each part timed alone (see the
-    module doc): the step's own functions on the inputs one step gives
-    them; ``forward`` as ``make_train_step``'s."""
-    import torch
-
-    from ssd_tensorflow_tpu_torch.models.loss import total_loss
-    from ssd_tensorflow_tpu_torch.parallel import train_step as ts
-    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
-
-    out = {}
-
-    def timed(name, fn):
-        out[name] = cuda_event_ms(fn, iters=3, warmup=1)
-        return fn()
-
-    labels = timed("targets", lambda: ts.batch_targets(batch, anchors, cfg))
-    leaves = ts.tree_map(lambda v: v.detach().requires_grad_(True), state.params)
-    flat = [v for d in leaves.values() for v in d.values()]
-    logits, locs = timed("forward", lambda: ts.model_outputs(leaves, batch["images"], cfg,
-                                                             forward))
-    total = timed("loss_mining_l2", lambda: total_loss(
-        logits, locs, labels, leaves, cfg.model.num_classes, cfg.weight_decay)["total"])
-    grads = timed("backward", lambda: torch.autograd.grad(total, flat, retain_graph=True))
-    it = iter(grads)
-    grads = ts.tree_map(lambda _: next(it), leaves)
-    tx = ts.make_optimizer(cfg)
-    with torch.no_grad():
-        timed("optimizer", lambda: tx.update(grads, state.opt_state, state.params))
-    timed("detect", lambda: ts.detect(logits, locs, anchors, cfg))
-    return out
-
-
 def _profile(run, iters=3):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from ssd_tensorflow_tpu_torch.timing import cuda_event_ms, device_kernels
+    from ssd_tensorflow_tpu_torch.utils.profiling import profiler_events, span_device_ms
 
-    # the idle share is taken against the untraced time: the window's CPU
-    # activity tracing slows the host, and with it a launch-bound run
     event_ms = cuda_event_ms(run, iters=iters, warmup=1)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -322,12 +297,12 @@ def _profile(run, iters=3):
     busy = sum(k[1] for k in kernels)
     if busy <= 0:
         raise RuntimeError("the profiler recorded no device time")
+    spans = span_device_ms(profiler_events(prof))
     return {
         "event_ms_per_batch": event_ms,
         "window_wall_ms_per_batch": wall_ms / iters,
         "device_busy_ms_per_batch": busy,
-        "idle_share": max(0.0, 1.0 - busy / event_ms),
-        "window_idle_share": max(0.0, 1.0 - busy * iters / wall_ms),
+        "span_ms_per_batch": {name: ms / iters for name, ms in sorted(spans.items())},
         "top_kernels": [{"name": n[:120], "ms_per_batch": t, "launches_per_batch": c}
                         for n, t, c in kernels[:25]],
         "kernel_launches_per_batch": sum(k[2] for k in kernels),
@@ -391,11 +366,19 @@ def _train_main(seed: int, batch_size: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     step_ms = cuda_event_ms(lambda: step(state, batch), iters=5, warmup=2)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    stages = _train_stages(cfg, state, batch, torch.from_numpy(anchors).cuda())
+    prof = _profile(lambda: step(state, batch))
+    stages = _step_parts(prof)
     return {"preset": cfg.model.preset_name, "path": "train", "dtype": cfg.model.compute_dtype,
             "batch": batch_size, "stages_ms": stages, "stages_sum_ms": sum(stages.values()),
             "step_ms": step_ms, "images_per_s": batch_size / step_ms * 1e3,
-            "peak_mem_gib": peak, "profile": _profile(lambda: step(state, batch))}
+            "peak_mem_gib": peak, "profile": prof}
+
+
+def _step_parts(prof) -> dict:
+    """``{part: ms}`` of the train step's ``ssd.step.*`` spans in a
+    :func:`_profile` window, device busy ms a step."""
+    return {name.removeprefix("ssd.step."): ms for name, ms in prof["span_ms_per_batch"].items()
+            if name.startswith("ssd.step.")}
 
 
 def _augment_stages(acfg, generator, batch, anchors):
@@ -451,14 +434,14 @@ def _qat_main(name: str, seed: int, batch_size) -> dict:
     torch.cuda.reset_peak_memory_stats()
     step_ms = cuda_event_ms(lambda: step(state, batch), iters=5, warmup=2)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = _profile(lambda: step(state, augment(generator, raw)))
     stages = {"augment": cuda_event_ms(lambda: augment(generator, raw), iters=3, warmup=1),
-              **_train_stages(cfg, state, batch, on_card, qat.make_qat_forward(cfg.model, act))}
+              **_step_parts(prof)}
     return {"preset": name, "path": "qat", "dtype": cfg.model.compute_dtype,
             "batch": batch_size, "stages_ms": stages, "stages_sum_ms": sum(stages.values()),
             "augment_stages_ms": _augment_stages(acfg, generator, raw, on_card),
             "step_ms": step_ms, "images_per_s": batch_size / step_ms * 1e3,
-            "peak_mem_gib": peak,
-            "profile": _profile(lambda: step(state, augment(generator, raw)))}
+            "peak_mem_gib": peak, "profile": prof}
 
 
 def _inference_main(args, batch_size: int) -> dict:
