@@ -44,14 +44,15 @@ non-zero, and the final line is printed only when every phase passed:
 5. int8_path: the shipped int8 W8A8 bundle
    (``assets/vgg512_int8_minivoc.ssdtpu.npz``, trained vgg512) through
    ``InferenceModel.from_bundle(...).run_scores`` on the same batch. Every
-   conv's int32 sums on 2 images must equal ``int8_conv``'s plain route's
-   on the card bit for bit; the counted run must launch ``int8_conv`` once
-   a conv layer and NMS, and no stem kernel; its scores must be the same
-   in two runs, agree with the same model with ``int8_conv`` patched to
-   its plain route (argmax class on >= 99.9 % of anchors, conf within
-   1e-3, locs within 1e-2), be finite and give 0..200 detections per
-   image; it reports images/s, ms per batch and peak device memory as
-   phase 4 does.
+   conv's output (``int8_qconv``, the fused kernel ``csrc/int8_conv.cu``)
+   on 2 images must equal the card chain's (``int8_qconv_plain``:
+   quantize, im2col + ``_int_mm``, requant) on the same input bit for bit;
+   the counted run must launch ``int8_qconv`` once a conv layer (32), the
+   im2col route never, NMS, and no stem kernel; its scores must be the
+   same in two runs and identical to the same model's with ``int8_qconv``
+   patched to the chain, be finite and give 0..200 detections per image;
+   it reports images/s, ms per batch and peak device memory as phase 4
+   does.
 6. train_path: the SGD training step of vgg512, 21 classes
    (``parallel/train_step.make_train_step``), weights from the seed, uint8
    images with 1-8 gt boxes each. (a) ``encode_targets_batch`` on the
@@ -77,17 +78,17 @@ non-zero, and the final line is printed only when every phase passed:
    (``assets/resnet320_int8_minicoco.ssdtpu.npz``, 80 classes;
    ``assets/mobilenet320_int8_qat_minivoc.ssdtpu.npz``, QAT, 20 classes)
    at ``--batch`` x 320 x 320, uint8 images from the seed: on 2 images
-   every W8A8 conv's int32 sums bit-exact against ``int8_conv``'s plain
-   route and every weight-only depthwise conv (cuDNN's) equal to the CPU
-   route bit for bit; the counted run must launch ``int8_conv`` once a
-   conv (48 / 28), NMS, and no stem kernel; the scores the same in two
-   runs and identical to the plain-route model's; ms per batch (CUDA
+   every W8A8 conv's output bit-exact against the card chain (as phase 5)
+   and every weight-only depthwise conv (cuDNN's) equal to the CPU route
+   bit for bit; the counted run must launch ``int8_qconv`` once a conv
+   (48 / 28), the im2col route never, NMS, and no stem kernel; the scores
+   the same in two runs and identical to the chain-patched model's; ms per batch (CUDA
    events over 5 chained batches), images/s and peak device memory.
 8. family_float_path: resnet320 and mobilenet320 in bf16 with weights from
    the seed at the same batch: every conv + bias call of the forward (the
    bias-in convs, the depthwise convs, the heads) held to one rounding as
    in phase 2, the long-K ones (K = 4608 / 9216) against cuDNN's own share;
-   NMS launched, no stem kernel and no ``int8_conv``; ms per batch,
+   NMS launched, no stem kernel and no int8 conv; ms per batch,
    images/s, peak memory. At batch 2, the card against the CPU three
    ways: (a) the same model in float32 (TF32 off): conf within 1e-4,
    argmax equal on >= 99.9 % of anchors, locs within 1e-4; (b) the bf16
@@ -133,7 +134,7 @@ non-zero, and the final line is printed only when every phase passed:
    ``qat.export_int8_bundle`` (calibration patched to raise), whose scales
    must equal the checkpoint's bit for bit (a family's ``a_scale`` =
    ``max(float32(amax) / 127, 1e-12)``); ``InferenceModel.from_bundle``
-   on the card launching ``int8_conv`` once a conv (28 / 32) and NMS once,
+   on the card launching ``int8_qconv`` once a conv (28 / 32) and NMS once,
    its keep mask against ``nms_keep_plain`` bit for bit; the fake-quant forward against the exported int8 forward on 8 images,
    argmax > 0.95 for mobilenet320 (the JAX package's floor for mntest64;
    reported for vgg512). Then, cuDNN's TF32 at PyTorch's default, one
@@ -188,7 +189,7 @@ non-zero, and the final line is printed only when every phase passed:
    to ``nms_keep_plain`` on its own candidates, bit for bit, and in runs A
    and B not empty; NMS launched
    once a train and once an eval step, no stem kernel and no
-   ``int8_conv``. Reports, for run A (a stress reading at threshold 0.01)
+   int8 conv. Reports, for run A (a stress reading at threshold 0.01)
    and for run C (the CLI as a user runs it): the CLI's own images/s
    (``StepTimer``) per epoch, CUDA-event ms a step over the epochs after
    the first (start to start of consecutive steps within an epoch, and
@@ -215,7 +216,7 @@ non-zero, and the final line is printed only when every phase passed:
    threshold 0.01: each ``.txt`` dump equals ``detect_boxes`` of the same
    batch, the detections match the fixture's JAX ones as phase 9's vgg512
    (IoU >= 0.99, conf within 1e-4, the same count), an annotated image a
-   file; NMS once, ``int8_conv`` once a conv, no stem. (c) infer with that
+   file; NMS once, ``int8_qconv`` once a conv, no stem. (c) infer with that
    bundle on a staged VOC tree of the 8 images (their XML annotations, a
    ``test.txt``), ``--dump-predictions --pascal-summary --coco-results``
    at 0.01: per-class AP and mAP within 1e-4 of the fixture's JAX values,
@@ -234,7 +235,7 @@ non-zero, and the final line is printed only when every phase passed:
    and the multichip dry run. (a) Under phase 12's one-rank NCCL group,
    ``InferenceModel(mesh=make_mesh())`` of the shipped int8 bundle and of
    the seeded vgg512 bf16 model (split stem) at b64 equal ``mesh=None``
-   bit for bit, launching NMS once, ``int8_conv`` once a conv (the bundle)
+   bit for bit, launching NMS once, ``int8_qconv`` once a conv (the bundle)
    and ``fused_stem`` once (bf16); ``cli/detect.py --data-parallel 1``
    writes the ``.txt`` files of ``--data-parallel 0`` (staged images, as
    phase 14). (b) Four processes of this script (``--worker``) on the one
@@ -285,12 +286,12 @@ non-zero, and the final line is printed only when every phase passed:
    --calib-images 32 --lr 1e-4 --output``: the valid mAPs at top 200 and
    0.01 of the float model >= 0.90, of PTQ and QAT int8 each within 0.05
    of it, every epoch loss finite, NMS once an eval with its keep mask
-   against ``nms_keep_plain``, ``int8_conv`` once a conv of each int8
+   against ``nms_keep_plain``, ``int8_qconv`` once a conv of each int8
    eval. (c) The QAT checkpoint exported by ``cli/export_model.py
    --quantize`` with no calibration images (calibration patched to
    raise): the bundle's activation scales equal the checkpoint's
    ``qat_act_scales``; ``InferenceModel.from_bundle`` on the card,
-   ``run_scores`` of the 32 images (NMS once, ``int8_conv`` once a conv,
+   ``run_scores`` of the 32 images (NMS once, ``int8_qconv`` once a conv,
    the keep mask held) and their VOC mAP within 1e-3 of (b)'s QAT int8
    mAP.
 
@@ -762,7 +763,7 @@ def _launch_counts():
     return {"nms_keep": nms_cuda.nms_keep, "fused_stem": stem_cuda.fused_stem,
             "fused_stem_uint8": stem_cuda.fused_stem_uint8, "stem_probe": stem_probe.stem_probe,
             "lane_unflatten_sum": stem_probe.lane_unflatten_sum,
-            "int8_conv": int8_conv.int8_conv}
+            "int8_conv": int8_conv.int8_conv, "int8_qconv": int8_conv.int8_qconv}
 
 
 def counted(run):
@@ -817,7 +818,7 @@ def detection_path(model, images, batch: int):
     dets, launches = counted(lambda: model.run_scores(images))
     peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30
     if (launches["nms_keep"] < 1 or launches[stem] < 1 or launches[other] != 0
-            or launches["int8_conv"] != 0):
+            or launches["int8_conv"] or launches["int8_qconv"]):
         raise AssertionError(f"the {variant} path did not run its kernels: {launches}")
     counts = _path_checks(variant, dets, model, batch)
 
@@ -856,19 +857,26 @@ def detection_path(model, images, batch: int):
 
 
 def qconv_calls(model, images):
-    """Every ``int8_conv`` call of the int8 ``model``'s forward on
-    ``images``: ``[(xq, staged filter, stride, padding, dilation, sums)]``."""
+    """Every W8A8 conv of the int8 ``model``'s forward on ``images``, each
+    checked as it runs against the card chain (``int8_qconv_plain``:
+    quantize, im2col + ``_int_mm``, requant) on the same input:
+    ``[(x shape, staged filter, stride, padding, dilation, equal)]``."""
+    import torch
+
     from ssd_tensorflow_tpu_torch.models import quantized
+    from ssd_tensorflow_tpu_torch.ops.int8_conv import int8_qconv_plain
 
     calls = []
-    real = quantized.int8_conv
+    real = quantized.int8_qconv
 
-    def record(xq, wt, stride=1, padding="SAME", dilation=1):
-        y = real(xq, wt, stride, padding, dilation)
-        calls.append((xq, wt, stride, padding, dilation, y))
+    def record(x, layer, stride=1, padding="SAME", dilation=1, relu=True):
+        y = real(x, layer, stride, padding, dilation, relu)
+        want = int8_qconv_plain(x, layer, stride, padding, dilation, relu)
+        calls.append((tuple(x.shape), layer["w"], stride, padding, dilation,
+                      bool(torch.equal(y, want))))
         return y
 
-    with mock.patch.object(quantized, "int8_conv", record):
+    with mock.patch.object(quantized, "int8_qconv", record):
         model.forward_scores(images)
     return calls
 
@@ -879,38 +887,33 @@ def int8_path(bundle, images, batch: int, device):
 
     from ssd_tensorflow_tpu_torch.inference import InferenceModel
     from ssd_tensorflow_tpu_torch.models import quantized
-    from ssd_tensorflow_tpu_torch.ops.int8_conv import int8_conv_plain
+    from ssd_tensorflow_tpu_torch.ops.int8_conv import int8_qconv_plain
     from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
 
     model = InferenceModel.from_bundle(str(bundle), device=device)
     n_convs = len(model.act_scales)
     with torch.inference_mode():
-        calls = qconv_calls(model, images[:2])
         layers = []
-        for xq, wt, stride, padding, dilation, got in calls:
-            want = int8_conv_plain(xq, wt, stride, padding, dilation)
-            layers.append({"x": list(xq.shape), "k": [wt.kh, wt.kw, wt.cin, wt.cout],
-                           "stride": stride, "padding": padding, "dilation": dilation,
-                           "max_abs_sum": int(want.abs().max())})
-            if not torch.equal(got, want):
-                raise AssertionError(f"int8_conv differs from its plain route: {layers[-1]}, "
-                                     f"{int((got != want).sum())} sums")
-        del calls
+        for shape, wt, stride, padding, dilation, equal in qconv_calls(model, images[:2]):
+            layers.append({"x": list(shape), "k": [wt.kh, wt.kw, wt.cin, wt.cout],
+                           "stride": stride, "padding": padding, "dilation": dilation})
+            if not equal:
+                raise AssertionError(f"int8_qconv differs from the card chain: {layers[-1]}")
     if len(layers) != n_convs:
         raise AssertionError(f"recorded {len(layers)} int8 convs, the bundle has {n_convs}")
 
     torch.cuda.reset_peak_memory_stats()
     dets, launches = counted(lambda: model.run_scores(images))
     peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30
-    if (launches["int8_conv"] != n_convs or launches["nms_keep"] < 1
-            or launches["fused_stem"] or launches["fused_stem_uint8"]):
+    if (launches["int8_qconv"] != n_convs or launches["int8_conv"]
+            or launches["nms_keep"] < 1 or launches["fused_stem"] or launches["fused_stem_uint8"]):
         raise AssertionError(f"the int8 path did not run its kernels as it should: {launches}")
     counts = _path_checks("int8", dets, model, batch)
 
     with torch.inference_mode():
         scores = model.forward_scores(images)
         repeat = model.forward_scores(images)
-        with mock.patch.object(quantized, "int8_conv", int8_conv_plain):
+        with mock.patch.object(quantized, "int8_qconv", int8_qconv_plain):
             plain = model.forward_scores(images)
     (conf, cls, locs), (conf_p, cls_p, locs_p) = scores, plain
     if not (torch.isfinite(conf).all() and torch.isfinite(locs).all()):
@@ -921,8 +924,7 @@ def int8_path(bundle, images, batch: int, device):
              "cls_share": float((cls == cls_p).float().mean()),
              "locs_max_abs": float((locs - locs_p).abs().max()),
              "scores_identical": all(torch.equal(a, b) for a, b in zip(scores, plain))}
-    if not (agree["cls_share"] >= 0.999 and agree["conf_max_abs"] <= 1e-3
-            and agree["locs_max_abs"] <= 1e-2):
+    if not agree["scores_identical"]:
         raise AssertionError(f"the int8 path and its plain-route twin disagree: {agree}")
     del scores, repeat, plain, conf, cls, locs, conf_p, cls_p, locs_p
 
@@ -930,7 +932,6 @@ def int8_path(bundle, images, batch: int, device):
     _emit({"phase": "int8_path", "bundle": str(Path(bundle).name),
            "preset": model.config.preset_name, "batch": batch, "launches": launches,
            "conv_layers": len(layers), "layers_bit_exact": True,
-           "max_abs_sum": max(r["max_abs_sum"] for r in layers),
            "plain_route_agreement": agree, "detections_per_image": counts,
            "batch_ms": batch_ms, "images_per_s": batch / batch_ms * 1e3,
            "peak_mem_gib": peak_mem_gib})
@@ -1167,7 +1168,7 @@ def train_path(seed: int, device):
     if not all(np.isfinite(totals)) or not totals[-1] < totals[0]:
         raise AssertionError(f"bf16 training: total loss not finite and falling: {totals}")
     if (launches["nms_keep"] != 10 or launches["fused_stem"] or launches["fused_stem_uint8"]
-            or launches["int8_conv"]):
+            or launches["int8_conv"] or launches["int8_qconv"]):
         raise AssertionError(f"the train path did not run its kernels as it should: {launches}")
     if dets.boxes.shape != (TRAIN_BATCH, 200, 4) or not dets.boxes.is_cuda:
         raise AssertionError(f"train step detections: {tuple(dets.boxes.shape)}")
@@ -1242,7 +1243,7 @@ def family_int8_path(name: str, root: Path, seed: int, batch: int, device):
 
     from ssd_tensorflow_tpu_torch.inference import InferenceModel
     from ssd_tensorflow_tpu_torch.models import quantized
-    from ssd_tensorflow_tpu_torch.ops.int8_conv import int8_conv_plain
+    from ssd_tensorflow_tpu_torch.ops.int8_conv import int8_qconv_plain
     from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
 
     fname, n_convs = FAMILY_BUNDLES[name]
@@ -1252,14 +1253,12 @@ def family_int8_path(name: str, root: Path, seed: int, batch: int, device):
     images = _family_images(seed, batch, device)
     layers, dw = [], []
     with torch.inference_mode():
-        for xq, wt, stride, padding, dilation, got in qconv_calls(model, images[:2]):
-            want = int8_conv_plain(xq, wt, stride, padding, dilation)
-            layers.append({"x": list(xq.shape), "k": [wt.kh, wt.kw, wt.cin, wt.cout],
-                           "stride": stride, "padding": padding,
-                           "max_abs_sum": int(want.abs().max())})
-            if not torch.equal(got, want):
-                raise AssertionError(f"{name}: int8_conv differs from its plain route: "
-                                     f"{layers[-1]}, {int((got != want).sum())} sums")
+        for shape, wt, stride, padding, dilation, equal in qconv_calls(model, images[:2]):
+            layers.append({"x": list(shape), "k": [wt.kh, wt.kw, wt.cin, wt.cout],
+                           "stride": stride, "padding": padding})
+            if not equal:
+                raise AssertionError(f"{name}: int8_qconv differs from the card chain: "
+                                     f"{layers[-1]}")
         for x, w, b, stride, padding, f32_out, got in depthwise_calls(model, images[:2]):
             want = quantized.depthwise_conv2d(x.cpu(), w.cpu(), b.cpu(), stride, padding, f32_out)
             dw.append({"x": list(x.shape), "stride": stride,
@@ -1274,15 +1273,15 @@ def family_int8_path(name: str, root: Path, seed: int, batch: int, device):
     torch.cuda.reset_peak_memory_stats()
     dets, launches = counted(lambda: model.run_scores(images))
     peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30
-    if (launches["int8_conv"] != n_convs or launches["nms_keep"] < 1
-            or launches["fused_stem"] or launches["fused_stem_uint8"]):
+    if (launches["int8_qconv"] != n_convs or launches["int8_conv"]
+            or launches["nms_keep"] < 1 or launches["fused_stem"] or launches["fused_stem_uint8"]):
         raise AssertionError(f"the {name} int8 path did not run its kernels as it should: "
                              f"{launches}")
     counts = _path_checks(name, dets, model, batch)
     with torch.inference_mode():
         scores = model.forward_scores(images)
         repeat = model.forward_scores(images)
-        with mock.patch.object(quantized, "int8_conv", int8_conv_plain):
+        with mock.patch.object(quantized, "int8_qconv", int8_qconv_plain):
             plain = model.forward_scores(images)
     if not (torch.isfinite(scores[0]).all() and torch.isfinite(scores[2]).all()):
         raise AssertionError(f"{name}: non-finite pre-NMS scores")
@@ -1294,7 +1293,7 @@ def family_int8_path(name: str, root: Path, seed: int, batch: int, device):
     batch_ms = cuda_event_ms(lambda: model.run_scores(images), iters=5, warmup=1)
     _emit({"phase": "family_int8_path", "bundle": Path(fname).name, "preset": name,
            "batch": batch, "launches": launches, "int8_convs": len(layers),
-           "int8_sums_bit_exact": True, "max_abs_sum": max(r["max_abs_sum"] for r in layers),
+           "int8_convs_bit_exact": True,
            "depthwise_convs": len(dw), "depthwise_equal_to_cpu": True,
            "scores_repeatable": True, "scores_identical_to_plain_route": True,
            "detections_per_image": counts, "batch_ms": batch_ms,
@@ -1355,8 +1354,8 @@ def family_float_path(name: str, root: Path, seed: int, batch: int, device):
     torch.cuda.reset_peak_memory_stats()
     dets, launches = counted(lambda: model.run_scores(images))
     peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30
-    if (launches["nms_keep"] < 1 or launches["int8_conv"] or launches["fused_stem"]
-            or launches["fused_stem_uint8"]):
+    if (launches["nms_keep"] < 1 or launches["int8_conv"] or launches["int8_qconv"]
+            or launches["fused_stem"] or launches["fused_stem_uint8"]):
         raise AssertionError(f"the {name} float path did not run its kernels as it should: "
                              f"{launches}")
     counts = _path_checks(name, dets, model, batch)
@@ -1479,7 +1478,7 @@ def real_images(root: Path, device):
         jax_dets = {f: fixture[f"{name}_{f}"] for f in fields}
         row = {"detections_per_image": card["valid"].sum(axis=1).tolist(),
                "jax_detections_per_image": jax_dets["valid"].sum(axis=1).tolist()}
-        if launches[name]["nms_keep"] < 1 or launches[name]["int8_conv"] < 1:
+        if launches[name]["nms_keep"] < 1 or launches[name]["int8_qconv"] < 1:
             raise AssertionError(f"{name}: real-image run did not launch its kernels")
         if row["detections_per_image"] != row["jax_detections_per_image"]:
             raise AssertionError(f"{name}: detection counts {row}")
@@ -1766,8 +1765,8 @@ def qat_path(name: str, root: Path, seed: int, device):
         totals = [float(t) for t in totals]
         if not all(np.isfinite(totals)):
             raise AssertionError(f"{name} QAT: a loss is not finite: {totals}")
-        if (launches["nms_keep"] != steps or launches["int8_conv"] or launches["fused_stem"]
-                or launches["fused_stem_uint8"]):
+        if (launches["nms_keep"] != steps or launches["int8_conv"] or launches["int8_qconv"]
+                or launches["fused_stem"] or launches["fused_stem_uint8"]):
             raise AssertionError(f"the {name} QAT steps did not run their kernels as they "
                                  f"should: {launches}")
         augment_ms = cuda_event_ms(lambda: augment(generator, raw), iters=3, warmup=1)
@@ -1800,7 +1799,8 @@ def qat_path(name: str, root: Path, seed: int, device):
     images = first["images"]
     with recording_detect() as rec:
         deploy, deploy_launches = counted(lambda: model.run_scores(images))
-    if deploy_launches["int8_conv"] != n_convs or deploy_launches["nms_keep"] != 1:
+    if (deploy_launches["int8_qconv"] != n_convs or deploy_launches["int8_conv"]
+            or deploy_launches["nms_keep"] != 1):
         raise AssertionError(f"the exported {name} bundle did not run its kernels as it should: "
                              f"{deploy_launches} ({n_convs} int8 convs)")
     deploy_keep = check_keep(rec, f"{name} QAT deploy")
@@ -2263,7 +2263,8 @@ def train_cli_path(seed: int, device, bare_step_ms: float):
                   "c_defaults": 2 * timed_per_epoch}
     for run, n in launches.items():
         if (n_train[run] != want_train[run] or n["nms_keep"] != n_train[run] + n_eval[run]
-                or n["fused_stem"] or n["fused_stem_uint8"] or n["int8_conv"]):
+                or n["fused_stem"] or n["fused_stem_uint8"] or n["int8_conv"]
+                or n["int8_qconv"]):
             raise AssertionError(f"train CLI run {run}: {n_train[run]} train and {n_eval[run]} "
                                  f"eval steps, launches {n}")
     if len(probe.keeps) != sum(n["nms_keep"] for n in launches.values()):
@@ -2613,8 +2614,8 @@ def serving_cli_path(root: Path, device):
         if rc != 0:
             raise AssertionError(f"detect exited {rc}:\n{log[-3000:]}")
         n = launches["detect"]
-        if (n["nms_keep"] != 1 or n["int8_conv"] != n_convs or n["fused_stem"]
-                or n["fused_stem_uint8"]):
+        if (n["nms_keep"] != 1 or n["int8_qconv"] != n_convs or n["int8_conv"]
+                or n["fused_stem"] or n["fused_stem_uint8"]):
             raise AssertionError(f"detect launches {n}")
         padded = np.concatenate([fx["images"], np.repeat(fx["images"][-1:],
                                                         SERVING_BATCH - len(names), 0)])
@@ -2649,8 +2650,8 @@ def serving_cli_path(root: Path, device):
         if rc != 0:
             raise AssertionError(f"infer exited {rc}:\n{log[-3000:]}")
         n = launches["infer"]
-        if (n["nms_keep"] != 1 or n["int8_conv"] != n_convs or n["fused_stem"]
-                or n["fused_stem_uint8"]):
+        if (n["nms_keep"] != 1 or n["int8_qconv"] != n_convs or n["int8_conv"]
+                or n["fused_stem"] or n["fused_stem_uint8"]):
             raise AssertionError(f"infer launches {n}")
         aps = recording.last
         jax_aps = dict(zip((str(k) for k in fx["ap_names"]), fx["ap_values"]))
@@ -2687,7 +2688,8 @@ def serving_cli_path(root: Path, device):
         if rc != 0:
             raise AssertionError(f"infer of the float bundle exited {rc}:\n{log[-3000:]}")
         n = launches["infer_float"]
-        if n["nms_keep"] != 1 or n["fused_stem"] != 1 or n["int8_conv"] or n["fused_stem_uint8"]:
+        if (n["nms_keep"] != 1 or n["fused_stem"] != 1 or n["int8_conv"] or n["int8_qconv"]
+                or n["fused_stem_uint8"]):
             raise AssertionError(f"infer of the float bundle launches {n}")
         with mock.patch.object(stem_cuda, "fused_stem", stem_cuda.fused_stem_plain), \
                 _recording_ap(infer_cli)[0]:
@@ -2993,7 +2995,7 @@ def multichip_path(root: Path, seed: int, device, bare_step_ms: float):
         if differ:
             raise AssertionError(f"{name}: the mesh of one differs from mesh=None in {differ}")
         convs = len(plain.act_scales) if name == "int8" else 0
-        if (n["nms_keep"] != 1 or n["int8_conv"] != convs
+        if (n["nms_keep"] != 1 or n["int8_qconv"] != convs or n["int8_conv"]
                 or n["fused_stem"] != (name == "bf16") or n["fused_stem_uint8"]):
             raise AssertionError(f"{name} served on the mesh of one launched {n}")
         launches[f"mesh1_{name}"] = n
@@ -3019,7 +3021,7 @@ def multichip_path(root: Path, seed: int, device, bare_step_ms: float):
             dumps.append(_txt_rows(tmp / f"dp{dp}"))
         if dumps[0] != dumps[1] or len(dumps[0]) != len(names):
             raise AssertionError("detect --data-parallel 1 wrote other files than 0")
-        if n["nms_keep"] != 1 or n["int8_conv"] != n_convs:
+        if n["nms_keep"] != 1 or n["int8_qconv"] != n_convs or n["int8_conv"]:
             raise AssertionError(f"detect --data-parallel 1 launched {n}")
         launches["detect_dp1"] = n
     out["a_mesh_of_one"] = {"backend": "nccl", "int8_bit_exact": True, "bf16_bit_exact": True,
@@ -3038,7 +3040,7 @@ def multichip_path(root: Path, seed: int, device, bare_step_ms: float):
         serve_s = time.perf_counter() - t0
         for r, rep in enumerate(reports):
             n = rep["launches"]
-            if n["nms_keep"] != 1 or n["int8_conv"] != n_convs:
+            if n["nms_keep"] != 1 or n["int8_qconv"] != n_convs or n["int8_conv"]:
                 raise AssertionError(f"serving process {r} launched {n}")
         with np.load(tmp / "serve.dets.npz") as f:
             got = {k: f[k] for k in fields}
@@ -3253,7 +3255,8 @@ def overfit_run(device):
                    for k, v in d.items()):
             raise AssertionError(f"the overfit eval at step {stop} changed the parameters")
         del before
-        if (n["nms_keep"] != 1 or n["fused_stem"] or n["fused_stem_uint8"] or n["int8_conv"]):
+        if (n["nms_keep"] != 1 or n["fused_stem"] or n["fused_stem_uint8"] or n["int8_conv"]
+                or n["int8_qconv"]):
             raise AssertionError(f"the overfit eval at step {stop} launched {n}")
         launches[stop] = n
         evals[stop] = {"mAP": mAP, "least": least,
@@ -3340,10 +3343,11 @@ def qat_finetune_run(cfg, state, batch, tmp: Path, device):
     m_float, m_ptq, m_qat = maps
     for e, int8 in zip(evals, (0, n_convs, n_convs)):
         n = e["launches"]
-        if (n["nms_keep"] != 1 or n["int8_conv"] != int8 or n["fused_stem"]
-                or n["fused_stem_uint8"]):
+        if (n["nms_keep"] != 1 or n["int8_qconv"] != int8 or n["int8_conv"]
+                or n["fused_stem"] or n["fused_stem_uint8"]):
             raise AssertionError(f"QAT finetune eval launched {n} (int8 convs {int8})")
-    if launches["nms_keep"] != 3 or launches["int8_conv"] != 2 * n_convs:
+    if (launches["nms_keep"] != 3 or launches["int8_qconv"] != 2 * n_convs
+            or launches["int8_conv"]):
         raise AssertionError(f"torch_qat_finetune.main launched {launches}")
     kept = [check_keep({"keep": k}, "QAT finetune eval")["kept"] for k in keeps]
     if len(kept) != 3:
@@ -3387,7 +3391,7 @@ def served_bundle_run(ckpt, batch, m_qat, tmp: Path, device):
     images = torch.from_numpy(batch["images"]).to(device)
     with recording_detect() as rec:
         dets, launches = counted(lambda: model.run_scores(images))
-    if (launches["nms_keep"] != 1 or launches["int8_conv"] != len(stored)
+    if (launches["nms_keep"] != 1 or launches["int8_qconv"] != len(stored) or launches["int8_conv"]
             or launches["fused_stem"] or launches["fused_stem_uint8"]):
         raise AssertionError(f"the served bundle launched {launches}")
     keep = check_keep(rec, "served bundle")

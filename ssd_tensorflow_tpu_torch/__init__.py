@@ -11,9 +11,12 @@ Every TPU kernel of the JAX package is a hand-written CUDA kernel for
 uint8 stem (``ops/stem_cuda.py``), the fused IoU + greedy NMS
 (``ops/nms_cuda.py``), and the stem probes' kernels
 (``ops/stem_probe.py``). The int8 W8A8 deploy path
-(``models/quantized.py``) computes its integer convolutions by im2col and
-``torch._int_mm`` (``ops/int8_conv.py``): the JAX package leaves that
-product to XLA, outside any Pallas kernel. Entry points run on
+(``models/quantized.py``) runs each convolution, quantize, integer
+product and requantize, as one hand-written kernel
+(``csrc/int8_conv.cu``, ``ops/int8_conv.int8_qconv``), where the JAX
+package leaves the product to XLA, outside any Pallas kernel; the
+earlier route of three passes around im2col and ``torch._int_mm`` stays
+as the kernel's bit-exact yardstick on the card. Entry points run on
 ``device="cuda"`` unless the caller asks for the CPU; on the CPU each
 kernel's wrapper runs its plain PyTorch version.
 """

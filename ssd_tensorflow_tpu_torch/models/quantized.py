@@ -23,7 +23,8 @@ L2-norm ``scale``, the GroupNorms); ``weights.qparams_from_jax`` converts
 the JAX package's tree. The forward functions take them staged on their
 device by ``weights.stage_qparams``: the filters laid out for the GEMM
 (``ops/int8_conv.py``), the requant multipliers and the inverse scales
-computed once.
+computed once. Each conv is one call of ``ops/int8_conv.int8_qconv``: one
+kernel on the card, the three steps below as separate passes on the CPU.
 
 Order of operations, as in the JAX package's ``_qconv`` and
 ``_qconv_folded``: ``xq = clip(round(float32(x) * inv), -127, 127)``
@@ -60,8 +61,7 @@ from ssd_tensorflow_tpu_torch.models.ssd_vgg import (
     preprocess,
     reduce_head_maps,
 )
-from ssd_tensorflow_tpu_torch.ops.int8_conv import int8_conv
-from ssd_tensorflow_tpu_torch.utils.profiling import span
+from ssd_tensorflow_tpu_torch.ops.int8_conv import int8_qconv
 
 
 def _hwio(w) -> np.ndarray:
@@ -134,21 +134,11 @@ def quantize_weights_folded(params, act_amax=None) -> dict:
     return q
 
 
-def quantize(x, inv):
-    """int8 ``clip(round(float32(x) * inv), -127, 127)``; ``inv`` is the
-    staged float32 inverse scale, ``(1,)`` or one per channel (a tensor, so
-    that a bf16 ``x`` is multiplied in float32). A span
-    ``ssd.int8.quantize`` while a profiler runs."""
-    with span("ssd.int8.quantize"):
-        return torch.mul(x, inv).round_().clamp_(-127, 127).to(torch.int8)
-
-
 def _qconv(layer, x, stride=1, padding="SAME", dilation=1, relu=True):
     """Quantize ``x`` with the layer's static scale, int8 conv, requantize:
-    ``bf16(act(sums * m + b))``. ``layer`` is one staged conv of
-    ``weights.stage_qparams``."""
-    y = int8_conv(quantize(x, layer["inv"]), layer["w"], stride, padding, dilation)
-    return requant(y, layer, relu)
+    ``bf16(act(sums * m + b))`` by ``ops/int8_conv.int8_qconv``. ``layer``
+    is one staged conv of ``weights.stage_qparams``."""
+    return int8_qconv(x.contiguous(), layer, stride, padding, dilation, relu)
 
 
 def _qconv_folded(layer, x, stride=1, padding="SAME"):
@@ -171,17 +161,6 @@ def _qconv_executor(staged):
         return _qconv_folded(layer, x, stride, padding)
 
     return conv
-
-
-def requant(sums, layer, relu=True):
-    """``bf16(act(sums * m + b))``: the multiply-add in float32, rounded
-    once to bf16 as it is stored; ReLU then on the bf16 values (rounding
-    is monotone and keeps 0, so it commutes with ReLU). A span
-    ``ssd.int8.requant`` while a profiler runs."""
-    with span("ssd.int8.requant"):
-        out = torch.empty(sums.shape, dtype=torch.bfloat16, device=sums.device)
-        torch.addcmul(layer["b"], sums, layer["mult"], out=out)
-        return out.relu_() if relu else out
 
 
 def _walk(conv, x, l2_scale, config: ModelConfig):

@@ -325,18 +325,16 @@ def test_int8_quantize_and_requant_match_the_cpu(cuda, relu):
     ``quantize`` (float32 multiply, round half to even, clip) and
     ``requant`` (one float32 multiply-add, bf16, ReLU), which the CPU tests
     hold against the JAX package."""
-    from ssd_tensorflow_tpu_torch.models import quantized
-
     rng = np.random.default_rng(11)
     x = torch.tensor(rng.normal(0, 3, (2, 9, 7, 96)), dtype=torch.float32).to(torch.bfloat16)
     inv = torch.tensor([1.0 / 0.0371], dtype=torch.float32)
-    assert torch.equal(quantized.quantize(x.to(cuda), inv.to(cuda)).cpu(),
-                       quantized.quantize(x, inv))
+    assert torch.equal(int8_conv.quantize(x.to(cuda), inv.to(cuda)).cpu(),
+                       int8_conv.quantize(x, inv))
     sums = torch.tensor(rng.integers(-2**22, 2**22, (2, 9, 7, 96)), dtype=torch.int32)
     layer = {"b": torch.tensor(rng.normal(0, 1, 96), dtype=torch.float32),
              "mult": torch.tensor(rng.uniform(1e-6, 1e-3, 96), dtype=torch.float32)}
-    want = quantized.requant(sums, layer, relu)
-    got = quantized.requant(sums.to(cuda), {k: v.to(cuda) for k, v in layer.items()}, relu)
+    want = int8_conv.requant(sums, layer, relu)
+    got = int8_conv.requant(sums.to(cuda), {k: v.to(cuda) for k, v in layer.items()}, relu)
     assert got.dtype == torch.bfloat16 and torch.equal(got.cpu(), want)
 
 
@@ -344,6 +342,100 @@ def test_int8_conv_rejects_a_filter_on_another_device(cuda):
     wt = int8_conv.stage_int8_weight(torch.zeros((3, 3, 8, 8), dtype=torch.int8))
     with pytest.raises(ValueError, match="CUDA device"):
         int8_conv.int8_conv(torch.zeros((1, 4, 4, 8), dtype=torch.int8, device=cuda), wt)
+
+
+def _qconv_layer(cin, k, cout, g, device, per_channel=False):
+    """A staged int8 conv of random values: an int8 filter, an inverse scale
+    ``(1,)`` or ``(cin,)``, requant multipliers and a bias."""
+    from ssd_tensorflow_tpu_torch.ops.int8_conv import stage_int8_weight
+
+    wq = torch.randint(-127, 128, (k, k, cin, cout), generator=g, device=device, dtype=torch.int8)
+    n_inv = cin if per_channel else 1
+    return {"w": stage_int8_weight(wq),
+            "inv": 1.0 / (0.02 + 0.08 * torch.rand(n_inv, generator=g, device=device)),
+            "mult": 1e-6 + 1e-4 * torch.rand(cout, generator=g, device=device),
+            "b": torch.randn(cout, generator=g, device=device)}
+
+
+@pytest.mark.parametrize("h,w,cin,k,cout,stride,padding,dilation",
+                         VGG512_INT8_CONVS + _family_int8_convs())
+def test_int8_qconv_kernel_matches_the_chain(cuda, h, w, cin, k, cout, stride, padding, dilation):
+    """``csrc/int8_conv.cu`` equals quantize -> im2col + ``_int_mm`` ->
+    requant on the card bit for bit, at every int8 conv shape of the three
+    shipped bundles, on seeded random bf16 inputs (a tenth of them beyond
+    the clip) and random scales; per-channel ``inv`` at every family shape,
+    with and without ReLU, batch 2."""
+    g = torch.Generator(device=cuda).manual_seed(h * cin + cout + k)
+    family = (h, w, cin, k, cout, stride, padding, dilation) not in VGG512_INT8_CONVS
+    layer = _qconv_layer(cin, k, cout, g, cuda, per_channel=family)
+    x = (3 * torch.randn((2, h, w, cin), generator=g, device=cuda)).to(torch.bfloat16)
+    for relu in (True, False):
+        want = int8_conv.int8_qconv_plain(x, layer, stride, padding, dilation, relu)
+        before = int8_conv.int8_qconv.launches
+        got = int8_conv.int8_qconv(x, layer, stride, padding, dilation, relu)
+        assert int8_conv.int8_qconv.launches == before + 1
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert torch.equal(got, want), f"{int((got != want).sum())} of {want.numel()} differ"
+
+
+@pytest.mark.parametrize("b,h,w,cin,k,cout,stride,padding,dilation", [
+    (1, 1, 1, 32, 3, 8, 1, "SAME", 1), (3, 37, 21, 48, 3, 200, 1, "SAME", 1),
+    (2, 13, 45, 16, 3, 24, 2, "SAME", 1), (1, 30, 19, 96, 1, 72, 1, "SAME", 1),
+    (2, 25, 25, 160, 1, 136, 2, "SAME", 1), (1, 29, 31, 64, 3, 66, 1, "SAME", 6),
+    (2, 9, 11, 32, 3, 130, 1, "VALID", 2), (1, 33, 17, 5, 3, 17, 1, "SAME", 1),
+    (2, 23, 19, 7, 5, 64, 2, "SAME", 1), (1, 12, 12, 12, 2, 31, 1, "VALID", 1)])
+def test_int8_qconv_kernel_ragged_shapes(cuda, b, h, w, cin, k, cout, stride, padding, dilation):
+    """The kernel's masked edges: odd maps, a 1x1 image, couts that are not
+    a multiple of 8 or of the 64 / 128 channel tiles, cin tails past a
+    stage (96, 160), small and odd cin (the gathered route), an even
+    kernel, dilation 2 and 6, per-channel ``inv``."""
+    g = torch.Generator(device=cuda).manual_seed(b * h * w + cin * k + cout)
+    layer = _qconv_layer(cin, k, cout, g, cuda, per_channel=bool(cout % 2))
+    x = (3 * torch.randn((b, h, w, cin), generator=g, device=cuda)).to(torch.bfloat16)
+    want = int8_conv.int8_qconv_plain(x, layer, stride, padding, dilation)
+    got = int8_conv.int8_qconv(x, layer, stride, padding, dilation)
+    assert torch.equal(got, want), f"{int((got != want).sum())} of {want.numel()} differ"
+
+
+#: the shipped int8 bundles: (file, image side)
+INT8_BUNDLES = [("assets/vgg512_int8_minivoc.ssdtpu.npz", 512),
+                ("assets/resnet320_int8_minicoco.ssdtpu.npz", 320),
+                ("assets/mobilenet320_int8_qat_minivoc.ssdtpu.npz", 320)]
+
+
+@pytest.mark.parametrize("bundle,side,b", [(*INT8_BUNDLES[0], 2), (*INT8_BUNDLES[0], 1),
+                                           (*INT8_BUNDLES[0], 3), (*INT8_BUNDLES[1], 2),
+                                           (*INT8_BUNDLES[2], 2)])
+def test_int8_qconv_kernel_matches_the_chain_in_the_bundles(cuda, bundle, side, b):
+    """Every W8A8 conv of a shipped bundle's forward, on the bundle's own
+    input to that conv: the kernel equals the card chain bit for bit, and
+    the forward runs the kernel once a conv and the im2col route never."""
+    from unittest import mock
+
+    from ssd_tensorflow_tpu_torch.inference import InferenceModel
+    from ssd_tensorflow_tpu_torch.models import quantized
+
+    model = InferenceModel.from_bundle(bundle, device=cuda)
+    rng = np.random.default_rng(side + b)
+    images = torch.from_numpy(rng.integers(0, 256, (b, side, side, 3), dtype=np.uint8)).to(cuda)
+    real, checked = quantized.int8_qconv, []
+
+    def check(x, layer, stride=1, padding="SAME", dilation=1, relu=True):
+        got = real(x, layer, stride, padding, dilation, relu)
+        want = int8_conv.int8_qconv_plain(x, layer, stride, padding, dilation, relu)
+        checked.append((tuple(x.shape), layer["w"].kh, stride, dilation, torch.equal(got, want)))
+        return got
+
+    with torch.inference_mode(), mock.patch.object(quantized, "int8_qconv", check):
+        model.forward_scores(images)
+    assert checked and all(ok for *_, ok in checked), [c for c in checked if not c[-1]]
+    if "vgg512" in bundle:
+        assert len(checked) == 32
+    int8_conv.int8_qconv.launches = int8_conv.int8_conv.launches = 0
+    with torch.inference_mode():
+        model.forward_scores(images)
+    torch.cuda.synchronize()
+    assert int8_conv.int8_qconv.launches == len(checked) and int8_conv.int8_conv.launches == 0
 
 
 #: the multibox head convs (H = W, cin, anchor shapes, K + 5) of vgg512 and
@@ -732,7 +824,8 @@ def test_qat_export_on_the_card(cuda, tmp_path):
     """The QAT contract on the card: the amax calibrated on the card, stored
     in a checkpoint, exported without recalibrating (calibration patched to
     raise) bit for bit as the CPU's export of the same checkpoint; the
-    bundle runs on the card with ``int8_conv`` once a conv and NMS once."""
+    bundle runs on the card with the fused ``int8_qconv`` once a conv, the
+    im2col route never, and NMS once."""
     from unittest import mock
 
     from ssd_tensorflow_tpu_torch import inference
@@ -755,11 +848,13 @@ def test_qat_export_on_the_card(cuda, tmp_path):
     with np.load(str(tmp_path / "card.npz")) as a, np.load(str(tmp_path / "cpu.npz")) as b:
         assert all(np.array_equal(a[f], b[f]) for f in b.files)
     model = inference.InferenceModel.from_bundle(str(tmp_path / "card.npz"), device=cuda)
-    before = int8_conv.int8_conv.launches, nms_cuda.nms_keep.launches
+    before = (int8_conv.int8_qconv.launches, nms_cuda.nms_keep.launches,
+              int8_conv.int8_conv.launches)
     dets = model.run_scores(img)
     n_convs = sum("a_scale" in leaf for leaf in inference.load_bundle(
         str(tmp_path / "card.npz"))[0].values())
-    assert int8_conv.int8_conv.launches - before[0] == n_convs > 0
+    assert int8_conv.int8_qconv.launches - before[0] == n_convs > 0
+    assert int8_conv.int8_conv.launches == before[2]
     assert nms_cuda.nms_keep.launches - before[1] == 1 and dets.boxes.device.type == "cuda"
 
 

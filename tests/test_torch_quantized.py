@@ -181,7 +181,7 @@ def test_qconv_matches_jax(model, layer, hw, stride, padding, dilation, relu):
         jqp, xb)
     staged = stage_qparams({layer: tq.quantize_weights(tp)[layer]}, {layer: act_scale}, "cpu")
     xt = torch.from_numpy(np.asarray(xb, np.float32)).to(torch.bfloat16)
-    np.testing.assert_array_equal(tq.quantize(xt, staged[layer]["inv"]).numpy(),
+    np.testing.assert_array_equal(ic.quantize(xt, staged[layer]["inv"]).numpy(),
                                   np.asarray(want_xq))
     got = tq._qconv(staged[layer], xt, stride, padding, dilation, relu)
     assert got.dtype == torch.bfloat16 and got.shape == want.shape

@@ -58,6 +58,7 @@ from ssd_tensorflow_tpu.ops.anchors import anchors_for_preset
 from ssd_tensorflow_tpu_torch import inference
 from ssd_tensorflow_tpu_torch.models import mobilenet, resnet
 from ssd_tensorflow_tpu_torch.models import quantized as tq
+from ssd_tensorflow_tpu_torch.ops import int8_conv as ic
 from ssd_tensorflow_tpu_torch.ops import postprocess
 from ssd_tensorflow_tpu_torch.weights import (
     params_from_jax,
@@ -221,7 +222,7 @@ def test_qconv_folded_matches_jax(layer, hw, stride, padding):
                       np.float32)
     staged = stage_qparams(qparams_from_jax({layer: _as_numpy({layer: jqp})[layer]}), {}, "cpu")
     xt = torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
-    xq = tq.quantize(xt, staged[layer]["inv"])
+    xq = ic.quantize(xt, staged[layer]["inv"])
     want_xq = jnp.clip(jnp.round(x.astype(jnp.float32) * (1.0 / jqp["a_scale"])), -127, 127)
     np.testing.assert_array_equal(xq.numpy(), np.asarray(want_xq).astype(np.int8))
     from ssd_tensorflow_tpu_torch.ops.int8_conv import int8_conv

@@ -112,11 +112,12 @@ def int8_model():
 
 
 def test_int8_forward_same_bits_with_the_profiler_on(int8_model, monkeypatch):
-    """The card route (``int8_conv_im2col``) through the whole forward,
-    with and without a profiler: each stage's spans once a conv, and the
-    outputs equal bit for bit."""
+    """The card's yardstick route (``int8_conv_im2col`` inside
+    ``int8_qconv_plain``) through the whole forward, with and without a
+    profiler: each stage's spans once a conv, and the outputs equal bit for
+    bit."""
     model, cfg, images = int8_model
-    monkeypatch.setattr(quantized, "int8_conv", ic.int8_conv_im2col)
+    monkeypatch.setattr(ic, "int8_conv", ic.int8_conv_im2col)
     off = quantized._forward_scores(model.staged, images, cfg)
     with _cpu_profile() as prof:
         on = quantized._forward_scores(model.staged, images, cfg)

@@ -12,13 +12,14 @@ Prints one JSON object (and writes it to ``--out``):
 * ``int_mm_rates``: CUDA-event ms and TOP/s of ``_int_mm`` at the int8
   path's GEMM shapes (conv1_2's 1 GiB chunk, conv4, mod_conv6, a head);
 * ``addcmul``: the share of ``torch.addcmul(b, int32 sums, float32)``
-  outputs equal to one float32 multiply-add (``models/quantized.requant``
-  relies on it) and to two roundings;
+  outputs equal to one float32 multiply-add (``ops/int8_conv.requant`` and
+  the fused kernel ``csrc/int8_conv.cu`` rely on it) and to two roundings;
 * ``l2norm_layouts``: the share of L2-normalized conv4_3 values equal
   between an NHWC tensor and the same values as a permuted NCHW view;
 * ``layers``: the bundle's forward on ``--batch`` random uint8 images from
-  the seed, every ``int8_conv`` call's card route against its plain route
-  on the same input (number of unequal sums, largest |sum|).
+  the seed, every conv's fused kernel (``int8_qconv``) against the card
+  chain (``int8_qconv_plain``: quantize, im2col + ``_int_mm``, requant)
+  on the same input (number of unequal outputs).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -115,15 +116,16 @@ def _layers(bundle, batch, seed, device):
         0, 256, (batch, size.h, size.w, 3), dtype=np.uint8)).to(device)
     rows = []
 
-    def compare(xq, wt, stride=1, padding="SAME", dilation=1):
-        got = ic.int8_conv(xq, wt, stride, padding, dilation)
-        want = ic.int8_conv_plain(xq, wt, stride, padding, dilation)
-        rows.append({"x": list(xq.shape), "k": [wt.kh, wt.kw, wt.cin, wt.cout], "stride": stride,
-                     "padding": padding, "dilation": dilation,
-                     "unequal": int((got != want).sum()), "max_abs_sum": int(want.abs().max())})
+    def compare(x, layer, stride=1, padding="SAME", dilation=1, relu=True):
+        wt = layer["w"]
+        got = ic.int8_qconv(x, layer, stride, padding, dilation, relu)
+        want = ic.int8_qconv_plain(x, layer, stride, padding, dilation, relu)
+        rows.append({"x": list(x.shape), "k": [wt.kh, wt.kw, wt.cin, wt.cout], "stride": stride,
+                     "padding": padding, "dilation": dilation, "relu": relu,
+                     "unequal": int((got != want).sum())})
         return got
 
-    with torch.inference_mode(), mock.patch.object(quantized, "int8_conv", compare):
+    with torch.inference_mode(), mock.patch.object(quantized, "int8_qconv", compare):
         model.forward_scores(images)
     return rows
 

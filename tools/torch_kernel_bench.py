@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Time the greedy-NMS kernel, every stem-probe variant and the lane sum
-of one or more checkouts in turns, on one NVIDIA GPU, to compare a change
-with its parent within one run.
+"""Time the greedy-NMS kernel, every stem-probe variant, the lane sum and
+the fused int8 conv of one or more checkouts in turns, on one NVIDIA GPU,
+to compare a change with its parent within one run.
 
     python3 tools/torch_kernel_bench.py [--roots . _parent] [--rounds 4]
         [--batch 64] [--candidates 200] [--probe-shape 64 16 256]
-        [--only nms probes lane] [--out runs/kernel_bench.json]
+        [--only nms probes lane qconv] [--out runs/kernel_bench.json]
 
 Each root is a checkout of this repository (``.`` is the one the script
 lives in; unpack another commit with ``git archive <commit> | tar -x -C
@@ -19,7 +19,13 @@ CUDA-event time per call. The lane sum (``ops/stem_probe.lane_unflatten_sum``
 at (36, 1536), bit for bit) has a "launch_floor" row beside it where the
 checkout has ``stem_probe.launch_floor``: an empty kernel on the same
 grid, launched in turns with the lane sum inside one profiler window, the
-practical bound of launch-sized work. The last line is one JSON object
+practical bound of launch-sized work. ``qconv`` times
+``ops/int8_conv.int8_qconv`` (``csrc/int8_conv.cu``) at six vgg512
+convs of ``--batch`` images (:data:`QCONV_SHAPES`) beside their bound
+(:func:`conv_bound_ms`) and the CUDA-event ms of the card chain
+(``int8_qconv_plain``: quantize, im2col + ``_int_mm``, requant) on the
+same inputs, after checking the two equal bit for bit; a checkout without
+the kernel reports the chain alone. The last line is one JSON object
 with the card, and per root and kernel the median, minimum and maximum
 device ms.
 
@@ -92,12 +98,68 @@ def lane_rows(stem_probe, seed: int, device, iters: int = 200) -> dict:
     return out
 
 
+#: vgg512 int8 convs the ``qconv`` rows time: name -> (H = W, cin, k, cout, dilation, relu)
+QCONV_SHAPES = {"conv1_1": (512, 3, 3, 64, 1, True), "conv1_2": (512, 64, 3, 64, 1, True),
+                "conv3_2": (128, 256, 3, 256, 1, True), "conv4_2": (64, 512, 3, 512, 1, True),
+                "mod_conv6": (32, 512, 3, 1024, 6, True),
+                "classifier1": (32, 1024, 3, 150, 1, False)}
+
+
+def conv_bound_ms(b: int, hw: int, cin: int, k: int, cout: int) -> float:
+    """The least time of a stride-1 SAME int8 conv on an H100 SXM: the
+    larger of its operations at 1,979 TOP/s and its bytes at 3.35 TB/s (the
+    bf16 input read once, the int8 filter, the bf16 output written once),
+    as ``h100bench/benchlib/counts.py`` counts them."""
+    ops = 2.0 * b * hw * hw * cout * k * k * cin
+    nbytes = b * hw * hw * cin * 2 + k * k * cin * cout + b * hw * hw * cout * 2
+    return max(ops / 1979e12, nbytes / 3.35e12) * 1e3
+
+
+def qconv_rows(int8_conv, batch: int, seed: int, device) -> dict:
+    """The ``qconv`` rows: each shape's kernel and chain, on seeded random
+    inputs and scales."""
+    import torch
+
+    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms, kernel_device_ms
+
+    rows = {}
+    if not hasattr(int8_conv, "int8_qconv"):  # a checkout from before the kernel
+        return rows
+    for name, (hw, cin, k, cout, dil, relu) in QCONV_SHAPES.items():
+        g = torch.Generator(device=device).manual_seed(seed + hw * cin + cout)
+        wq = torch.randint(-127, 128, (k, k, cin, cout), generator=g, device=device,
+                           dtype=torch.int8)
+        layer = {"w": int8_conv.stage_int8_weight(wq),
+                 "inv": torch.tensor([25.0], device=device),
+                 "mult": 1e-6 + 1e-4 * torch.rand(cout, generator=g, device=device),
+                 "b": torch.randn(cout, generator=g, device=device)}
+        x = (3 * torch.randn((batch, hw, hw, cin), generator=g, device=device)).to(torch.bfloat16)
+
+        chain = lambda: int8_conv.int8_qconv_plain(x, layer, 1, "SAME", dil, relu)  # noqa: E731
+        row = {"shape": [batch, hw, hw, cin, k, cout, dil],
+               "bound_ms": conv_bound_ms(batch, hw, cin, k, cout),
+               "chain_event_ms": cuda_event_ms(chain, iters=3, warmup=1)}
+        run = lambda: int8_conv.int8_qconv(x, layer, 1, "SAME", dil, relu)  # noqa: E731
+        got, want = run(), chain()
+        if not torch.equal(got, want):
+            raise SystemExit(f"int8_qconv differs from the chain at {name}: "
+                             f"{int((got != want).sum())} of {want.numel()}")
+        del got, want
+        row["ms"] = kernel_device_ms(run, "qconv_", iters=10)
+        row["event_ms"] = cuda_event_ms(run, iters=10)
+        row["roofline_pct"] = 100.0 * row["bound_ms"] / row["ms"]
+        rows[f"int8_qconv:{name}"] = row
+        del x, layer
+        torch.cuda.empty_cache()
+    return rows
+
+
 def one_turn(root: Path, args) -> dict:
     sys.path.insert(0, str(root.resolve()))
     import numpy as np
     import torch
 
-    from ssd_tensorflow_tpu_torch.ops import _build, nms_cuda, stem_probe
+    from ssd_tensorflow_tpu_torch.ops import _build, int8_conv, nms_cuda, stem_probe
     from ssd_tensorflow_tpu_torch.timing import cuda_event_ms, kernel_device_ms
 
     if not torch.cuda.is_available():
@@ -141,10 +203,12 @@ def one_turn(root: Path, args) -> dict:
                     "event_ms": cuda_event_ms(run, iters=5)}
         if "lane" in args.only:
             out["kernels"].update(lane_rows(stem_probe, args.seed, device))
+        if "qconv" in args.only:
+            out["kernels"].update(qconv_rows(int8_conv, args.batch, args.seed, device))
     if args.log:
         out["ptxas"] = {n: [ln for ln in _build.build_log(n).splitlines()
                             if "registers" in ln or "spill" in ln or "warning" in ln.lower()]
-                        for n in ("nms", "stem_probe")}
+                        for n in ("nms", "stem_probe", "int8_conv")}
     return out
 
 
@@ -156,8 +220,8 @@ def main(argv=None) -> int:
     ap.add_argument("--candidates", type=int, default=200)
     ap.add_argument("--probe-shape", type=int, nargs=3, default=[64, 16, 256],
                     metavar=("B", "T", "WP"))
-    ap.add_argument("--only", nargs="+", choices=["nms", "probes", "lane"],
-                    default=["nms", "probes", "lane"])
+    ap.add_argument("--only", nargs="+", choices=["nms", "probes", "lane", "qconv"],
+                    default=["nms", "probes", "lane", "qconv"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
     ap.add_argument("--one", default=None, help="run one turn of this root and print it")
@@ -193,7 +257,9 @@ def main(argv=None) -> int:
     for root in roots:
         mine = [t for t in turns if t["root"] == root]
         for name in mine[0]["kernels"]:
-            for key in ("ms", "event_ms"):
+            for key in ("ms", "event_ms", "chain_event_ms"):
+                if key not in mine[0]["kernels"][name]:
+                    continue
                 runs = [t["kernels"][name][key] for t in mine]
                 summary.setdefault(root, {}).setdefault(name, {})[key] = {
                     "runs": runs, "median": statistics.median(runs), "min": min(runs),

@@ -22,10 +22,9 @@ object (and writes it to ``--out``):
   inputs the path gives it, in ms per batch. Float path: preprocess +
   conv1_1 and the split stem kernel, or the whole uint8 stem kernel; the
   rest of the VGG trunk, L2-norm + extras, heads + lazy softmax, top-k +
-  decode + clamp, class shift + the NMS kernel, compaction. int8 path,
-  over its trunk and extra convs: preprocess, quantize, im2col (each
-  ``int8_conv`` less its GEMMs), ``_int_mm`` (each chunk's GEMM on an
-  operand of its shape), requant (multiply-add, ReLU, bf16); then pools
+  decode + clamp, class shift + the NMS kernel, compaction. int8 path:
+  preprocess, ``int8_conv`` (every trunk and extra conv's call of the
+  fused kernel, ``ops/int8_conv.int8_qconv``, timed alone); then pools
   + L2-norm (VGG) or GroupNorm and the depthwise convs (families), the
   head convs + lazy softmax, and the float path's decode stages. A family
   float path: the bias-in convs (``layers.conv2d_bias_in``), GroupNorm,
@@ -41,7 +40,7 @@ object (and writes it to ``--out``):
   ``span_ms_per_batch``: the device busy ms of the operations launched
   inside each of the program's ``ssd.*`` spans
   (``utils/profiling.span_device_ms``), such as the int8 path's
-  ``ssd.int8.quantize``, ``.im2col``, ``.gemm`` and ``.requant``. The
+  ``ssd.int8.conv`` (one a conv, the fused kernel). The
   device's idle share is the benchmark's (``h100bench/``,
   ``idle_share.*``).
 
@@ -160,34 +159,17 @@ def _int8_stages(model, images):
         quantized._head_maps(model.params, maps)
     cfg = model.config
     out = {"preprocess": cuda_event_ms(lambda: ssd_vgg.preprocess(images, cfg).to(torch.bfloat16))}
-    for key in ("quantize", "im2col", "int_mm", "requant", "heads_lazy_softmax"):
+    for key in ("int8_conv", "heads_lazy_softmax"):
         out[key] = 0.0
     heads = []
     for layer, x, stride, padding, dilation, relu in convs:
-        qx = lambda: quantized.quantize(x, layer["inv"])  # noqa: E731
-        conv = lambda: ic.int8_conv_im2col(xq, wt, stride, padding, dilation)  # noqa: E731
-        xq, wt = qx(), layer["w"]
-        y = conv()
-        b, ho, wo, _ = y.shape
-        kp = wt.wk.shape[1]
-        gemm = 0.0
-        chunk = ic.chunk_images(b, ho, wo, kp)
-        for n in [chunk] * (b // chunk) + ([b % chunk] if b % chunk else []):
-            a = torch.zeros((n * ho * wo, kp), dtype=torch.int8, device=x.device)
-            dst = torch.empty((n * ho * wo, wt.cout), dtype=torch.int32, device=x.device)
-            gemm += cuda_event_ms(lambda: ic._gemm_into(a, wt, dst))
-            del a, dst
-
-        requant = lambda: quantized.requant(y, layer, relu)  # noqa: E731
-        parts = {"quantize": cuda_event_ms(qx), "int_mm": gemm,
-                 "im2col": max(0.0, cuda_event_ms(conv) - gemm), "requant": cuda_event_ms(requant)}
+        conv = lambda: ic.int8_qconv(x, layer, stride, padding, dilation, relu)  # noqa: E731
+        ms = cuda_event_ms(conv)
         if id(layer) not in heads_of:
-            for k, v in parts.items():
-                out[k] += v
+            out["int8_conv"] += ms
         else:
-            heads.append(requant().float())
-            out["heads_lazy_softmax"] += sum(parts.values())
-        del xq, y
+            heads.append(conv().float())
+            out["heads_lazy_softmax"] += ms
     out["heads_lazy_softmax"] += cuda_event_ms(lambda: ssd_vgg.reduce_head_maps(heads, cfg))
     if family:
         _timed_calls(family_calls, out)
