@@ -1,5 +1,7 @@
 """The numbers that decide ``correct``: what the program's timed path
-produced, judged by the plain reference (``reference/ssd_ref.py``).
+produced, judged by the plain reference of the configuration's family
+(``benchlib/family.py``; the SSD families share ``reference/ssd_ref.py``'s
+boxes on the canvas).
 
 Serving, per image of the sample, worst over the sample:
 
@@ -60,7 +62,7 @@ from reference import ssd_ref
 
 def serving_numbers(prog: list, ref: list, nms_threshold: float) -> dict:
     """``prog``: per image ``(boxes (D, 4), scores (D,), classes (D,),
-    valid (D,))`` host tensors; ``ref``: ``ssd_ref.detect``'s dicts."""
+    valid (D,))`` host tensors; ``ref``: the family's ``detect`` dicts."""
     top_gap = overlap = residual = missed = 0.0
     for (boxes, scores, classes, valid), r in zip(prog, ref):
         dev = r["probs"].device

@@ -1,14 +1,14 @@
 """The system under test, built as a configuration file says, and the
-plain reference of the same configuration. Only here does the benchmark
-import the program (``ssd_tensorflow_tpu_torch``)."""
+plain reference of the same configuration (its family's module,
+``benchlib/family.py``). Only here does the benchmark import the program
+(``ssd_tensorflow_tpu_torch``)."""
 
 from __future__ import annotations
 
 import torch
 
+from benchlib import family
 from benchlib.registry import BENCH_DIR
-from benchlib.weights import seeded_params
-from reference import ssd_ref
 
 CHECKOUT = BENCH_DIR.parent
 
@@ -26,11 +26,11 @@ def detection_config(det: dict):
 
 
 def weights(cfg: dict, seed: int, device):
-    """What both sides are handed: the bundle's path, or the seeded float32
-    parameters on ``device``."""
+    """What both sides are handed: the bundle's path, or the family's seeded
+    float32 parameters on ``device``."""
     if cfg["weights"]["kind"] == "bundle":
         return str(CHECKOUT / cfg["weights"]["path"])
-    return seeded_params(cfg, seed, device)
+    return family.of(cfg).seeded_params(cfg, seed, device)
 
 
 def serving_model(cfg: dict, given, device):
@@ -73,20 +73,15 @@ def train_step(cfg: dict, given, device):
 
 
 def reference_serving(cfg: dict, given, images, control: bool = False, chunk: int = 8):
-    """``ssd_ref.detect`` of ``images`` (uint8 on the reference's device)
-    by the float32 reference; ``control`` computes it a precision below the
-    configuration's (int8 -> int4, bf16 -> fp8)."""
-    anc = ssd_ref.anchors(cfg["preset"]).to(images.device)
-    if cfg["precision"] == "int8":
-        tree, scales = ssd_ref.read_int8_bundle(given, cfg)
-        bits = 4 if control else 8
-        fwd = lambda x: ssd_ref.int8_forward(tree, scales, x, cfg, bits)  # noqa: E731
-    else:
-        quant = ssd_ref.fp8_quant if control else None
-        fwd = lambda x: ssd_ref.float_forward(given, x, cfg, quant)  # noqa: E731
+    """The family's ``detect`` of ``images`` (uint8 on the reference's
+    device) by its float32 reference; ``control`` computes it a precision
+    below the configuration's (int8 -> int4, bf16 -> fp8)."""
+    fam = family.of(cfg)
+    anc = fam.anchors(cfg["preset"]).to(images.device)
+    fwd = fam.serving_forward(cfg, given, control)
     out = []
-    with torch.no_grad(), ssd_ref.full_float32():
+    with torch.no_grad():
         for s in range(0, images.shape[0], chunk):
             logits, locs = fwd(images[s:s + chunk])
-            out += ssd_ref.detect(logits, locs, anc, cfg["detection"])
+            out += fam.detect(logits, locs, anc, cfg["detection"])
     return out

@@ -13,16 +13,16 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from benchlib import check, pool, programs
+from benchlib import check, family, pool, programs
 from benchlib.phases import Phases
 from benchlib.serve import Clock, Laps
-from reference import ssd_ref
 
 
 class TrainRun:
     def __init__(self, cfg: dict, traffic: dict, seed: int, device):
         from ssd_tensorflow_tpu_torch.parallel.prefetch import prefetch_to_device
 
+        family.train_reference(cfg)
         self.cfg, self.traffic, self.device = cfg, traffic, device
         self.clock = Clock(device)
         lap = Laps(self.clock)
@@ -99,23 +99,31 @@ class TrainRun:
 
     def reference(self, quant=None, start=None) -> dict:
         """The float32 reference's first steps from the same parameters
-        (or from ``start``) on the same batches: ``{"losses", "grad",
-        "change1", "change"}``."""
-        anc = ssd_ref.anchors(self.cfg["preset"]).to(self.device)
-        base = start or self.given
-        params = {n: {k: v.detach().float() for k, v in leaf.items()} for n, leaf in base.items()}
-        trace = {n: {k: torch.zeros_like(v) for k, v in leaf.items()} for n, leaf in params.items()}
-        losses, grad, change1 = [], None, None
-        for i, batch in enumerate(self.checked):
-            b = {k: v.to(self.device) for k, v in batch.items()}
-            loss, g, params, trace = ssd_ref.sgd_step(params, trace, b, anc, self.cfg, quant)
-            losses.append(float(loss))
-            if i == 0:
-                grad = check.leaf_norms(g)
-                change1 = _change(params, base)
-            del g
-        return {"losses": losses, "grad": grad, "change1": change1,
-                "change": _change(params, base)}
+        (or from ``start``) on the same batches (:func:`reference_steps`)."""
+        return reference_steps(self.cfg, self.given, self.checked, self.device, quant, start)
+
+
+def reference_steps(cfg: dict, given: dict, checked: list, device, quant=None,
+                    start=None) -> dict:
+    """The family's float32 train reference over the batches ``checked``
+    from the parameters ``given`` (or from ``start``): ``{"losses", "grad",
+    "change1", "change"}``."""
+    fam = family.train_reference(cfg)
+    anc = fam.anchors(cfg["preset"]).to(device)
+    base = start or given
+    params = {n: {k: v.detach().float() for k, v in leaf.items()} for n, leaf in base.items()}
+    trace = {n: {k: torch.zeros_like(v) for k, v in leaf.items()} for n, leaf in params.items()}
+    losses, grad, change1 = [], None, None
+    for i, batch in enumerate(checked):
+        b = {k: v.to(device) for k, v in batch.items()}
+        loss, g, params, trace = fam.sgd_step(params, trace, b, anc, cfg, quant)
+        losses.append(float(loss))
+        if i == 0:
+            grad = check.leaf_norms(g)
+            change1 = _change(params, base)
+        del g
+    return {"losses": losses, "grad": grad, "change1": change1,
+            "change": _change(params, base)}
 
 
 def _change(params: dict, given: dict) -> dict:

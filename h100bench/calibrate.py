@@ -1,8 +1,9 @@
 """Readings that the limits in ``limits/<cell>.json`` are set from, on the
 card at the cell's own size: the program's numbers on many seeds (the
 lower reading), the control's (the reference a precision below the
-configuration's: int8 -> int4, bf16 -> fp8) and each planted fault's (the
-upper readings). Not part of a benchmark run.
+configuration's: int8 -> int4, bf16 -> fp8, as the configuration's family
+computes it) and each planted fault's (the upper readings). Not part of a
+benchmark run.
 
     python3 h100bench/calibrate.py --workload <cell> --seeds 12 --control-seeds 3 \\
         --seconds 2 --out chiprun_out/calibrate-<cell>.json
@@ -40,8 +41,7 @@ for _p in (str(ROOT), str(BENCH)):
 
 import torch  # noqa: E402
 
-from benchlib import check, harness, programs, registry  # noqa: E402
-from reference import ssd_ref  # noqa: E402
+from benchlib import check, family, harness, programs, registry  # noqa: E402
 
 
 def as_program_output(ref_dets: list, rows: int) -> list:
@@ -166,7 +166,8 @@ def train_readings(cell, seed, device, control: bool, fault=None):
            "losses": [run.prog["losses"], ref["losses"]],
            "worst": check.worst_leaves(run.prog, ref)}
     if control:
-        out["control"] = check.train_numbers(run.reference(quant=ssd_ref.fp8_quant_train), ref)
+        quant = family.train_reference(cell.config).train_control
+        out["control"] = check.train_numbers(run.reference(quant=quant), ref)
     return out
 
 

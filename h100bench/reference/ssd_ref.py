@@ -4,6 +4,12 @@ weights, decode, greedy NMS, target matching, the multibox loss and an
 SGD-momentum step. Plain PyTorch on NHWC tensors with TF32 off; it imports
 nothing of the program under test.
 
+It is the VGG-16 family's module (``benchlib/family.py`` lists what a
+family provides: ``conv_records``, ``seeded_params``, ``read_int8_bundle``,
+``serving_forward``, ``anchors``, ``detect``, ``sgd_step`` and
+``train_control``), and the other SSD families take its anchors, decode,
+NMS and detect.
+
 It follows the configuration files in ``h100bench/configs`` (the preset's
 maps, the detection settings), and the program's documented semantics
 where the paper leaves a choice open. Departures from the program, each
@@ -95,6 +101,70 @@ def conv_layers(preset, num_classes: int):
         out.append((f"classifier{i}", 3, MAP_CHANNELS[i], num_shapes(m) * (num_classes + 5),
                     1, "SAME", 1, False))
     return out
+
+
+def conv_records(cfg, batch: int):
+    """Every convolution of the forward at ``batch``: dicts of ``name, b,
+    hin, win, cin, ho, wo, cout, k, groups, reads_image``, in forward order
+    (heads last)."""
+    preset = cfg["preset"]
+    h, w = preset["image_size"][1], preset["image_size"][0]
+    layers = conv_layers(preset, cfg["model"]["num_classes"])
+    sizes = {}
+    for name, k, cin, cout, s, p, d, _ in layers:
+        if name.startswith("classifier"):
+            continue
+        if p == "SAME":
+            ho, wo = -(-h // s), -(-w // s)
+        else:
+            ho, wo = (h - (k - 1) * d - 1) // s + 1, (w - (k - 1) * d - 1) // s + 1
+        sizes[name] = (h, w, ho, wo)
+        h, w = ho, wo
+        if name in POOL_AFTER:
+            h, w = -(-h // 2), -(-w // 2)
+        if name == "conv12_1":
+            h, w = h + 1, w + 1
+    maps = [m["size"] for m in preset["maps"]]
+    out = []
+    for name, k, cin, cout, *_ in layers:
+        if name.startswith("classifier"):
+            i = int(name[len("classifier"):])
+            hin, win, ho, wo = maps[i][1], maps[i][0], maps[i][1], maps[i][0]
+        else:
+            hin, win, ho, wo = sizes[name]
+        out.append(dict(name=name, b=batch, hin=hin, win=win, cin=cin, ho=ho, wo=wo,
+                        cout=cout, k=k, groups=1, reads_image=name == "conv1_1"))
+    return out
+
+
+def seed_generator(seed: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(int(seed) % (1 << 63))
+
+
+def seeded_params(cfg, seed: int, device) -> dict:
+    """Float32 parameters made on ``device`` from ``seed`` in one uniform
+    draw, in the program's layout: ``{layer: {"w": OIHW, "b"},
+    "l2_norm_conv4_3": {"scale"}}``. Filters are Xavier-uniform over
+    ``(k*k*cin + k*k*cout)`` as the program's ``init_params`` (each multibox
+    head shape counted as its own ``K+5``-wide conv); biases uniform in
+    ``+-bias_range``; the conv4_3 L2-norm scale the constant
+    ``l2_norm_scale``."""
+    k = cfg["model"]["num_classes"]
+    spec = cfg["weights"]
+    layers = conv_layers(cfg["preset"], k)
+    sizes = [cout * cin * kk * kk + cout for _, kk, cin, cout, *_ in layers]
+    u = torch.rand(sum(sizes), generator=seed_generator(seed, device), device=device) * 2 - 1
+    params, off = {}, 0
+    for (name, kk, cin, cout, *_), n in zip(layers, sizes):
+        fan_out = (k + 5) if name.startswith("classifier") else cout
+        limit = math.sqrt(6.0 / (kk * kk * cin + kk * kk * fan_out))
+        nw = cout * cin * kk * kk
+        params[name] = {"w": (u[off:off + nw] * limit).view(cout, cin, kk, kk),
+                        "b": u[off + nw:off + n] * spec["bias_range"]}
+        off += n
+    params["l2_norm_conv4_3"] = {"scale": torch.full((512,), float(spec["l2_norm_scale"]),
+                                                     device=device)}
+    return params
 
 
 def same_pads(n: int, k: int, s: int, d: int = 1):
@@ -263,6 +333,29 @@ def fp8_quant_train(t):
     gradient is rounded to fp8 too, so the backward runs a precision below
     bf16 as well."""
     return _Fp8Train.apply(t)
+
+
+def serving_forward(cfg, given, control: bool = False):
+    """uint8 images -> ``(logits, locs)`` of the configuration's serving
+    model with TF32 off: the int8 bundle at the path ``given`` (``control``:
+    int4), or the float parameters ``given`` (``control``: fp8 operands)."""
+    if cfg["precision"] == "int8":
+        tree, scales = read_int8_bundle(given, cfg)
+        bits = 4 if control else 8
+
+        def fwd(images):
+            return int8_forward(tree, scales, images, cfg, bits)
+    else:
+        quant = fp8_quant if control else None
+
+        def fwd(images):
+            return float_forward(given, images, cfg, quant)
+
+    def run(images):
+        with full_float32():
+            return fwd(images)
+
+    return run
 
 
 # ---- anchors, decode, NMS -------------------------------------------------
@@ -448,3 +541,7 @@ def sgd_step(params, trace, batch, anc, cfg, quant=None):
     new = {n: {key: params[n][key] - lr * new_trace[n][key] for key in leaf}
            for n, leaf in params.items()}
     return loss.detach(), grads, new, new_trace
+
+
+#: the training control's ``quant``: fp8 operands and gradients, a precision below bf16
+train_control = fp8_quant_train

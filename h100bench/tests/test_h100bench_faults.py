@@ -1,7 +1,7 @@
 """``correct`` comes out false when the timed path is broken underneath
-the harness, and for the lower-precision control, at the test64 preset on
-the CPU under the cells' committed limits: the card's look and the
-window's length are all that is skipped."""
+the harness, and for the lower-precision control, at each family's small
+preset on the CPU under the cells' committed limits: the card's look and
+the window's length are all that is skipped."""
 
 import h100bench_cases as hc
 import pytest
@@ -14,16 +14,16 @@ SEED = 2**32 + 5
 
 
 @pytest.fixture(scope="module")
-def bundle(tmp_path_factory):
-    return hc.write_int8_bundle(tmp_path_factory.mktemp("bundle") / "test64_int8.npz")
+def bundles(tmp_path_factory):
+    return hc.write_bundles(tmp_path_factory.mktemp("bundles"))
 
 
-def _run(workload, bundle):
+def _run(workload, bundles):
     return harness.run_cell(hc.ROOT, workload, SEED, 0.5, False, "cpu",
-                            cell=hc.cell(workload, bundle))
+                            cell=hc.cell(workload, bundles))
 
 
-def _class_shift(monkeypatch):
+def _class_shift(monkeypatch, num_classes):
     from ssd_tensorflow_tpu_torch import inference
     from ssd_tensorflow_tpu_torch.ops import postprocess
 
@@ -31,7 +31,7 @@ def _class_shift(monkeypatch):
 
     def faulty(*args, **kwargs):
         dets = decode(*args, **kwargs)
-        dets.classes = torch.where(dets.valid, (dets.classes + 1) % 20, dets.classes)
+        dets.classes = torch.where(dets.valid, (dets.classes + 1) % num_classes, dets.classes)
         return dets
 
     monkeypatch.setattr(inference, "decode_scores", faulty)
@@ -61,34 +61,34 @@ def _half_batch(monkeypatch):
                         lambda self, x: batch(self, x)[: max(1, x.shape[0] // 2)])
 
 
-SERVE = ["vgg512-int8-serve-b64", "vgg512-bf16-serve-b64"]
+SERVE = ["vgg512-int8-serve-b64", "vgg512-bf16-serve-b64", "resnet320-int8-serve-b64"]
 
 
 @pytest.mark.parametrize("workload", SERVE)
-def test_class_altered_where_produced(workload, bundle, monkeypatch):
-    _class_shift(monkeypatch)
-    assert _run(workload, bundle)["correct"] is False
+def test_class_altered_where_produced(workload, bundles, monkeypatch):
+    _class_shift(monkeypatch, hc.cell(workload, bundles).config["model"]["num_classes"])
+    assert _run(workload, bundles)["correct"] is False
 
 
 @pytest.mark.parametrize("workload", SERVE)
-def test_half_of_the_batch_left_out(workload, bundle, monkeypatch):
+def test_half_of_the_batch_left_out(workload, bundles, monkeypatch):
     _half_batch(monkeypatch)
-    result = _run(workload, bundle)
+    result = _run(workload, bundles)
     gap = result["checks"]["top_score_gap"]
     assert result["correct"] is False and gap["value"] > gap["limit"]
 
 
 @pytest.mark.parametrize("workload", SERVE)
-def test_best_detection_alone(workload, bundle, monkeypatch):
+def test_best_detection_alone(workload, bundles, monkeypatch):
     _top1(monkeypatch)
-    result = _run(workload, bundle)
+    result = _run(workload, bundles)
     missed = result["checks"]["missed_residual"]
     assert result["correct"] is False and missed["value"] > missed["limit"]
 
 
 @pytest.mark.parametrize("workload", SERVE)
-def test_control_a_precision_below_fails(workload, bundle):
-    cell = hc.cell(workload, bundle)
+def test_control_a_precision_below_fails(workload, bundles):
+    cell = hc.cell(workload, bundles)
     got = calibrate.serve_readings(cell, SEED, 0.5, torch.device("cpu"), control=True)
     ok, _ = check.judge(got["control"], cell.limits)
     assert not ok
@@ -136,6 +136,6 @@ def test_train_control_a_precision_below_fails():
     assert not ok
 
 
-def test_sound_runs_pass(bundle):
+def test_sound_runs_pass(bundles):
     for w in SERVE + ["vgg512-bf16-train-b32"]:
-        assert _run(w, bundle)["correct"] is True, w
+        assert _run(w, bundles)["correct"] is True, w

@@ -25,10 +25,10 @@ def test_a_run_loads_neither_jax_nor_the_jax_package(tmp_path):
         sys.path[:0] = [{str(hc.BENCH / 'tests')!r}]
         import h100bench_cases as hc
         from benchlib import harness, nojax
-        bundle = hc.write_int8_bundle(Path({str(tmp_path)!r}) / "b.npz")
-        for w in ("vgg512-int8-serve-b64", "vgg512-bf16-train-b32"):
-            harness.run_cell(hc.ROOT, w, 11, 0.3, True, "cpu", cell=hc.cell(w, bundle))
-        import reference.ssd_ref, calibrate
+        bundles = hc.write_bundles(Path({str(tmp_path)!r}))
+        for w in ("vgg512-int8-serve-b64", "vgg512-bf16-train-b32", "resnet320-int8-serve-b64"):
+            harness.run_cell(hc.ROOT, w, 11, 0.3, True, "cpu", cell=hc.cell(w, bundles))
+        import reference.ssd_ref, reference.ssd_resnet34gn, calibrate
         print("FORBIDDEN", nojax.forbidden(sys.modules))
     """)
     env = {"PATH": "/usr/bin:/bin", "HOME": str(tmp_path), "TMPDIR": str(tmp_path),

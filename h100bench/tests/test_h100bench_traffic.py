@@ -1,6 +1,7 @@
-"""A rehearsal of every traffic file on the CPU at the test64 preset: each
-mix drives the program through set-up, a short window and the check, with
-and without tracing, and prints a result of the contract's shape."""
+"""A rehearsal of every cell on the CPU at its family's small preset: each
+traffic mix drives the program through set-up, a short window and the
+check, with and without tracing, and prints a result of the contract's
+shape."""
 
 import json
 import math
@@ -20,14 +21,14 @@ def test_every_traffic_file_is_rehearsed():
 
 
 @pytest.fixture(scope="module")
-def bundle(tmp_path_factory):
-    return hc.write_int8_bundle(tmp_path_factory.mktemp("bundle") / "test64_int8.npz")
+def bundles(tmp_path_factory):
+    return hc.write_bundles(tmp_path_factory.mktemp("bundles"))
 
 
 @pytest.mark.parametrize("trace", [False, True])
 @pytest.mark.parametrize("workload", CELLS)
-def test_rehearsal(workload, trace, bundle):
-    cell = hc.cell(workload, bundle)
+def test_rehearsal(workload, trace, bundles):
+    cell = hc.cell(workload, bundles)
     result = harness.run_cell(hc.ROOT, workload, 2**33 + 17, 1.0, trace, "cpu", cell=cell)
     assert list(result)[-1] == "checks"
     assert set(result) >= {"correct", "attempted", "failed", "metrics", "device"}
