@@ -19,6 +19,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ssd_tensorflow_tpu_torch.utils.profiling import counted_span
+
 
 def _same_pads(size: int, window: int, stride: int, dilation: int = 1):
     """TF SAME padding (before, after) along one axis."""
@@ -175,6 +177,7 @@ def conv2d_bias_in(x, wb, stride=1, padding="SAME", dilation=1):
     return conv2d(torch.cat([x, carrier], dim=-1), wb, None, stride, padding, dilation)
 
 
+@counted_span("ssd.depthwise")
 def depthwise_conv2d(x, w, b=None, stride=1, padding="SAME", f32_out=False):
     """Depthwise convolution of NHWC ``x`` with the OIHW filter ``w`` of
     shape ``(C, 1, kh, kw)``: ``F.conv2d(groups=C)`` in float32 from the
@@ -190,6 +193,9 @@ def depthwise_conv2d(x, w, b=None, stride=1, padding="SAME", f32_out=False):
     ``f32_out=False``, the training form and the int8 path's weight-only
     depthwise: the sum rounded to ``x.dtype``, then ``+ b`` in ``x.dtype``,
     two roundings in bf16, as the JAX package's default.
+
+    Each call counts once in ``depthwise_conv2d.calls`` and runs inside
+    the span ``ssd.depthwise`` (``utils/profiling.counted_span``).
     """
     c = x.shape[-1]
     if w.shape[:2] != (c, 1):

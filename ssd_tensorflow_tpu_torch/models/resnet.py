@@ -23,6 +23,7 @@ import torch
 
 from ssd_tensorflow_tpu_torch.models.layers import float_conv_executor, init_conv, max_pool
 from ssd_tensorflow_tpu_torch.presets import SSDPreset
+from ssd_tensorflow_tpu_torch.utils.profiling import counted_span
 
 #: ResNet-34 stage layout: (num_blocks, channels, first-block stride).
 STAGES = ((3, 64, 1), (4, 128, 2), (6, 256, 2), (3, 512, 2))
@@ -125,6 +126,7 @@ def init_backbone_params(rng: np.random.Generator, preset: SSDPreset) -> dict:
 init_resnet_params = init_backbone_params
 
 
+@counted_span("ssd.group_norm")
 def group_norm(x, gn, groups=GN_GROUPS, eps=1e-5):
     """GroupNorm of NHWC ``x`` in float32, as the JAX package's: ``groups``
     groups when they divide the channels, else one; the mean, then the mean
@@ -137,7 +139,10 @@ def group_norm(x, gn, groups=GN_GROUPS, eps=1e-5):
     float32 operation. So the CPU and the card give the same bits (a
     float32 sum's value depends on its order, which differs by device and
     library; JAX's XLA CPU sums in 32-wide windows and its rsqrt is not
-    correctly rounded, ROADMAP.md section 3)."""
+    correctly rounded, ROADMAP.md section 3).
+
+    Each call counts once in ``group_norm.calls`` and runs inside the
+    span ``ssd.group_norm`` (``utils/profiling.counted_span``)."""
     b, h, w, c = x.shape
     g = groups if c % groups == 0 else 1
     n = h * w * (c // g)

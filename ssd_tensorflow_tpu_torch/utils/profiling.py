@@ -3,7 +3,8 @@ trace capture.
 
 A throughput meter the train CLI reports per epoch; :func:`span`, the
 named spans the program opens at its layer boundaries (``ssd.*``), which
-cost almost nothing unless a profiler runs; :func:`span_device_ms`, which
+cost almost nothing unless a profiler runs, and :func:`counted_span`, a
+function's calls inside such a span and counted; :func:`span_device_ms`, which
 puts a trace's device time down to those spans; and a context manager
 that writes a Chrome trace of the CPU and (on the card) CUDA activity of
 its block, in place of the JAX package's ``jax.profiler`` trace.
@@ -12,6 +13,7 @@ its block, in place of the JAX package's ``jax.profiler`` trace.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import tempfile
@@ -42,6 +44,25 @@ def span(name: str):
     if _autograd_profiler._is_profiler_enabled:
         return torch.profiler.record_function(name)
     return _NO_SPAN
+
+
+def counted_span(name: str):
+    """Decorator: each call of the function runs inside :func:`span`
+    ``name`` and counts once in the function's ``calls`` attribute (0 at
+    import). The wrapper holds its counter itself, so a test or tool that
+    patches the module's name keeps the real function counting."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def counted(*args, **kwargs):
+            counted.calls += 1
+            with span(name):
+                return fn(*args, **kwargs)
+
+        counted.calls = 0
+        return counted
+
+    return wrap
 
 
 class StepTimer:

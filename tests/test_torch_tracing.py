@@ -1,10 +1,11 @@
 """The port's spans (``utils/profiling.span``) on the CPU: a span is the
 shared null context while no profiler runs and a ``record_function``
-while one does; the int8 conv's four stages, the train step's six parts
-and the prefetch's wait and put open their spans where and as often as
-the modules say; the outputs are the same bit for bit with the profiler
-on and off; and ``span_device_ms`` puts a trace's device operations down
-to the spans that launched them."""
+while one does; the int8 conv's four stages, the train step's six parts,
+the prefetch's wait and put, and the families' GroupNorms and depthwise
+convs open their spans where and as often as the modules say (the last
+two moving their counters by as much); the outputs are the same bit for
+bit with the profiler on and off; and ``span_device_ms`` puts a trace's
+device operations down to the spans that launched them."""
 
 import contextlib
 
@@ -13,7 +14,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from ssd_tensorflow_tpu_torch.models import quantized, ssd_vgg
+from ssd_tensorflow_tpu_torch.models import layers, mobilenet, quantized, resnet, ssd_vgg
 from ssd_tensorflow_tpu_torch.ops import int8_conv as ic
 from ssd_tensorflow_tpu_torch.ops.anchors import anchors_for_preset
 from ssd_tensorflow_tpu_torch.ops.postprocess import DetectionConfig
@@ -127,6 +128,101 @@ def test_int8_forward_same_bits_with_the_profiler_on(int8_model, monkeypatch):
     convs = names.count("ssd.int8.quantize")
     assert convs > 10 and names.count("ssd.int8.requant") == convs
     assert names.count("ssd.int8.gemm") >= names.count("ssd.int8.im2col") > 0
+
+
+def test_counted_span_counts_under_a_patched_name(monkeypatch):
+    """A counted function keeps counting, inside its span, when a test
+    patches its module's name and calls the real one (as the GroupNorm
+    drift test and ``tools/torch_profile.py``'s recorder do)."""
+    real, before = resnet.group_norm, resnet.group_norm.calls
+    monkeypatch.setattr(resnet, "group_norm", lambda *a, **k: real(*a, **k))
+    x = torch.ones((1, 2, 2, 32), dtype=torch.bfloat16)
+    gn = {"scale": torch.ones(32), "bias": torch.zeros(32)}
+    with _cpu_profile() as prof:
+        resnet.group_norm(x, gn)
+    assert resnet.group_norm is not real and real.calls == before + 1
+    assert [n for n, _, _ in _spans(prof)] == ["ssd.group_norm"]
+    assert real.__name__ == "group_norm" and "GroupNorm" in real.__doc__
+
+
+def _norms_and_stencils(preset_name):
+    """``(GroupNorms, depthwise convs)`` of a family's trunk and extras, by
+    its ``backbone_shapes``."""
+    preset = ssd_vgg.ModelConfig(preset_name=preset_name, num_classes=3).preset
+    shapes = (mobilenet if preset.backbone == "mobilenetv1" else resnet).backbone_shapes(preset)
+    return (sum("scale" in leaves for leaves in shapes.values()),
+            sum(name.endswith("_dw") for name in shapes))
+
+
+def test_mobilenet_counts_from_its_layer_table():
+    assert _norms_and_stencils("mobilenet320") == (27, 13)
+    assert _norms_and_stencils("mntest64") == (27, 13)
+    assert _norms_and_stencils("rtest64") == (36, 0)
+
+
+@pytest.fixture(scope="module")
+def mobilenet_int8():
+    cfg = ssd_vgg.ModelConfig(preset_name="mntest64", num_classes=3)
+    images = np.random.default_rng(9).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    params = ssd_vgg.init_params(cfg, seed=3)
+    model = quantized.QuantizedModel(params, cfg, images, device="cpu")
+    return model, params, cfg, torch.from_numpy(images)
+
+
+def _counters():
+    return resnet.group_norm.calls, layers.depthwise_conv2d.calls
+
+
+def test_mobilenet_int8_forward_spans_once_a_norm_and_a_stencil(mobilenet_int8):
+    """One int8 forward opens ``ssd.group_norm`` once a GroupNorm and
+    ``ssd.depthwise`` once a depthwise conv, and moves the counters by as
+    much, with the profiler on and off."""
+    model, _, cfg, images = mobilenet_int8
+    norms, stencils = _norms_and_stencils("mntest64")
+    before = _counters()
+    quantized._forward_scores(model.staged, images, cfg)
+    mid = _counters()
+    with _cpu_profile() as prof:
+        quantized._forward_scores(model.staged, images, cfg)
+    after = _counters()
+    assert (mid[0] - before[0], mid[1] - before[1]) == (norms, stencils)
+    assert (after[0] - mid[0], after[1] - mid[1]) == (norms, stencils)
+    names = [n for n, _, _ in _spans(prof, ("ssd.group_norm", "ssd.depthwise"))]
+    assert names.count("ssd.group_norm") == norms and names.count("ssd.depthwise") == stencils
+    # the walk's order: the stem's norm, then each block's stencil and its norm
+    assert names[:4] == ["ssd.group_norm", "ssd.depthwise", "ssd.group_norm", "ssd.group_norm"]
+
+
+def test_resnet_forward_counts_its_norms_and_no_stencil():
+    cfg = ssd_vgg.ModelConfig(preset_name="rtest64", num_classes=3, compute_dtype="float32")
+    images = torch.from_numpy(
+        np.random.default_rng(4).integers(0, 256, (1, 64, 64, 3), dtype=np.uint8))
+    params = ssd_vgg.init_params(cfg, seed=1)
+    before = _counters()
+    with _cpu_profile() as prof, torch.no_grad():
+        ssd_vgg.apply_model(params, images, cfg)
+    after = _counters()
+    norms, _ = _norms_and_stencils("rtest64")
+    assert (after[0] - before[0], after[1] - before[1]) == (norms, 0)
+    names = [n for n, _, _ in _spans(prof, ("ssd.group_norm", "ssd.depthwise"))]
+    assert names == ["ssd.group_norm"] * norms
+
+
+@pytest.mark.parametrize("route", ["int8", "float"])
+def test_mobilenet_forward_same_bits_with_the_profiler_on(mobilenet_int8, route):
+    model, params, cfg, images = mobilenet_int8
+    if route == "int8":
+        def forward():
+            return quantized._forward_scores(model.staged, images, cfg)
+    else:
+        def forward():
+            with torch.no_grad():
+                return ssd_vgg.apply_model(params, images, cfg)
+    off = forward()
+    with _cpu_profile():
+        on = forward()
+    for a, b in zip(off, on):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 def _train_setup(threshold=0.01):
