@@ -79,11 +79,16 @@ non-zero, and the final line is printed only when every phase passed:
    ``assets/mobilenet320_int8_qat_minivoc.ssdtpu.npz``, QAT, 20 classes)
    at ``--batch`` x 320 x 320, uint8 images from the seed: on 2 images
    every W8A8 conv's output bit-exact against the card chain (as phase 5)
-   and every weight-only depthwise conv (cuDNN's) equal to the CPU route
-   bit for bit; the counted run must launch ``int8_qconv`` once a conv
-   (48 / 28), the im2col route never, NMS, and no stem kernel; the scores
-   the same in two runs and identical to the chain-patched model's; ms per batch (CUDA
-   events over 5 chained batches), images/s and peak device memory.
+   and every weight-only depthwise conv (cuDNN's) and every GroupNorm with
+   its activation and skip (``resnet.norm_act``, the kernel
+   ``csrc/group_norm.cu``) equal to the CPU route bit for bit; the counted
+   run must launch ``int8_qconv`` once a conv (48 / 28),
+   ``group_norm_cuda`` once a GroupNorm (36 / 27), the im2col route never,
+   NMS, and no stem kernel; the scores the same in two runs and identical
+   to the chain-patched model's and to the model's with every GroupNorm
+   on the plain route; ms per batch (CUDA events over 5 chained batches),
+   images/s, peak device memory, and GroupNorm's device ms a batch (the
+   ``ssd.group_norm`` spans of one profiled batch).
 8. family_float_path: resnet320 and mobilenet320 in bf16 with weights from
    the seed at the same batch: every conv + bias call of the forward (the
    bias-in convs, the depthwise convs, the heads) held to one rounding as
@@ -758,12 +763,14 @@ PROBE_LINES = {"copy": 46, "conv1_1": 50, "conv1_1_store": 57, "taps1": 67, "tap
 
 
 def _launch_counts():
-    from ssd_tensorflow_tpu_torch.ops import int8_conv, nms_cuda, stem_cuda, stem_probe
+    from ssd_tensorflow_tpu_torch.ops import (group_norm_cuda, int8_conv, nms_cuda, stem_cuda,
+                                              stem_probe)
 
     return {"nms_keep": nms_cuda.nms_keep, "fused_stem": stem_cuda.fused_stem,
             "fused_stem_uint8": stem_cuda.fused_stem_uint8, "stem_probe": stem_probe.stem_probe,
             "lane_unflatten_sum": stem_probe.lane_unflatten_sum,
-            "int8_conv": int8_conv.int8_conv, "int8_qconv": int8_conv.int8_qconv}
+            "int8_conv": int8_conv.int8_conv, "int8_qconv": int8_conv.int8_qconv,
+            "group_norm_cuda": group_norm_cuda.group_norm_cuda}
 
 
 def counted(run):
@@ -1202,6 +1209,8 @@ def train_path(seed: int, device):
 #: heads 6
 FAMILY_BUNDLES = {"resnet320": ("assets/resnet320_int8_minicoco.ssdtpu.npz", 48),
                   "mobilenet320": ("assets/mobilenet320_int8_qat_minivoc.ssdtpu.npz", 28)}
+#: GroupNorms of a forward of each family preset
+FAMILY_NORMS = {"resnet320": 36, "mobilenet320": 27}
 #: the number of classes of each family preset's shipped bundle
 FAMILY_CLASSES = {"resnet320": 80, "mobilenet320": 20}
 #: two miniVOC JPEGs decoded on the CPU box, with the JAX package's
@@ -1236,17 +1245,54 @@ def depthwise_calls(model, images):
     return calls
 
 
+def norm_calls(model, images):
+    """Every GroupNorm of the family ``model``'s forward on ``images``, with
+    its activation and skip (``resnet.norm_act``): ``[(x, gn, act, skip,
+    output)]``."""
+    from ssd_tensorflow_tpu_torch.models import mobilenet, resnet
+
+    calls = []
+    real = resnet.norm_act
+
+    def record(x, gn, act=None, skip=None, norm=None):
+        y = real(x, gn, act, skip, norm)
+        calls.append((x, gn, act, skip, y))
+        return y
+
+    with mock.patch.object(resnet, "norm_act", record), \
+            mock.patch.object(mobilenet, "norm_act", record):
+        model.forward_scores(images)
+    return calls
+
+
+def group_norm_ms(model, images):
+    """GroupNorm's device ms in one profiled ``run_scores`` batch: the
+    device time of the ``ssd.group_norm`` spans (``utils/profiling``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssd_tensorflow_tpu_torch.utils.profiling import profiler_events, span_device_ms
+
+    model.run_scores(images)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.run_scores(images)
+        torch.cuda.synchronize()
+    return span_device_ms(profiler_events(prof)).get("ssd.group_norm")
+
+
 def family_int8_path(name: str, root: Path, seed: int, batch: int, device):
     """Phase 7: a shipped family int8 bundle at ``batch`` x 320 x 320 (see
     the module doc)."""
     import torch
 
     from ssd_tensorflow_tpu_torch.inference import InferenceModel
-    from ssd_tensorflow_tpu_torch.models import quantized
+    from ssd_tensorflow_tpu_torch.models import quantized, resnet
     from ssd_tensorflow_tpu_torch.ops.int8_conv import int8_qconv_plain
     from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
 
     fname, n_convs = FAMILY_BUNDLES[name]
+    n_norms = FAMILY_NORMS[name]
     model = InferenceModel.from_bundle(str(root / fname), device=device)
     if model.config.preset_name != name or model.act_scales != {}:
         raise AssertionError(f"{fname}: not a {name} family int8 bundle")
@@ -1265,15 +1311,25 @@ def family_int8_path(name: str, root: Path, seed: int, batch: int, device):
                        "equal": float((got.cpu() == want).float().mean())})
             if not torch.equal(got.cpu(), want):
                 raise AssertionError(f"{name}: a depthwise conv differs from the CPU route: {dw[-1]}")
+        norms = []
+        for x, gn, act, skip, got in norm_calls(model, images[:2]):
+            want = resnet.norm_act(x.cpu(), {k: v.cpu() for k, v in gn.items()}, act,
+                                   None if skip is None else skip.cpu())
+            norms.append({"x": list(x.shape), "act": act, "skip": skip is not None})
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"{name}: a GroupNorm differs from the CPU route: {norms[-1]}")
     if len(layers) != n_convs:
         raise AssertionError(f"{name}: recorded {len(layers)} int8 convs, expected {n_convs}")
     if (name == "mobilenet320") != bool(dw):
         raise AssertionError(f"{name}: recorded {len(dw)} depthwise convs")
+    if len(norms) != n_norms:
+        raise AssertionError(f"{name}: recorded {len(norms)} GroupNorms, expected {n_norms}")
 
     torch.cuda.reset_peak_memory_stats()
     dets, launches = counted(lambda: model.run_scores(images))
     peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30
     if (launches["int8_qconv"] != n_convs or launches["int8_conv"]
+            or launches["group_norm_cuda"] != n_norms
             or launches["nms_keep"] < 1 or launches["fused_stem"] or launches["fused_stem_uint8"]):
         raise AssertionError(f"the {name} int8 path did not run its kernels as it should: "
                              f"{launches}")
@@ -1283,21 +1339,28 @@ def family_int8_path(name: str, root: Path, seed: int, batch: int, device):
         repeat = model.forward_scores(images)
         with mock.patch.object(quantized, "int8_qconv", int8_qconv_plain):
             plain = model.forward_scores(images)
+        with mock.patch.object(resnet, "engages", lambda *a: False):
+            plain_norms = model.forward_scores(images)
     if not (torch.isfinite(scores[0]).all() and torch.isfinite(scores[2]).all()):
         raise AssertionError(f"{name}: non-finite pre-NMS scores")
     if not all(torch.equal(a, b) for a, b in zip(scores, repeat)):
         raise AssertionError(f"{name}: two runs of the same batch gave different scores")
     if not all(torch.equal(a, b) for a, b in zip(scores, plain)):
         raise AssertionError(f"{name}: the scores differ from the plain-route model's")
-    del scores, repeat, plain
+    if not all(torch.equal(a, b) for a, b in zip(scores, plain_norms)):
+        raise AssertionError(f"{name}: the scores differ from the plain-GroupNorm model's")
+    del scores, repeat, plain, plain_norms
     batch_ms = cuda_event_ms(lambda: model.run_scores(images), iters=5, warmup=1)
     _emit({"phase": "family_int8_path", "bundle": Path(fname).name, "preset": name,
            "batch": batch, "launches": launches, "int8_convs": len(layers),
            "int8_convs_bit_exact": True,
            "depthwise_convs": len(dw), "depthwise_equal_to_cpu": True,
+           "group_norms": len(norms), "group_norms_equal_to_cpu": True,
            "scores_repeatable": True, "scores_identical_to_plain_route": True,
+           "scores_identical_to_plain_group_norm": True,
            "detections_per_image": counts, "batch_ms": batch_ms,
-           "images_per_s": batch / batch_ms * 1e3, "peak_mem_gib": peak_mem_gib})
+           "images_per_s": batch / batch_ms * 1e3, "peak_mem_gib": peak_mem_gib,
+           "group_norm_device_ms": group_norm_ms(model, images)})
     return launches
 
 

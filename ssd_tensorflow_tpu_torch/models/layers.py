@@ -256,6 +256,11 @@ def conv_relu(params, x, stride=1, padding="SAME", dilation=1):
     return y.permute(0, 2, 3, 1)
 
 
+def relu6(x):
+    """Bounded ReLU, ``min(relu(x), 6)``; exact in bf16."""
+    return torch.relu(x).clamp_max(6.0)
+
+
 def max_pool(x, window=2, stride=2):
     """Max pooling of NHWC ``x`` with TF-style SAME (ceil) semantics."""
     ph = _same_pads(x.shape[1], window, stride)

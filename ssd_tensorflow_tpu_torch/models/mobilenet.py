@@ -17,14 +17,14 @@ the int8 executor keep the depthwise stencils weight-only quantized.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from ssd_tensorflow_tpu_torch.models.layers import float_conv_executor
+from ssd_tensorflow_tpu_torch.models.layers import float_conv_executor, relu6
 from ssd_tensorflow_tpu_torch.models.resnet import (
     check_maps,
     extra_geometry,
     group_norm,
     init_from_shapes,
+    norm_act,
 )
 from ssd_tensorflow_tpu_torch.presets import SSDPreset
 
@@ -77,11 +77,6 @@ def extra_layer_defs(preset: SSDPreset):
     return defs
 
 
-def relu6(x):
-    """Bounded ReLU, ``min(relu(x), 6)``; exact in bf16."""
-    return torch.relu(x).clamp_max(6.0)
-
-
 def backbone_shapes(preset: SSDPreset) -> dict:
     """``{layer: {leaf: shape}}`` of the trunk and extras in init order,
     filters HWIO (a depthwise filter is ``(3, 3, 1, C)``)."""
@@ -106,15 +101,20 @@ def init_backbone_params(rng: np.random.Generator, preset: SSDPreset) -> dict:
     return init_from_shapes(rng, backbone_shapes(preset))
 
 
+def _gn_relu6(x, gn):
+    """GroupNorm then ReLU6 (``resnet.norm_act``; off the kernel's route
+    through this module's ``group_norm``)."""
+    return norm_act(x, gn, "relu6", norm=group_norm)
+
+
 def walk_feature_maps(params, x, preset: SSDPreset, conv):
     """Preprocessed NHWC images -> the preset's multibox source maps, every
     convolution through ``conv`` (see the module doc)."""
-    x = relu6(group_norm(conv("stem_conv", x, stride=2), params["stem_gn"]))
+    x = _gn_relu6(conv("stem_conv", x, stride=2), params["stem_gn"])
     maps = []
     for i, (stride, _) in enumerate(BLOCKS, start=1):
-        x = relu6(group_norm(conv(f"b{i}_dw", x, stride=stride, depthwise=True),
-                             params[f"b{i}_dw_gn"]))
-        x = relu6(group_norm(conv(f"b{i}_pw", x), params[f"b{i}_pw_gn"]))
+        x = _gn_relu6(conv(f"b{i}_dw", x, stride=stride, depthwise=True), params[f"b{i}_dw_gn"])
+        x = _gn_relu6(conv(f"b{i}_pw", x), params[f"b{i}_pw_gn"])
         if i in TAP_BLOCKS:
             maps.append(x)
     for name, _, _, stride, padding in extra_layer_defs(preset):

@@ -13,7 +13,10 @@ injected executor ``conv(name, x, *, stride=1, padding="SAME") -> y``
 (conv + bias only), so the float path (``layers.float_conv_executor``),
 the int8 path and its calibration (``models/quantized.py``) walk one
 structure. GroupNorm, ReLU and the skips run here, in the executor's
-output dtype.
+output dtype: :func:`norm_act` takes each GroupNorm with the activation
+and the skip after it, in one launch of ``csrc/group_norm.cu`` where the
+route rule (``ops/group_norm_cuda.engages``) lets it, else as
+:func:`group_norm` and the plain activation.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ssd_tensorflow_tpu_torch.models.layers import float_conv_executor, init_conv, max_pool
+from ssd_tensorflow_tpu_torch.models.layers import float_conv_executor, init_conv, max_pool, relu6
+from ssd_tensorflow_tpu_torch.ops.group_norm_cuda import engages, group_norm_cuda
 from ssd_tensorflow_tpu_torch.presets import SSDPreset
 from ssd_tensorflow_tpu_torch.utils.profiling import counted_span
 
@@ -126,8 +130,7 @@ def init_backbone_params(rng: np.random.Generator, preset: SSDPreset) -> dict:
 init_resnet_params = init_backbone_params
 
 
-@counted_span("ssd.group_norm")
-def group_norm(x, gn, groups=GN_GROUPS, eps=1e-5):
+def group_norm_plain(x, gn, groups=GN_GROUPS, eps=1e-5):
     """GroupNorm of NHWC ``x`` in float32, as the JAX package's: ``groups``
     groups when they divide the channels, else one; the mean, then the mean
     of squared deviations ``d = x - mean``, over ``(H, W, C / g)``; ``d *
@@ -139,10 +142,8 @@ def group_norm(x, gn, groups=GN_GROUPS, eps=1e-5):
     float32 operation. So the CPU and the card give the same bits (a
     float32 sum's value depends on its order, which differs by device and
     library; JAX's XLA CPU sums in 32-wide windows and its rsqrt is not
-    correctly rounded, ROADMAP.md section 3).
-
-    Each call counts once in ``group_norm.calls`` and runs inside the
-    span ``ssd.group_norm`` (``utils/profiling.counted_span``)."""
+    correctly rounded, ROADMAP.md section 3). Plain PyTorch on any device:
+    the CPU route of :func:`group_norm` and the kernel's yardstick."""
     b, h, w, c = x.shape
     g = groups if c % groups == 0 else 1
     n = h * w * (c // g)
@@ -154,23 +155,75 @@ def group_norm(x, gn, groups=GN_GROUPS, eps=1e-5):
     return (y * gn["scale"].float() + gn["bias"].float()).to(x.dtype)
 
 
+def _f32(t):
+    return t if t.dtype is torch.float32 and t.is_contiguous() else t.float().contiguous()
+
+
+def _kernel(x, gn, groups, eps, act=None, skip=None):
+    g = groups if x.shape[-1] % groups == 0 else 1
+    return group_norm_cuda(x if x.is_contiguous() else x.contiguous(), _f32(gn["scale"]),
+                           _f32(gn["bias"]), g, eps, act, skip)
+
+
+@counted_span("ssd.group_norm")
+def group_norm(x, gn, groups=GN_GROUPS, eps=1e-5):
+    """GroupNorm of NHWC ``x`` (:func:`group_norm_plain`'s function and
+    bits), and nothing after it: where ``ops/group_norm_cuda.engages``
+    (a CUDA bf16 or float32 tensor that needs no gradient) one launch of
+    ``csrc/group_norm.cu``, else :func:`group_norm_plain`.
+
+    Each call counts once in ``group_norm.calls`` and runs inside the
+    span ``ssd.group_norm`` (``utils/profiling.counted_span``)."""
+    if engages(x, gn["scale"], gn["bias"]):
+        return _kernel(x, gn, groups, eps)
+    return group_norm_plain(x, gn, groups, eps)
+
+
+@counted_span("ssd.group_norm", shares=group_norm)
+def _norm_act_kernel(x, gn, act, skip):
+    return _kernel(x, gn, GN_GROUPS, 1e-5, act, skip)
+
+
+#: the plain activations of :func:`norm_act`
+_ACTIVATIONS = {None: lambda y: y, "relu": torch.relu, "relu6": relu6}
+
+
+def norm_act(x, gn, act=None, skip=None, norm=None):
+    """``act(GroupNorm(x) + skip)``, ``act`` None, ``"relu"`` or
+    ``"relu6"``, ``skip`` optional: the GroupNorm rounded to ``x.dtype``
+    first, the skip added in float32 and rounded once, the activation exact
+    on the rounded values.
+
+    Where ``ops/group_norm_cuda.engages`` (``x``, the GroupNorm's leaves
+    and ``skip``) all of it is one launch of ``csrc/group_norm.cu``,
+    counted in ``group_norm.calls`` and inside span ``ssd.group_norm`` as
+    :func:`group_norm` is; else ``norm(x, gn)`` (this module's
+    :func:`group_norm`, looked up at the call, unless a walk hands in its
+    own module's name), then the plain skip add and activation."""
+    if engages(x, gn["scale"], gn["bias"], skip):
+        return _norm_act_kernel(x, gn, act, skip)
+    y = (norm or group_norm)(x, gn)
+    return _ACTIVATIONS[act](y if skip is None else y + skip)
+
+
 def _block(params, name, x, stride, conv):
-    """Basic residual block: conv-GN-ReLU-conv-GN + skip, then ReLU."""
-    y = torch.relu(group_norm(conv(f"{name}_conv1", x, stride=stride), params[f"{name}_gn1"]))
-    y = group_norm(conv(f"{name}_conv2", y), params[f"{name}_gn2"])
+    """Basic residual block: conv-GN-ReLU-conv-GN + skip, then ReLU. With a
+    projection its GroupNorm, the block's last, carries the sum and the
+    ReLU (the sum is commutative, and the GroupNorms keep their order)."""
+    y = norm_act(conv(f"{name}_conv1", x, stride=stride), params[f"{name}_gn1"], "relu")
+    y = conv(f"{name}_conv2", y)
     if f"{name}_proj" in params:
-        skip = group_norm(conv(f"{name}_proj", x, stride=stride), params[f"{name}_proj_gn"])
-    elif stride != 1:
-        skip = x[:, ::stride, ::stride, :]
-    else:
-        skip = x
-    return torch.relu(y + skip)
+        y = norm_act(y, params[f"{name}_gn2"])
+        return norm_act(conv(f"{name}_proj", x, stride=stride), params[f"{name}_proj_gn"],
+                        "relu", skip=y)
+    skip = x[:, ::stride, ::stride, :] if stride != 1 else x
+    return norm_act(y, params[f"{name}_gn2"], "relu", skip=skip)
 
 
 def walk_feature_maps(params, x, preset: SSDPreset, conv):
     """Preprocessed NHWC images -> the preset's multibox source maps, every
     convolution through ``conv`` (see the module doc)."""
-    x = torch.relu(group_norm(conv("stem_conv", x, stride=2), params["stem_gn"]))
+    x = norm_act(conv("stem_conv", x, stride=2), params["stem_gn"], "relu")
     x = max_pool(x, 3, 2)
     maps = []
     for si, (blocks, _, stride) in enumerate(STAGES):

@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("nms", "stem", "stem_uint8", "stem_probe", "int8_conv")
+SOURCES = ("nms", "stem", "stem_uint8", "stem_probe", "int8_conv", "group_norm")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -658,21 +658,80 @@ def test_depthwise_conv_card_matches_cpu(cuda, hw, c, stride, f32_out):
         assert float((got == want).float().mean()) >= 0.999
 
 
-@pytest.mark.parametrize("shape", [(2, 160, 160, 64), (2, 40, 40, 128), (2, 10, 10, 1024),
-                                   (2, 5, 7, 3), (64, 20, 20, 512)])
+#: every distinct GroupNorm input of resnet320 and mobilenet320 at b2
+#: (resnet320's five are among mobilenet320's ten), one b64 shape of each
+#: family, and a ragged map of 3 channels (g = 1)
+GROUP_NORM_SHAPES = [
+    (2, 160, 160, 32), (2, 160, 160, 64), (2, 80, 80, 64), (2, 80, 80, 128), (2, 40, 40, 128),
+    (2, 40, 40, 256), (2, 20, 20, 256), (2, 20, 20, 512), (2, 10, 10, 512), (2, 10, 10, 1024),
+    (64, 80, 80, 64), (64, 160, 160, 64), (2, 5, 7, 3),
+]
+
+
+@pytest.mark.parametrize("shape", GROUP_NORM_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_group_norm_card_matches_cpu(cuda, shape, dtype):
-    """``resnet.group_norm`` takes float64-summed statistics and a float64
-    rsqrt, each rounded once, and then single float32 operations: the card
-    gives the CPU's bits."""
+    """``resnet.group_norm`` and ``resnet.norm_act`` on the card are one
+    launch of ``csrc/group_norm.cu`` each, and give the CPU route's bits
+    (float64-summed statistics and a float64 rsqrt, each rounded once,
+    then single float32 operations): the GroupNorm alone, with ReLU, with
+    ReLU6, and with a skip added before ReLU (a tensor of its own, and at
+    b2 a strided slice as resnet's stride-2 skips are)."""
     from ssd_tensorflow_tpu_torch.models import resnet
+    from ssd_tensorflow_tpu_torch.ops.group_norm_cuda import group_norm_cuda
 
     g = torch.Generator().manual_seed(sum(shape))
     x = (3 * torch.randn(shape, generator=g) + 0.5).to(dtype)
     gn = {"scale": torch.randn(shape[-1], generator=g), "bias": torch.randn(shape[-1], generator=g)}
-    want = resnet.group_norm(x, gn)
-    got = resnet.group_norm(x.to(cuda), {k: v.to(cuda) for k, v in gn.items()}).cpu()
-    assert got.dtype == dtype and torch.equal(got, want)
+    b, h, w, c = shape
+    skips = {"same": (2 * torch.randn(shape, generator=g)).to(dtype)}
+    if b <= 2:
+        skips["strided"] = (2 * torch.randn((b, 2 * h, 2 * w, c), generator=g)).to(dtype)
+    xc, gnc = x.to(cuda), {k: v.to(cuda) for k, v in gn.items()}
+    with torch.inference_mode():
+        y = resnet.group_norm(x, gn)
+        forms = {"none": (None, None, y), "relu": ("relu", None, torch.relu(y)),
+                 "relu6": ("relu6", None, torch.relu(y).clamp_max(6.0))}
+        for name, skip in skips.items():
+            cut = skip[:, ::2, ::2, :] if name == "strided" else skip
+            forms[f"skip_{name}"] = ("relu", skip, torch.relu(y + cut))
+        before = group_norm_cuda.launches
+        got = resnet.group_norm(xc, gnc).cpu()
+        assert group_norm_cuda.launches == before + 1
+        assert got.dtype == dtype and torch.equal(got, y), "GroupNorm alone"
+        for form, (act, skip, want) in forms.items():
+            if skip is not None:
+                skip = skip.to(cuda)
+                skip = skip[:, ::2, ::2, :] if form == "skip_strided" else skip
+            before = group_norm_cuda.launches
+            got = resnet.norm_act(xc, gnc, act, skip).cpu()
+            assert group_norm_cuda.launches == before + 1, form
+            assert got.dtype == dtype and torch.equal(got, want), form
+
+
+def test_group_norm_caches_every_family_slice(cuda):
+    """At b64 every GroupNorm input of the two families (bf16) keeps its
+    slice of an image in shared memory, so the kernel reads it from device
+    memory once."""
+    from ssd_tensorflow_tpu_torch.ops.group_norm_cuda import launch_plan
+
+    for _, h, w, c in GROUP_NORM_SHAPES[:10]:
+        x = torch.empty((64, h, w, c), dtype=torch.bfloat16, device=cuda)
+        plan = launch_plan(x, 32)
+        assert plan["cached"] == 1 and plan["vector"] == 8, (x.shape, plan)
+
+
+def test_group_norm_card_needs_no_gradient(cuda):
+    """Under autograd the card takes the plain route, and its gradients flow."""
+    from ssd_tensorflow_tpu_torch.models import resnet
+    from ssd_tensorflow_tpu_torch.ops.group_norm_cuda import group_norm_cuda
+
+    x = torch.randn((2, 8, 8, 64), device=cuda, requires_grad=True)
+    gn = {"scale": torch.ones(64, device=cuda), "bias": torch.zeros(64, device=cuda)}
+    before = group_norm_cuda.launches
+    y = resnet.norm_act(x, gn, "relu")
+    y.sum().backward()
+    assert group_norm_cuda.launches == before and x.grad is not None
 
 
 #: every conv + bias of the two families' float paths that is not

@@ -25,12 +25,14 @@ object (and writes it to ``--out``):
   decode + clamp, class shift + the NMS kernel, compaction. int8 path:
   preprocess, ``int8_conv`` (every trunk and extra conv's call of the
   fused kernel, ``ops/int8_conv.int8_qconv``, timed alone); then pools
-  + L2-norm (VGG) or GroupNorm and the depthwise convs (families), the
+  + L2-norm (VGG) or GroupNorm with its activation and skip add
+  (``resnet.norm_act``) and the depthwise convs (families), the
   head convs + lazy softmax, and the float path's decode stages. A family
-  float path: the bias-in convs (``layers.conv2d_bias_in``), GroupNorm,
-  the depthwise convs, heads + lazy softmax and the decode stages. On a
-  family path ``other`` is the rest of the forward (ReLU / ReLU6, skip
-  adds, max-pool, copies): the whole forward's time less its timed parts;
+  float path: the bias-in convs (``layers.conv2d_bias_in``), GroupNorm
+  with its activation, the depthwise convs, heads + lazy softmax and the
+  decode stages. On a family path ``other`` is the rest of the forward
+  (the extras' ReLU / ReLU6, max-pool, copies): the whole forward's time
+  less its timed parts;
 * ``run_scores_ms``: the whole ``InferenceModel.run_scores`` per batch;
 * ``profile``: a ``torch.profiler`` window over a few chained batches:
   the same batches timed with CUDA events, untraced
@@ -198,9 +200,9 @@ def _family_patches(calls, int8: bool):
 
     from ssd_tensorflow_tpu_torch.models import layers, mobilenet, quantized, resnet, ssd_vgg
 
-    gn = _recorder(calls, "group_norm", resnet.group_norm)
-    patches = [mock.patch.object(resnet, "group_norm", gn),
-               mock.patch.object(mobilenet, "group_norm", gn)]
+    gn = _recorder(calls, "group_norm", resnet.norm_act)
+    patches = [mock.patch.object(resnet, "norm_act", gn),
+               mock.patch.object(mobilenet, "norm_act", gn)]
     if int8:
         patches.append(mock.patch.object(quantized, "depthwise_conv2d", _recorder(
             calls, "depthwise", quantized.depthwise_conv2d)))
