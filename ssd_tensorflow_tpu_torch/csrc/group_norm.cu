@@ -3,7 +3,7 @@
 //
 // Replaces no TPU kernel: the JAX package's GroupNorm is XLA's
 // (ssd_tensorflow_tpu/models/resnet.py, group_norm). Before this kernel
-// the card ran models/resnet.group_norm_plain as 19 ATen launches a call
+// the card ran models/resnet.group_norm as 19 ATen launches a call
 // (casts, two float64 sums, subtracts, squares, multiplies, adds), each a
 // full pass through device memory, and the activation as one more.
 //
@@ -11,7 +11,7 @@
 // (C,) float32; groups dividing C (group width gw = C / groups); an
 // optional skip of x's shape and dtype (any pixel strides, channels
 // contiguous). Output: x's shape and dtype. Per (image, group) of n = H *
-// W * gw elements, bit for bit as group_norm_plain computes it:
+// W * gw elements, bit for bit as group_norm computes it:
 //   1. mean = float32(S1 / n), S1 the float64 sum of the float32 values;
 //   2. d = x - mean (one float32 subtract), var = float32(S2 / n), S2 the
 //      float64 sum of the float32 squares d * d;
@@ -196,8 +196,9 @@ __device__ __forceinline__ void cluster_wait() {
 
 // The block's float64 partial of each group from every thread's V
 // per-channel sums, in a fixed order: each channel's rows in runs of
-// `rows / parts` (a run a thread), the runs in order, then a group's
-// channels in order. Ends with the partials in part[groups].
+// `run` (a run a thread, every run starting inside the rows), the runs in
+// order, then a group's channels in order. Ends with the partials in
+// part[groups].
 template <int V>
 __device__ __forceinline__ void group_partials(const double (&acc)[V], double* red, double* part,
                                                const Params& p, bool active, int row, int c0) {
@@ -206,8 +207,9 @@ __device__ __forceinline__ void group_partials(const double (&acc)[V], double* r
     for (int j = 0; j < V; ++j) red[row * p.c + c0 + j] = acc[j];
   }
   __syncthreads();
-  const int parts = max(1, min(p.rows, static_cast<int>(blockDim.x) / p.c));
-  const int run = (p.rows + parts - 1) / parts;
+  const int most = max(1, min(p.rows, static_cast<int>(blockDim.x) / p.c));
+  const int run = (p.rows + most - 1) / most;
+  const int parts = (p.rows + run - 1) / run;
   for (int i = threadIdx.x; i < parts * p.c; i += blockDim.x) {
     const int ch = i % p.c, r0 = i / p.c * run, r1 = min(p.rows, r0 + run);
     double s = red[r0 * p.c + ch];
@@ -489,17 +491,12 @@ cudaError_t plan(Params& p, int batch, int bytes, int cs_max, int* cs_out, size_
 }
 
 template <typename T, int V, int kAct, bool kSkip>
-int launch(Params p, int batch, int threads, cudaStream_t stream, int* plan_out) {
+int launch(Params p, int batch, int threads, cudaStream_t stream) {
   int cs_max = 8, cs = 1;
   size_t smem = 0;
   cudaError_t err = largest_cluster<T, V, kAct, kSkip>(threads, &cs_max);
   if (err == cudaSuccess) err = plan(p, batch, sizeof(T), cs_max, &cs, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (plan_out != nullptr) {   // the plan alone: nothing is launched
-    plan_out[0] = threads, plan_out[1] = cs, plan_out[2] = p.cached;
-    plan_out[3] = static_cast<int>(smem), plan_out[4] = V;
-    return cudaSuccess;
-  }
   cudaLaunchAttribute attr{};
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = cs;
@@ -519,18 +516,18 @@ int launch(Params p, int batch, int threads, cudaStream_t stream, int* plan_out)
 
 // The kernel of the call's epilogue.
 template <typename T, int V>
-int launch_epilogue(const Params& p, int batch, int threads, cudaStream_t st, int* plan_out) {
+int launch_epilogue(const Params& p, int batch, int threads, cudaStream_t st) {
   const bool skip = p.skip != nullptr;
   if (p.act == kRelu) {
-    return skip ? launch<T, V, kRelu, true>(p, batch, threads, st, plan_out)
-                : launch<T, V, kRelu, false>(p, batch, threads, st, plan_out);
+    return skip ? launch<T, V, kRelu, true>(p, batch, threads, st)
+                : launch<T, V, kRelu, false>(p, batch, threads, st);
   }
   if (p.act == kRelu6) {
-    return skip ? launch<T, V, kRelu6, true>(p, batch, threads, st, plan_out)
-                : launch<T, V, kRelu6, false>(p, batch, threads, st, plan_out);
+    return skip ? launch<T, V, kRelu6, true>(p, batch, threads, st)
+                : launch<T, V, kRelu6, false>(p, batch, threads, st);
   }
-  return skip ? launch<T, V, kNone, true>(p, batch, threads, st, plan_out)
-              : launch<T, V, kNone, false>(p, batch, threads, st, plan_out);
+  return skip ? launch<T, V, kNone, true>(p, batch, threads, st)
+              : launch<T, V, kNone, false>(p, batch, threads, st);
 }
 
 }  // namespace
@@ -541,15 +538,11 @@ int launch_epilogue(const Params& p, int batch, int threads, cudaStream_t st, in
 // vectors of 16 bytes a pixel (C a multiple of 8 bf16 or 4 float32, the
 // pointers and the skip's strides aligned to them), else up to 1024
 // channels one at a time. Returns a cudaError_t; the launch does not
-// synchronise. With `plan_out` not null it launches nothing and writes
-// the launch's plan there: threads a block, blocks a cluster (an image),
-// whether a block caches its slice in shared memory, the shared memory
-// a block, the channels a thread reads at once.
+// synchronise.
 extern "C" int group_norm_launch(const void* x, const float* scale, const float* bias,
                                  const void* skip, void* out, int batch, int h, int w, int c,
                                  int groups, int is_f32, int act, float eps, long long skip_b,
-                                 long long skip_h, long long skip_w, void* stream,
-                                 int* plan_out) {
+                                 long long skip_h, long long skip_w, void* stream) {
   const long long hw = static_cast<long long>(h) * w;
   if (batch <= 0 || h <= 0 || w <= 0 || c <= 0 || groups <= 0 || c % groups != 0 ||
       act < kNone || act > kRelu6 || hw * c > 0x7fffffffLL || x == nullptr || out == nullptr)
@@ -577,9 +570,9 @@ extern "C" int group_norm_launch(const void* x, const float* scale, const float*
   if (p.off_cache > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_f32) {
-    return wide ? launch_epilogue<float, 4>(p, batch, threads, st, plan_out)
-                : launch_epilogue<float, 1>(p, batch, threads, st, plan_out);
+    return wide ? launch_epilogue<float, 4>(p, batch, threads, st)
+                : launch_epilogue<float, 1>(p, batch, threads, st);
   }
-  return wide ? launch_epilogue<__nv_bfloat16, 8>(p, batch, threads, st, plan_out)
-              : launch_epilogue<__nv_bfloat16, 1>(p, batch, threads, st, plan_out);
+  return wide ? launch_epilogue<__nv_bfloat16, 8>(p, batch, threads, st)
+              : launch_epilogue<__nv_bfloat16, 1>(p, batch, threads, st);
 }

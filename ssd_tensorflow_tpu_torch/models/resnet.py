@@ -27,7 +27,7 @@ import torch
 from ssd_tensorflow_tpu_torch.models.layers import float_conv_executor, init_conv, max_pool, relu6
 from ssd_tensorflow_tpu_torch.ops.group_norm_cuda import engages, group_norm_cuda
 from ssd_tensorflow_tpu_torch.presets import SSDPreset
-from ssd_tensorflow_tpu_torch.utils.profiling import counted_span
+from ssd_tensorflow_tpu_torch.utils.profiling import counted_span, span
 
 #: ResNet-34 stage layout: (num_blocks, channels, first-block stride).
 STAGES = ((3, 64, 1), (4, 128, 2), (6, 256, 2), (3, 512, 2))
@@ -130,7 +130,8 @@ def init_backbone_params(rng: np.random.Generator, preset: SSDPreset) -> dict:
 init_resnet_params = init_backbone_params
 
 
-def group_norm_plain(x, gn, groups=GN_GROUPS, eps=1e-5):
+@counted_span("ssd.group_norm")
+def group_norm(x, gn, groups=GN_GROUPS, eps=1e-5):
     """GroupNorm of NHWC ``x`` in float32, as the JAX package's: ``groups``
     groups when they divide the channels, else one; the mean, then the mean
     of squared deviations ``d = x - mean``, over ``(H, W, C / g)``; ``d *
@@ -143,7 +144,10 @@ def group_norm_plain(x, gn, groups=GN_GROUPS, eps=1e-5):
     float32 sum's value depends on its order, which differs by device and
     library; JAX's XLA CPU sums in 32-wide windows and its rsqrt is not
     correctly rounded, ROADMAP.md section 3). Plain PyTorch on any device:
-    the CPU route of :func:`group_norm` and the kernel's yardstick."""
+    :func:`norm_act`'s route off the kernel, and the kernel's yardstick.
+
+    Each call counts once in ``group_norm.calls`` and runs inside the
+    span ``ssd.group_norm`` (``utils/profiling.counted_span``)."""
     b, h, w, c = x.shape
     g = groups if c % groups == 0 else 1
     n = h * w * (c // g)
@@ -155,37 +159,15 @@ def group_norm_plain(x, gn, groups=GN_GROUPS, eps=1e-5):
     return (y * gn["scale"].float() + gn["bias"].float()).to(x.dtype)
 
 
-def _f32(t):
-    return t if t.dtype is torch.float32 and t.is_contiguous() else t.float().contiguous()
-
-
-def _kernel(x, gn, groups, eps, act=None, skip=None):
-    g = groups if x.shape[-1] % groups == 0 else 1
-    return group_norm_cuda(x if x.is_contiguous() else x.contiguous(), _f32(gn["scale"]),
-                           _f32(gn["bias"]), g, eps, act, skip)
-
-
-@counted_span("ssd.group_norm")
-def group_norm(x, gn, groups=GN_GROUPS, eps=1e-5):
-    """GroupNorm of NHWC ``x`` (:func:`group_norm_plain`'s function and
-    bits), and nothing after it: where ``ops/group_norm_cuda.engages``
-    (a CUDA bf16 or float32 tensor that needs no gradient) one launch of
-    ``csrc/group_norm.cu``, else :func:`group_norm_plain`.
-
-    Each call counts once in ``group_norm.calls`` and runs inside the
-    span ``ssd.group_norm`` (``utils/profiling.counted_span``)."""
-    if engages(x, gn["scale"], gn["bias"]):
-        return _kernel(x, gn, groups, eps)
-    return group_norm_plain(x, gn, groups, eps)
-
-
-@counted_span("ssd.group_norm", shares=group_norm)
-def _norm_act_kernel(x, gn, act, skip):
-    return _kernel(x, gn, GN_GROUPS, 1e-5, act, skip)
-
-
+#: the counted GroupNorm, whose counter and span the kernel's route shares
+#: (held here, so a test that patches the module's name changes neither)
+_GROUP_NORM = group_norm
 #: the plain activations of :func:`norm_act`
 _ACTIVATIONS = {None: lambda y: y, "relu": torch.relu, "relu6": relu6}
+
+
+def _f32(t):
+    return t if t.dtype is torch.float32 and t.is_contiguous() else t.float().contiguous()
 
 
 def norm_act(x, gn, act=None, skip=None, norm=None):
@@ -201,7 +183,11 @@ def norm_act(x, gn, act=None, skip=None, norm=None):
     :func:`group_norm`, looked up at the call, unless a walk hands in its
     own module's name), then the plain skip add and activation."""
     if engages(x, gn["scale"], gn["bias"], skip):
-        return _norm_act_kernel(x, gn, act, skip)
+        _GROUP_NORM.calls += 1
+        g = GN_GROUPS if x.shape[-1] % GN_GROUPS == 0 else 1
+        with span("ssd.group_norm"):
+            return group_norm_cuda(x.contiguous(), _f32(gn["scale"]), _f32(gn["bias"]), g,
+                                   act=act, skip=skip)
     y = (norm or group_norm)(x, gn)
     return _ACTIVATIONS[act](y if skip is None else y + skip)
 

@@ -6,16 +6,17 @@ each rounded once; every elementwise step one float32 operation; one
 rounding to the input dtype), then an optional skip added in float32 and
 rounded once, then ReLU or ReLU6. One launch a call, counted in
 ``group_norm_cuda.launches``. Its plain version is
-``models/resnet.group_norm_plain`` followed by the plain skip add and
+``models/resnet.group_norm`` followed by the plain skip add and
 activation, which the kernel equals bit for bit; the source note in
 ``csrc/group_norm.cu`` says what bounds the kernel and how its design
 meets that.
 
 :func:`engages` is the route rule the families' walks use: the kernel
-takes a CUDA tensor of a dtype it has and a channel count its layout
-takes, unless autograd needs a gradient through it. Everything else
-(CPU tensors, the train steps' differentiable forwards) takes the plain
-PyTorch function.
+takes a CUDA tensor of a dtype it has, unless autograd needs a gradient
+through it. Everything else (CPU tensors, the train steps'
+differentiable forwards) takes the plain PyTorch function. A width the
+kernel's layout does not take (:func:`channels_fit`) is no reason to
+leave the card's route: :func:`group_norm_cuda` raises on it.
 """
 
 from __future__ import annotations
@@ -47,10 +48,10 @@ def channels_fit(c: int, dtype) -> bool:
 
 def eligible(x, *operands) -> bool:
     """The route rule without the device: ``x`` is NHWC of a dtype the
-    kernel has and a channel count it takes, and autograd needs no
-    gradient through it (grad mode off, or neither ``x`` nor any of
-    ``operands`` requires one; ``None`` operands are skipped)."""
-    if x.dim() != 4 or x.dtype not in DTYPES or not channels_fit(x.shape[-1], x.dtype):
+    kernel has, and autograd needs no gradient through it (grad mode off,
+    or neither ``x`` nor any of ``operands`` requires one; ``None``
+    operands are skipped)."""
+    if x.dim() != 4 or x.dtype not in DTYPES:
         return False
     return not (torch.is_grad_enabled()
                 and any(t is not None and t.requires_grad for t in (x, *operands)))
@@ -65,7 +66,7 @@ def engages(x, *operands) -> bool:
 def _launcher():
     fn = _build.libraries()["group_norm"].group_norm_launch
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float]
-                   + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 2)
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -104,7 +105,7 @@ def _check(x, scale, bias, groups: int, act, skip):
 _HERE = contextlib.nullcontext()
 
 
-def _call(x, scale, bias, groups, eps, act, skip, out, plan=None):
+def _call(x, scale, bias, groups, eps, act, skip, out):
     b, h, w, c = x.shape
     strides = skip.stride()[:3] if skip is not None else (0, 0, 0)
     index = x.device.index
@@ -112,22 +113,8 @@ def _call(x, scale, bias, groups, eps, act, skip, out, plan=None):
         rc = _launcher()(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                          None if skip is None else skip.data_ptr(), out.data_ptr(),
                          b, h, w, c, groups, int(x.dtype is torch.float32), ACTIVATIONS[act],
-                         eps, *strides, torch.cuda.current_stream(index).cuda_stream,
-                         None if plan is None else ctypes.addressof(plan))
+                         eps, *strides, torch.cuda.current_stream(index).cuda_stream)
     _build.check(rc, "group_norm_cuda")
-
-
-def launch_plan(x, groups: int, skip=None) -> dict:
-    """How :func:`group_norm_cuda` would launch on ``x`` (a CUDA tensor),
-    without launching: threads a block, blocks a cluster (one image),
-    whether each block caches its slice of the image in shared memory,
-    the shared-memory bytes a block, and the channels a thread reads at
-    once."""
-    scale = torch.ones(x.shape[-1], device=x.device)
-    _check(x, scale, scale, groups, None, skip)
-    plan = (ctypes.c_int * 5)()
-    _call(x, scale, scale, groups, 1e-5, None, skip, x, plan)
-    return dict(zip(("threads", "cluster", "cached", "smem_bytes", "vector"), plan))
 
 
 def group_norm_cuda(x, scale, bias, groups: int, eps: float = 1e-5, act=None, skip=None):

@@ -46,24 +46,20 @@ def span(name: str):
     return _NO_SPAN
 
 
-def counted_span(name: str, shares=None):
+def counted_span(name: str):
     """Decorator: each call of the function runs inside :func:`span`
     ``name`` and counts once in the function's ``calls`` attribute (0 at
-    import), or in ``shares.calls`` where ``shares`` is another counted
-    function (a second route of the same layer). The wrapper holds its
-    counter itself, so a test or tool that patches the module's name keeps
-    the real function counting."""
+    import). The wrapper holds its counter itself, so a test or tool that
+    patches the module's name keeps the real function counting."""
 
     def wrap(fn):
         @functools.wraps(fn)
         def counted(*args, **kwargs):
-            owner.calls += 1
+            counted.calls += 1
             with span(name):
                 return fn(*args, **kwargs)
 
-        owner = counted if shares is None else shares
-        if shares is None:
-            counted.calls = 0
+        counted.calls = 0
         return counted
 
     return wrap

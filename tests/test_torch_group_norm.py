@@ -42,12 +42,12 @@ def _skip(form, shape, dtype, g):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_cpu_takes_the_plain_route(shape, dtype):
-    """A CPU tensor takes ``group_norm_plain``, bit for bit, and never the
-    kernel."""
+    """A CPU tensor takes the plain ``group_norm``, bit for bit, and never
+    the kernel."""
     x, gn, _ = _inputs(shape, dtype, sum(shape))
     before = gnc.group_norm_cuda.launches
-    got = resnet.group_norm(x, gn)
-    assert got.dtype == dtype and torch.equal(got, resnet.group_norm_plain(x, gn))
+    got = resnet.norm_act(x, gn)
+    assert got.dtype == dtype and torch.equal(got, resnet.group_norm(x, gn))
     assert gnc.group_norm_cuda.launches == before == 0
 
 
@@ -60,7 +60,7 @@ def test_norm_act_is_group_norm_then_the_plain_activation(shape, form):
     act, skip_form = form
     x, gn, g = _inputs(shape, torch.bfloat16, 3 * sum(shape))
     skip = _skip(skip_form, shape, torch.bfloat16, g)
-    y = resnet.group_norm_plain(x, gn)
+    y = resnet.group_norm(x, gn)
     if skip is not None:
         y = y + skip
     want = {None: y, "relu": torch.relu(y), "relu6": torch.relu(y).clamp_max(6.0)}[act]
@@ -90,9 +90,11 @@ def test_norm_act_calls_the_norm_it_is_handed():
 @pytest.mark.parametrize("case", ["bf16", "float32", "float16", "float64", "rank3", "grad_x",
                                   "grad_scale", "grad_skip", "no_grad", "wide"])
 def test_route_rule(case):
-    """``eligible``: NHWC bf16 or float32, a channel count the kernel's
-    layout takes, and no gradient needed through it; ``engages`` also
-    needs the card, so every CPU tensor stays on the plain route."""
+    """``eligible``: NHWC bf16 or float32, and no gradient needed through
+    it; ``engages`` also needs the card, so every CPU tensor stays on the
+    plain route. A width the kernel's layout does not take is eligible
+    (the wrapper raises on it, ``test_wrapper_checks_raise_without_building``),
+    so the card never leaves the kernel silently."""
     dtype = {"float32": torch.float32, "float16": torch.float16,
              "float64": torch.float64}.get(case, torch.bfloat16)
     shape = {"rank3": (4, 4, 64), "wide": (1, 2, 2, 1028)}.get(case, (1, 4, 4, 64))
@@ -104,7 +106,7 @@ def test_route_rule(case):
         scale.requires_grad_(True)
     elif case in ("grad_skip", "no_grad"):
         skip.requires_grad_(True)
-    want = case in ("bf16", "float32", "no_grad")
+    want = case in ("bf16", "float32", "no_grad", "wide")
     if case == "no_grad":
         with torch.no_grad():
             assert gnc.eligible(x, scale, skip)
@@ -119,7 +121,8 @@ def test_route_rule(case):
 
 
 @pytest.mark.parametrize("case", ["rank3", "non_contiguous", "float16", "groups", "act",
-                                  "scale_dtype", "skip_shape", "skip_channel_stride", "cpu"])
+                                  "scale_dtype", "skip_shape", "skip_channel_stride", "cpu",
+                                  "wide_bf16", "wide_float32"])
 def test_wrapper_checks_raise_without_building(case):
     """``group_norm_cuda`` raises ValueError on what the kernel does not
     take, before it builds or loads the kernel library."""
@@ -141,6 +144,11 @@ def test_wrapper_checks_raise_without_building(case):
         skip = torch.zeros((1, 2, 2, 64), dtype=torch.bfloat16)
     elif case == "skip_channel_stride":
         skip = torch.zeros((1, 4, 4, 128), dtype=torch.bfloat16)[..., ::2]
+    elif case.startswith("wide"):
+        # more channels than the kernel's layout takes (channels_fit)
+        dtype = torch.bfloat16 if case == "wide_bf16" else torch.float32
+        x, scale, bias = torch.zeros((1, 2, 2, 1028), dtype=dtype), torch.ones(1028), torch.zeros(1028)
+        groups = 4
     with mock.patch.object(_build, "libraries", side_effect=AssertionError("built")), \
             pytest.raises(ValueError, match="group_norm_cuda"):
         gnc.group_norm_cuda(x, scale, bias, groups, act=act, skip=skip)
@@ -149,7 +157,7 @@ def test_wrapper_checks_raise_without_building(case):
 def _old_resnet_walk(params, x, preset, conv):
     """``resnet.walk_feature_maps`` as it was written before ``norm_act``:
     every GroupNorm alone, then ``torch.relu`` and the skip add."""
-    gn = resnet.group_norm_plain
+    gn = resnet.group_norm
     x = layers.max_pool(torch.relu(gn(conv("stem_conv", x, stride=2), params["stem_gn"])), 3, 2)
     maps = []
     for si, (blocks, _, stage_stride) in enumerate(resnet.STAGES):
@@ -173,7 +181,7 @@ def _old_resnet_walk(params, x, preset, conv):
 
 def _old_mobilenet_walk(params, x, preset, conv):
     """``mobilenet.walk_feature_maps`` as it was written before ``norm_act``."""
-    gn = resnet.group_norm_plain
+    gn = resnet.group_norm
     x = layers.relu6(gn(conv("stem_conv", x, stride=2), params["stem_gn"]))
     maps = []
     for i, (stride, _) in enumerate(mobilenet.BLOCKS, start=1):
@@ -207,7 +215,7 @@ def test_walks_keep_their_bits(preset_name, dtype):
                 else (resnet, _old_resnet_walk))
     conv = layers.float_conv_executor(params, inference=True)
     order = {"new": [], "old": []}
-    real = resnet.group_norm_plain
+    real = resnet.group_norm
 
     def recording(key):
         def norm(x, gn, *args, **kwargs):
@@ -215,11 +223,13 @@ def test_walks_keep_their_bits(preset_name, dtype):
             return real(x, gn, *args, **kwargs)
         return norm
 
+    maps = {}
     with torch.no_grad():
-        with mock.patch.object(resnet, "group_norm_plain", recording("new")):
-            got = fam.walk_feature_maps(params, x, cfg.preset, conv)
-        with mock.patch.object(resnet, "group_norm_plain", recording("old")):
-            want = old(params, x, cfg.preset, conv)
+        for key, walk in (("new", fam.walk_feature_maps), ("old", old)):
+            with mock.patch.object(resnet, "group_norm", recording(key)), \
+                    mock.patch.object(mobilenet, "group_norm", recording(key)):
+                maps[key] = walk(params, x, cfg.preset, conv)
+    got, want = maps["new"], maps["old"]
     assert order["new"] == order["old"] and len(order["new"]) == {"r": 36, "m": 27}[preset_name[0]]
     assert len(got) == len(want) == cfg.preset.num_maps
     for a, b in zip(got, want):
