@@ -403,27 +403,37 @@ def conv_calls(model, images):
     "dilation"}]``. Kinds: ``conv_relu`` (``layers.conv_relu``, the VGG
     trunk and extras), ``head`` (the multibox heads'
     ``layers.conv2d_bias_in``), ``bias_in`` (a family's other convs,
-    ``layers.conv2d_bias_in`` from ``layers.float_conv_executor``) and
-    ``depthwise`` (``layers.depthwise_conv2d``). A bias-in call's ``w`` is
-    its filter without the bias channels."""
+    ``layers.conv2d_bias_in``) and ``depthwise``
+    (``layers.depthwise_conv2d``), each called by the float executor
+    (``layers.float_conv_executor``; a head is its ``classifier*`` layer).
+    A bias-in call's ``w`` is its filter without the bias channels."""
     import torch
 
-    from ssd_tensorflow_tpu_torch.models import layers, ssd_vgg, vgg16
+    from ssd_tensorflow_tpu_torch.models import layers, ssd_vgg
 
-    calls = []
+    calls, layer, executor = [], [""], layers.float_conv_executor
 
     def record(fn, kind):
         def wrapper(*args, **kwargs):
             bound = inspect.signature(fn).bind(*args, **kwargs)
             bound.apply_defaults()
-            calls.append((kind, bound.arguments))
+            head = kind == "bias_in" and layer[0].startswith("classifier")
+            calls.append(("head" if head else kind, bound.arguments))
             return fn(*args, **kwargs)
         return wrapper
 
+    def named_executor(params, inference=True):
+        conv = executor(params, inference)
+
+        def named(name, x, **kwargs):
+            layer[0] = name
+            return conv(name, x, **kwargs)
+
+        return named
+
     with torch.inference_mode(), \
-            mock.patch.object(vgg16, "conv_relu", record(layers.conv_relu, "conv_relu")), \
-            mock.patch.object(ssd_vgg, "conv_relu", record(layers.conv_relu, "conv_relu")), \
-            mock.patch.object(ssd_vgg, "conv2d_bias_in", record(layers.conv2d_bias_in, "head")), \
+            mock.patch.object(ssd_vgg, "float_conv_executor", named_executor), \
+            mock.patch.object(layers, "conv_relu", record(layers.conv_relu, "conv_relu")), \
             mock.patch.object(layers, "conv2d_bias_in", record(layers.conv2d_bias_in, "bias_in")), \
             mock.patch.object(layers, "depthwise_conv2d",
                               record(layers.depthwise_conv2d, "depthwise")):
@@ -2841,9 +2851,9 @@ def conv7_in_two_halves(flips: list):
     the whole conv's."""
     import torch
 
-    from ssd_tensorflow_tpu_torch.models import layers, vgg16
+    from ssd_tensorflow_tpu_torch.models import layers
 
-    whole_conv = vgg16.conv_relu_train
+    whole_conv = layers.conv_relu_train
 
     def conv(params, x, stride=1, padding="SAME", dilation=1):
         w = params["w"]
@@ -2857,7 +2867,7 @@ def conv7_in_two_halves(flips: list):
             flips.append(int(((pre > 0) != (whole > 0)).sum()))
         return torch.relu(pre)
 
-    with mock.patch.object(vgg16, "conv_relu_train", conv):
+    with mock.patch.object(layers, "conv_relu_train", conv):
         yield
 
 

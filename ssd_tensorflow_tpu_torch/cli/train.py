@@ -32,8 +32,7 @@ import torch.distributed as dist
 
 from ssd_tensorflow_tpu_torch.data.pipeline import TrainingData
 from ssd_tensorflow_tpu_torch.eval.average_precision import APCalculator, APs2mAP
-from ssd_tensorflow_tpu_torch.models.ssd_vgg import ModelConfig, init_params
-from ssd_tensorflow_tpu_torch.models.vgg16 import load_pretrained_vgg
+from ssd_tensorflow_tpu_torch.models.ssd_vgg import ModelConfig, _backbone_module, init_params
 from ssd_tensorflow_tpu_torch.ops.anchors import anchors_for_preset
 from ssd_tensorflow_tpu_torch.ops.postprocess import DetectionConfig, detections_to_boxes
 from ssd_tensorflow_tpu_torch.parallel.mesh import make_mesh, mesh_device, world
@@ -288,11 +287,12 @@ def main(argv=None):
     print("[i] Creating the model...")
     params = init_params(model_cfg, seed=0)
     vgg_npz = os.path.join(args.vgg_dir, "vgg16.npz")
-    if model_cfg.preset.backbone != "vgg":
-        pass  # --vgg-dir bootstrap only applies to the VGG family
+    load_pretrained = _backbone_module(model_cfg.preset).load_pretrained
+    if load_pretrained is None:
+        pass  # the --vgg-dir bootstrap applies only to a family with a pretrained import
     elif start_epoch == 0 and os.path.exists(vgg_npz):
         print("[i] Loading pretrained VGG weights from", vgg_npz)
-        params = load_pretrained_vgg(vgg_npz, params)
+        params = load_pretrained(vgg_npz, params)
     elif start_epoch == 0:
         print(f"[!] {vgg_npz} not found — training from random init")
 

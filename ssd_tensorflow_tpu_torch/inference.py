@@ -25,6 +25,7 @@ from ssd_tensorflow_tpu_torch.data import image_io
 from ssd_tensorflow_tpu_torch.models import quantized
 from ssd_tensorflow_tpu_torch.models.ssd_vgg import (
     ModelConfig,
+    _backbone_module,
     apply_result,
     apply_scores,
     param_shapes,
@@ -83,15 +84,16 @@ def _leaf_order(shapes: dict):
 
 def qparam_shapes(config: ModelConfig) -> dict:
     """``{layer: {leaf: shape}}`` of an int8 bundle: each conv's ``w``
-    becomes ``wq`` (HWIO int8) beside a per-output-channel ``w_scale``; a
-    family conv other than a depthwise one (``*_dw``) also holds its folded
-    per-input-channel ``a_scale`` (``quantized.quantize_weights_folded``)."""
-    family = config.preset.backbone != "vgg"
+    becomes ``wq`` (HWIO int8) beside a per-output-channel ``w_scale``; in
+    a family without per-layer scales a conv other than a depthwise one
+    (``*_dw``) also holds its folded per-input-channel ``a_scale``
+    (``quantized.quantize_weights_folded``)."""
+    folded = not _backbone_module(config.preset).PER_LAYER_SCALES
     shapes = {}
     for name, leaves in param_shapes(config).items():
         if "w" in leaves:
             shapes[name] = {"b": leaves["b"], "w_scale": leaves["b"], "wq": leaves["w"]}
-            if family and not name.endswith("_dw"):
+            if folded and not name.endswith("_dw"):
                 shapes[name]["a_scale"] = (leaves["w"][2],)
         else:
             shapes[name] = dict(leaves)
@@ -185,15 +187,16 @@ def _apply_overrides(model_cfg: ModelConfig, overrides: dict, int8: bool = False
     JAX package's head convs to a lane-aligned width whose pad channels
     its scores path slices away, which changes no math. On a
     bundle that does not run the bf16 VGG float stem (int8, which
-    quantizes conv1 as it does every conv, float32, or a resnet34 /
-    mobilenetv1 model, whose stem is another block) the stem overrides are
-    dropped with the JAX package's message.
+    quantizes conv1 as it does every conv, float32, or a family without a
+    stem kernel, such as resnet34 / mobilenetv1, whose stem is another
+    block) the stem overrides are dropped with the JAX package's message.
     """
     overrides = dict(overrides)
     stem_keys = [k for k in ("pallas_stem", "pallas_stem_variant") if k in overrides]
-    backbone = model_cfg.preset.backbone
-    if stem_keys and (int8 or model_cfg.compute_dtype != "bfloat16" or backbone != "vgg"):
-        kind = "int8" if int8 else backbone if backbone != "vgg" else model_cfg.compute_dtype
+    no_stem = _backbone_module(model_cfg.preset).stem is None
+    if stem_keys and (int8 or model_cfg.compute_dtype != "bfloat16" or no_stem):
+        kind = ("int8" if int8 else model_cfg.preset.backbone if no_stem
+                else model_cfg.compute_dtype)
         print(f"[!] pallas_stem override ignored: this {kind} "
               "bundle does not run the bf16 VGG float stem")
         for k in stem_keys:

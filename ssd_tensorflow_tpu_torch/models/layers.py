@@ -210,26 +210,31 @@ def depthwise_conv2d(x, w, b=None, stride=1, padding="SAME", f32_out=False):
 
 
 def float_conv_executor(params, inference=True):
-    """The float conv executor of a family's ``walk_feature_maps``:
-    ``conv(name, x, *, stride=1, padding="SAME", depthwise=False)``, conv
-    + bias only (norms, activations and skips live in the walker), as the
-    JAX package's ``layers.float_conv_executor``.
+    """The float conv executor of a family's ``walk_feature_maps`` and the
+    heads: ``conv(name, x, *, stride=1, padding="SAME", dilation=1,
+    depthwise=False, relu=False)``, conv + bias (+ ReLU where ``relu``;
+    norms, other activations and skips live in the walker), as the JAX
+    package's ``layers.float_conv_executor``.
 
     ``inference=True``: every output rounds once, as the JAX package's
-    ``f32_out=True``: :func:`conv2d_bias_in` (with the ``"wb"`` filter that
-    ``ssd_vgg.stage_conv_weights`` staged, else one widened per call) and the
-    float32 form of :func:`depthwise_conv2d`. ``inference=False``: the
-    differentiable training math, :func:`conv2d_train` and the ``x.dtype``
-    depthwise form (two roundings in bf16, as the JAX package's default)."""
+    ``f32_out=True``: :func:`conv_relu` (cuDNN's fused conv + bias + ReLU
+    on the card), :func:`conv2d_bias_in` (with the ``"wb"`` filter that
+    ``ssd_vgg.stage_conv_weights`` staged, else one widened per call) and
+    the float32 form of :func:`depthwise_conv2d`. ``inference=False``: the
+    differentiable training math, :func:`conv_relu_train`,
+    :func:`conv2d_train` and the ``x.dtype`` depthwise form (two roundings
+    in bf16, as the JAX package's default)."""
 
-    def conv(name, x, *, stride=1, padding="SAME", depthwise=False):
+    def conv(name, x, *, stride=1, padding="SAME", dilation=1, depthwise=False, relu=False):
         p = params[name]
         if depthwise:
             return depthwise_conv2d(x, p["w"], p["b"], stride, padding, f32_out=inference)
+        if relu:
+            return (conv_relu if inference else conv_relu_train)(p, x, stride, padding, dilation)
         if not inference:
-            return conv2d_train(x, p["w"], p["b"], stride, padding)
+            return conv2d_train(x, p["w"], p["b"], stride, padding, dilation)
         wb = p["wb"] if "wb" in p else widen_bias(p["w"].to(x.dtype), p["b"])
-        return conv2d_bias_in(x, wb, stride, padding)
+        return conv2d_bias_in(x, wb, stride, padding, dilation)
 
     return conv
 
@@ -254,6 +259,13 @@ def conv_relu(params, x, stride=1, padding="SAME", dilation=1):
     y = torch.cudnn_convolution_relu(xn, w, params["b"].float(), [stride, stride], list(pad),
                                      [dilation, dilation], 1)
     return y.permute(0, 2, 3, 1)
+
+
+def preprocess(images, config):
+    """uint8/float NHWC BGR images -> mean-subtracted compute-dtype tensor
+    (the subtraction in float32, then one rounding)."""
+    mean = torch.tensor(config.mean_bgr, dtype=torch.float32, device=images.device)
+    return (images.float() - mean).to(config.dtype)
 
 
 def relu6(x):

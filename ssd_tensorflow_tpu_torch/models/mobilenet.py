@@ -8,8 +8,7 @@ the outputs of blocks 11 (512 channels, stride 16) and 13 (1024, stride
 widths), stride and padding from the preset's map sizes: ``mobilenet320``
 has 6 maps, the test preset ``mntest64`` 3.
 
-The walk runs every convolution through an injected executor
-``conv(name, x, *, stride=1, padding="SAME", depthwise=False)`` as the
+The walk runs every convolution through an injected executor as the
 ResNet family's does (``models/resnet.py``); the ``depthwise`` flag lets
 the int8 executor keep the depthwise stencils weight-only quantized.
 """
@@ -18,9 +17,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from ssd_tensorflow_tpu_torch.models.layers import float_conv_executor, relu6
+from ssd_tensorflow_tpu_torch.models.layers import relu6
 from ssd_tensorflow_tpu_torch.models.resnet import (
-    check_maps,
     extra_geometry,
     group_norm,
     init_from_shapes,
@@ -45,6 +43,11 @@ TRUNK_TAP_CHANNELS = (512, 1024)
 #: extra pairs beyond the trunk taps: (1x1 reduce ch, 3x3 out ch); presets
 #: with fewer maps use a prefix
 EXTRA_DEFS = ((256, 512), (128, 256), (128, 256), (64, 128))
+
+#: the family protocol's facts, as the ResNet family's (``models/resnet.py``)
+PER_LAYER_SCALES = False
+RELU_IN_CONV = False
+stem = load_pretrained = None
 
 
 def map_channels(preset: SSDPreset):
@@ -107,9 +110,10 @@ def _gn_relu6(x, gn):
     return norm_act(x, gn, "relu6", norm=group_norm)
 
 
-def walk_feature_maps(params, x, preset: SSDPreset, conv):
-    """Preprocessed NHWC images -> the preset's multibox source maps, every
-    convolution through ``conv`` (see the module doc)."""
+def walk_feature_maps(params, x, config, conv):
+    """Preprocessed NHWC images -> the multibox source maps of
+    ``config.preset``, every convolution through ``conv`` (see the module
+    doc)."""
     x = _gn_relu6(conv("stem_conv", x, stride=2), params["stem_gn"])
     maps = []
     for i, (stride, _) in enumerate(BLOCKS, start=1):
@@ -117,15 +121,8 @@ def walk_feature_maps(params, x, preset: SSDPreset, conv):
         x = _gn_relu6(conv(f"b{i}_pw", x), params[f"b{i}_pw_gn"])
         if i in TAP_BLOCKS:
             maps.append(x)
-    for name, _, _, stride, padding in extra_layer_defs(preset):
+    for name, _, _, stride, padding in extra_layer_defs(config.preset):
         x = relu6(conv(name, x, stride=stride, padding=padding))
         if name.endswith("_2"):
             maps.append(x)
-    check_maps(maps, preset)
     return maps
-
-
-def apply_feature_maps(params, x, preset: SSDPreset, inference: bool = True):
-    """Preprocessed images -> the preset's multibox source maps through the
-    float executor (``layers.float_conv_executor``)."""
-    return walk_feature_maps(params, x, preset, float_conv_executor(params, inference))

@@ -6,10 +6,14 @@ The forward applies the rounding and clipping of the int8 deploy path
 gradients, so that SGD moves the weights to minima that survive int8:
 symmetric per-output-channel weights (the scale recomputed from the live
 weights every step) and static activation scales from a calibration of
-the float model. VGG quantizes every conv input with one scale per layer;
-the ResNet-34 / MobileNetV1 families quantize per input channel with the
-scale folded into the weights (``quantized.quantize_weights_folded``) and
-keep their depthwise convs weight-only. The forward is float32 from
+the float model. The forward is the family's walk and the heads
+(``ssd_vgg.walk_heads``) with the fake-quant conv executor
+(:func:`_fq_executor`). A family of per-layer scales (VGG,
+``PER_LAYER_SCALES``) quantizes every conv input with one scale per
+layer; the ResNet-34 / MobileNetV1 families quantize per input channel
+with the scale folded into the weights
+(``quantized.quantize_weights_folded``) and keep their depthwise convs
+weight-only. The forward is float32 from
 ``preprocess`` on, convolutions with TF32 off (``layers.full_float32``):
 the quantized values are small integers times scales, which bf16 or TF32
 would not hold.
@@ -37,12 +41,17 @@ import numpy as np
 import torch
 
 from ssd_tensorflow_tpu_torch.models import quantized
-from ssd_tensorflow_tpu_torch.models.layers import conv2d, depthwise_conv2d, full_float32
+from ssd_tensorflow_tpu_torch.models.layers import (
+    conv2d,
+    depthwise_conv2d,
+    full_float32,
+    preprocess,
+)
 from ssd_tensorflow_tpu_torch.models.ssd_vgg import (
     ModelConfig,
     _backbone_module,
     anchor_order,
-    preprocess,
+    walk_heads,
 )
 from ssd_tensorflow_tpu_torch.ops.boxes import true_div
 
@@ -83,78 +92,56 @@ def fake_quant_act(x, scale):
     return q.detach() + in_range * (x - x.detach())
 
 
-def _fq_conv(p, x, act_scale, stride=1, padding="SAME", dilation=1, relu=True):
-    """The float32 twin of ``quantized._qconv``: fake-quantized input and
-    filter, conv, ``+ b``, ReLU."""
-    xq = fake_quant_act(x, act_scale)
-    y = conv2d(xq, fake_quant_weight(p["w"].float()), None, stride, padding, dilation)
-    y = y + p["b"].float()
-    return torch.relu(y) if relu else y
+def _fq_conv(p, x, scale, stride=1, padding="SAME", dilation=1):
+    """The float32 twin of an int8 conv (``quantized._qconv_executor``),
+    ``+ b`` included. A per-layer ``scale`` (a number): fake-quantized
+    input and filter, conv. A per-input-channel ``scale`` (a tensor):
+    ``conv(fq_act(x, a), fq_w(w * a) / a)``, the scale ``a`` folded into
+    the filter before its per-output-channel fake quantization and divided
+    out after. Gradients: clipped STE through the activation, identity
+    through the weight."""
+    w = p["w"].float()
+    if torch.is_tensor(scale):
+        a = scale[None, :, None, None]
+        xq, wq = fake_quant_act(x.float(), scale), fake_quant_weight(w * a) / a
+    else:
+        xq, wq = fake_quant_act(x, scale), fake_quant_weight(w)
+    return conv2d(xq, wq, None, stride, padding, dilation) + p["b"].float()
 
 
-def qat_apply_model(params, images, config: ModelConfig, act_scales):
-    """Fake-quantized VGG forward -> ``(logits, locs)`` like
-    ``ssd_vgg.apply_model``: the int8 path's own walk
-    (``quantized._walk``: the pools, the dilated conv6, the conv12_1 pad,
-    the float L2-norm) with a fake-quant conv at each layer, then the
-    heads. ``act_scales`` maps every conv and head to its per-layer scale."""
-    x = preprocess(images, config).float()
+def _fq_executor(params, scales):
+    """The fake-quant conv executor of a family's walk and the heads: each
+    conv through :func:`_fq_conv` with ``scales[name]``, then its ReLU
+    where asked; depthwise convs with a weight-only fake-quantized filter
+    in float32 (the deploy path has no activation quantizer there)."""
 
-    def conv(name, x, stride=1, padding="SAME", dilation=1):
-        return _fq_conv(params[name], x, act_scales[name], stride, padding, dilation)
-
-    maps = quantized._walk(conv, x, params["l2_norm_conv4_3"]["scale"], config)
-    return _heads(maps, config, lambda i, fmap: _fq_conv(
-        params[f"classifier{i}"], fmap, act_scales[f"classifier{i}"], relu=False))
-
-
-def _heads(maps, config: ModelConfig, head):
-    """``head(i, map)`` of each map -> ``(logits, locs)`` in the anchor order."""
-    out = anchor_order([head(i, fmap) for i, fmap in enumerate(maps)], config)
-    return out[:, :, : config.num_classes + 1], out[:, :, config.num_classes + 1:]
-
-
-def _fq_conv_folded(p, x, a_scale, stride=1, padding="SAME"):
-    """The float32 twin of a family's int8 conv (``quantized._qconv_folded``):
-    ``conv(fq_act(x, a), fq_w(w * a) / a) + b``, the per-input-channel
-    activation scale ``a`` folded into the filter before its per-output
-    -channel fake quantization and divided out after. Gradients: clipped
-    STE through the activation, identity through the weight."""
-    a = a_scale[None, :, None, None]
-    xq = fake_quant_act(x.float(), a_scale)
-    wq = fake_quant_weight(p["w"].float() * a)
-    return conv2d(xq, wq / a, None, stride, padding) + p["b"].float()
-
-
-def _fq_family_executor(params, a_scales):
-    """The conv executor of a family's ``walk_feature_maps``: full and
-    pointwise convs through :func:`_fq_conv_folded`; depthwise convs with a
-    weight-only fake-quantized filter in float32 (the deploy path has no
-    activation quantizer there)."""
-
-    def conv(name, x, *, stride=1, padding="SAME", depthwise=False):
+    def conv(name, x, *, stride=1, padding="SAME", dilation=1, depthwise=False, relu=False):
         p = params[name]
         if depthwise:
             return depthwise_conv2d(x, fake_quant_weight(p["w"].float()), p["b"].float(), stride,
                                     padding)
-        return _fq_conv_folded(p, x, a_scales[name], stride, padding)
+        y = _fq_conv(p, x, scales[name], stride, padding, dilation)
+        return torch.relu(y) if relu else y
 
     return conv
 
 
-def qat_apply_model_family(params, images, config: ModelConfig, a_scales):
-    """Fake-quantized family forward -> ``(logits, locs)``: the family's
-    ``walk_feature_maps`` with :func:`_fq_family_executor`, GroupNorms and
-    activations in float32 between the convs, then the heads through the
-    folded quantizer. ``a_scales`` maps each quantized conv and head to its
-    per-input-channel scale (``amax / 127``) on the images' device."""
-    fam = _backbone_module(config.preset)
-    if fam is None:
-        raise ValueError(f"{config.preset_name} is a VGG preset: use qat_apply_model")
+def qat_apply_model(params, images, config: ModelConfig, act_scales):
+    """Fake-quantized forward -> ``(logits, locs)`` like
+    ``ssd_vgg.apply_model``: the family's walk and the heads with
+    :func:`_fq_executor` over the quantized walks' config
+    (``quantized.walk_config``), norms and activations in float32 between
+    the convs. ``act_scales`` maps every quantized conv and head to its
+    scale: a number per layer, or a per-input-channel tensor (``amax /
+    127``) on the images' device."""
     x = preprocess(images, config).float()
-    maps = fam.walk_feature_maps(params, x, config.preset, _fq_family_executor(params, a_scales))
-    return _heads(maps, config, lambda i, fmap: _fq_conv_folded(
-        params[f"classifier{i}"], fmap, a_scales[f"classifier{i}"]))
+    heads = walk_heads(params, x, quantized.walk_config(config), _fq_executor(params, act_scales))
+    out = anchor_order(heads, config)
+    return out[:, :, : config.num_classes + 1], out[:, :, config.num_classes + 1:]
+
+
+#: the JAX package's name of the family forward, the same function
+qat_apply_model_family = qat_apply_model
 
 
 def family_a_scales(act_amax) -> dict:
@@ -174,28 +161,24 @@ def make_qat_forward(model_cfg: ModelConfig, act_scales):
 
     Raises ``ValueError`` for a VGG config whose ``l2_norm_eps`` is below
     1e-6 (see :data:`QAT_L2_NORM_EPS`)."""
-    if _backbone_module(model_cfg.preset) is not None:
+    if _backbone_module(model_cfg.preset).PER_LAYER_SCALES:
+        if model_cfg.l2_norm_eps < MIN_L2_NORM_EPS:
+            raise ValueError(
+                f"QAT requires ModelConfig.l2_norm_eps >= {MIN_L2_NORM_EPS} (got "
+                f"{model_cfg.l2_norm_eps}): fake quantization zeroes whole conv4_3 pixel "
+                "vectors and rsqrt of a tiny eps explodes the backward; build the config with "
+                f"qat_model_config (l2_norm_eps={QAT_L2_NORM_EPS})")
+        host = {k: float(v) for k, v in act_scales.items()}
+    else:
         host = {k: torch.from_numpy(v) for k, v in family_a_scales(act_scales).items()}
-        staged = {}
-
-        def family_forward(params, images):
-            if images.device not in staged:
-                staged[images.device] = {k: v.to(images.device) for k, v in host.items()}
-            with full_float32(torch.float32):
-                return qat_apply_model_family(params, images, model_cfg, staged[images.device])
-
-        return family_forward
-    if model_cfg.l2_norm_eps < MIN_L2_NORM_EPS:
-        raise ValueError(
-            f"QAT requires ModelConfig.l2_norm_eps >= {MIN_L2_NORM_EPS} (got "
-            f"{model_cfg.l2_norm_eps}): fake quantization zeroes whole conv4_3 pixel vectors "
-            "and rsqrt of a tiny eps explodes the backward; build the config with "
-            f"qat_model_config (l2_norm_eps={QAT_L2_NORM_EPS})")
-    scales = {k: float(v) for k, v in act_scales.items()}
+    staged = {}
 
     def forward(params, images):
+        if images.device not in staged:
+            staged[images.device] = {k: v.to(images.device) if torch.is_tensor(v) else v
+                                     for k, v in host.items()}
         with full_float32(torch.float32):
-            return qat_apply_model(params, images, model_cfg, scales)
+            return qat_apply_model(params, images, model_cfg, staged[images.device])
 
     return forward
 
@@ -228,7 +211,8 @@ def qat_model_config(model_cfg: ModelConfig) -> ModelConfig:
 def qat_checkpoint_key(model_cfg: ModelConfig) -> str:
     """``qat_act_amax`` for a family (per-input-channel amax grids),
     ``qat_act_scales`` for VGG (per-layer scales): the units differ."""
-    return "qat_act_scales" if _backbone_module(model_cfg.preset) is None else "qat_act_amax"
+    return "qat_act_scales" if _backbone_module(model_cfg.preset).PER_LAYER_SCALES else \
+        "qat_act_amax"
 
 
 def qat_scales(params, model_cfg: ModelConfig, stored_config=None, calibration_images=None):

@@ -6,15 +6,19 @@ requantization, bf16 activations between layers: the JAX package's
 ``models/quantized.py`` on its unpacked stem (its width-packed int8 stem
 is a TPU lane layout with the same sums, and is off there too).
 
-VGG: every conv is quantized (trunk, the a-trous conv6/7, extras,
-multibox heads) with one activation scale per layer; the conv4_3
-L2-normalization runs in float between quantized convs. ResNet-34 and
-MobileNetV1 walk their module's ``walk_feature_maps`` with the int8 conv
-executor (:func:`_qconv_executor`): full and pointwise convs and the heads
-W8A8 with per-INPUT-channel activation scales folded into the weights
+Every family walks its module's ``walk_feature_maps`` and the heads
+(``ssd_vgg.walk_heads``) with the int8 conv executor
+(:func:`_qconv_executor`). The family's ``PER_LAYER_SCALES`` names its
+scheme. VGG (per layer): every conv is quantized (trunk, the a-trous
+conv6/7, extras, multibox heads) with one activation scale per layer; the
+conv4_3 L2-normalization runs in float between quantized convs. ResNet-34
+and MobileNetV1 (folded): full and pointwise convs and the heads W8A8 with
+per-INPUT-channel activation scales folded into the weights
 (:func:`quantize_weights_folded`), GroupNorms in float between them, and
 MobileNet's depthwise convs weight-only (the int8 filter dequantized to
-bf16, a bf16 stencil).
+bf16, a bf16 stencil). The quantized walks run VGG's conv6 a-trous
+whatever the config's ``a_trous`` (:func:`walk_config`), as the JAX
+package's do.
 
 The parameters are the port's q-param dict ``{layer: {"wq": (kh, kw, cin,
 cout) int8, "w_scale": (cout,) float32, "b": (cout,) float32}}`` (a
@@ -39,27 +43,24 @@ bf16.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ssd_tensorflow_tpu_torch import resolve_device
-from ssd_tensorflow_tpu_torch.models import vgg16
 from ssd_tensorflow_tpu_torch.models.layers import (
-    conv2d_train,
-    conv_relu,
     depthwise_conv2d,
+    float_conv_executor,
     full_float32,
-    l2_normalize_scale,
-    max_pool,
+    preprocess,
 )
 from ssd_tensorflow_tpu_torch.models.ssd_vgg import (
     ModelConfig,
     _backbone_module,
-    _extra_layer_defs,
     anchor_order,
-    preprocess,
     reduce_head_maps,
+    walk_heads,
 )
 from ssd_tensorflow_tpu_torch.ops.int8_conv import int8_qconv
 
@@ -134,82 +135,44 @@ def quantize_weights_folded(params, act_amax=None) -> dict:
     return q
 
 
-def _qconv(layer, x, stride=1, padding="SAME", dilation=1, relu=True):
-    """Quantize ``x`` with the layer's static scale, int8 conv, requantize:
-    ``bf16(act(sums * m + b))`` by ``ops/int8_conv.int8_qconv``. ``layer``
-    is one staged conv of ``weights.stage_qparams``."""
-    return int8_qconv(x.contiguous(), layer, stride, padding, dilation, relu)
-
-
-def _qconv_folded(layer, x, stride=1, padding="SAME"):
-    """A family conv: quantize with the per-channel scale, int8 conv,
-    ``bf16(sums * w_scale + b)`` (the scale is folded into the weights)."""
-    return _qconv(layer, x, stride, padding, relu=False)
+def walk_config(config: ModelConfig) -> ModelConfig:
+    """``config`` as the int8, calibration and QAT walks take it: conv6
+    a-trous (dilation 6) whatever ``a_trous`` says, as the JAX package's
+    ``quantized`` and ``qat`` walks."""
+    return config if config.a_trous else dataclasses.replace(config, a_trous=True)
 
 
 def _qconv_executor(staged):
-    """The int8 conv executor of a family's ``walk_feature_maps``: full and
-    pointwise convs W8A8 (:func:`_qconv_folded`); depthwise convs
-    weight-only, the staged bf16 dequantized filter (``float32(wq) *
-    w_scale`` rounded once) in the two-rounding bf16 stencil with the bias
-    in bf16, as the JAX package's executor."""
+    """The int8 conv executor of a family's walk and the heads: each W8A8
+    conv one call of ``ops/int8_conv.int8_qconv``, ``bf16(act(sums * m +
+    b))`` with the staged layer's ``inv`` (per layer, or per input channel
+    where the scale is folded into the weights, as
+    ``weights.stage_qparams`` staged it); depthwise convs weight-only, the
+    staged bf16 dequantized filter (``float32(wq) * w_scale`` rounded once)
+    in the two-rounding bf16 stencil with the bias in bf16, as the JAX
+    package's executor."""
 
-    def conv(name, x, *, stride=1, padding="SAME", depthwise=False):
+    def conv(name, x, *, stride=1, padding="SAME", dilation=1, depthwise=False, relu=False):
         layer = staged[name]
         if depthwise:
             return depthwise_conv2d(x, layer["w"], layer["b"], stride, padding)
-        return _qconv_folded(layer, x, stride, padding)
+        return int8_qconv(x.contiguous(), layer, stride, padding, dilation, relu)
 
     return conv
 
 
-def _walk(conv, x, l2_scale, config: ModelConfig):
-    """The VGG walk from the preprocessed batch ``x`` to the preset's
-    multibox source maps (NHWC), every convolution through ``conv(name,
-    x, stride=1, padding="SAME", dilation=1)``: the trunk with its pools,
-    the a-trous conv6 and conv7, the L2-normalized conv4_3, the extras."""
-    conv4_3 = None
-    for name, _ in vgg16.VGG_CONV_LAYERS:
-        x = conv(name, x)
-        if name == "conv4_3":
-            conv4_3 = x
-        if name in vgg16._POOL_AFTER:
-            x = max_pool(x, 2, 2)
-    x = max_pool(x, 3, 1)
-    x = conv("mod_conv6", x, dilation=6)
-    x = conv("mod_conv7", x)
-    maps = [l2_normalize_scale(conv4_3, l2_scale, eps=config.l2_norm_eps), x]
-    for name, _, _, stride, padding in _extra_layer_defs(config.preset.num_maps):
-        x = conv(name, x, stride, padding)
-        if name == "conv12_1":
-            x = F.pad(x, (0, 0, 0, 1, 0, 1))  # bottom/right zero pad before conv12_2
-        elif name.endswith("_2"):
-            maps.append(x)
-    return maps
-
-
-def _feature_maps_q(staged, images, config: ModelConfig):
-    """int8 backbone + extras -> the preset's multibox source maps (NHWC
-    bf16), from ``(B, H, W, 3)`` raw BGR images."""
+def _heads_q(staged, images, config: ModelConfig):
+    """int8 walk + heads of ``(B, H, W, 3)`` raw BGR images -> each map's
+    head conv output as float32."""
     x = preprocess(images, config).to(torch.bfloat16)
-    fam = _backbone_module(config.preset)
-    if fam is not None:
-        return fam.walk_feature_maps(staged, x, config.preset, _qconv_executor(staged))
-    return _walk(lambda name, x, *args, **kwargs: _qconv(staged[name], x, *args, **kwargs), x,
-                 staged["l2_norm_conv4_3"]["scale"], config)
-
-
-def _head_maps(staged, maps):
-    """Each map's multibox head conv, int8 without ReLU, as float32 (a
-    family's staged heads carry their folded per-channel scales)."""
-    return [_qconv(staged[f"classifier{i}"], fmap, relu=False).float()
-            for i, fmap in enumerate(maps)]
+    heads = walk_heads(staged, x, walk_config(config), _qconv_executor(staged))
+    return [y.float() for y in heads]
 
 
 def _forward(staged, images, config: ModelConfig):
     """Quantized forward -> ``(B, A, K+5)`` float32 result tensor
     (softmax over the K+1 class logits, then the 4 offsets)."""
-    out = anchor_order(_head_maps(staged, _feature_maps_q(staged, images, config)), config)
+    out = anchor_order(_heads_q(staged, images, config), config)
     k = config.num_classes + 1
     return torch.cat([torch.softmax(out[:, :, :k], dim=-1), out[:, :, k:]], dim=-1)
 
@@ -218,8 +181,7 @@ def _forward_scores(staged, images, config: ModelConfig):
     """int8 throughput head: per-anchor ``(conf, cls, locs)`` by the lazy
     softmax of ``ssd_vgg.reduce_head_maps``; feed to
     ``ops/postprocess.decode_scores``."""
-    maps = _feature_maps_q(staged, images, config)
-    return reduce_head_maps(_head_maps(staged, maps), config)
+    return reduce_head_maps(_heads_q(staged, images, config), config)
 
 
 def percentile_of(a, q: float, dim=None):
@@ -255,48 +217,52 @@ def percentile_of(a, q: float, dim=None):
         v_high * torch.tensor(w_high, device=a.device)
 
 
+def _record_conv_inputs(params, images, config: ModelConfig, inference: bool, record):
+    """A float32 walk + heads of ``images`` through the float executor
+    (``layers.float_conv_executor(params, inference)``), calling
+    ``record(name, x)`` on the input of every conv the int8 route
+    quantizes (the depthwise convs are weight-only)."""
+    inner = float_conv_executor(params, inference)
+
+    def conv(name, x, *, depthwise=False, **kwargs):
+        if not depthwise:
+            record(name, x)
+        return inner(name, x, depthwise=depthwise, **kwargs)
+
+    with torch.inference_mode():
+        walk_heads(params, preprocess(images, config).float(), walk_config(config), conv)
+
+
 def calibrate_activation_scales(params, images, config: ModelConfig,
                                 percentile: float = 100.0, batch_size: int = 8) -> dict:
-    """Float32 forwards of the port's float VGG ``params`` over the
+    """Float32 forwards of the port's float ``params`` (the inference
+    executor's convs, as the JAX package's per-layer calibration) over the
     calibration ``images`` recording each conv input's amplitude ->
-    ``{conv: amp / 127 + 1e-12}``, the static activation scales. The
-    amplitude is max |x| (``percentile=100``) or the ``percentile`` of |x|
-    over the chunk's tensor (:func:`percentile_of`). Runs on the images'
-    device with TF32 off; ``batch_size`` images at a time, each scale the
-    max over the chunks, as the JAX package's."""
+    ``{conv: amp / 127 + 1e-12}``, the static per-layer activation scales.
+    The amplitude is max |x| (``percentile=100``) or the ``percentile`` of
+    |x| over the chunk's tensor (:func:`percentile_of`). Runs on the
+    images' device with TF32 off; ``batch_size`` images at a time, each
+    scale the max over the chunks, as the JAX package's."""
     images = torch.as_tensor(images)
     out = None
     with full_float32(torch.float32):
         for off in range(0, images.shape[0], batch_size):
-            chunk = _calibrate_one_batch(params, images[off:off + batch_size], config, percentile)
+            amps = {}
+
+            def record(name, x):
+                a = x.abs()
+                amps[name] = a.amax() if percentile >= 100 else percentile_of(a, percentile)
+
+            _record_conv_inputs(params, images[off:off + batch_size], config, True, record)
+            chunk = {k: float(v) / 127.0 + 1e-12 for k, v in amps.items()}
             out = chunk if out is None else {k: max(out[k], chunk[k]) for k in out}
     return out
 
 
-def _amplitude(x, pct: float):
-    a = x.abs()
-    return a.amax() if pct >= 100 else percentile_of(a, pct)
-
-
-def _calibrate_one_batch(params, images, config: ModelConfig, pct: float) -> dict:
-    amps = {}
-
-    def conv(name, x, stride=1, padding="SAME", dilation=1):
-        amps[name] = _amplitude(x, pct)
-        return conv_relu(params[name], x, stride, padding, dilation)
-
-    with torch.inference_mode():
-        maps = _walk(conv, preprocess(images, config).float(),
-                     params["l2_norm_conv4_3"]["scale"], config)
-        for i, fmap in enumerate(maps):
-            amps[f"classifier{i}"] = _amplitude(fmap, pct)
-    return {k: float(v) / 127.0 + 1e-12 for k, v in amps.items()}
-
-
 def calibrate_activation_amax(params, images, config: ModelConfig,
                               percentile: float = 100.0, batch_size: int = 8) -> dict:
-    """Per-INPUT-channel |x| amplitudes of every quantized family conv and
-    head -> ``{conv: (cin,) float32 numpy}`` for
+    """Per-INPUT-channel |x| amplitudes of every quantized conv and head
+    -> ``{conv: (cin,) float32 numpy}`` for
     :func:`quantize_weights_folded`: float32 forwards of the port's float
     ``params`` (the training executor's conv-then-bias, as the JAX
     package's calibration walk) recording each conv input; depthwise convs
@@ -311,44 +277,25 @@ def calibrate_activation_amax(params, images, config: ModelConfig,
     out = None
     with full_float32(torch.float32):
         for off in range(0, images.shape[0], batch_size):
-            chunk = _calibrate_amax_one_batch(params, images[off:off + batch_size], config,
-                                              percentile)
+            amax = {}
+
+            def record(name, x):
+                a = x.float().abs().reshape(-1, x.shape[-1])
+                amax[name] = (a.amax(dim=0) if percentile >= 100
+                              else percentile_of(a, percentile, dim=0))
+
+            _record_conv_inputs(params, images[off:off + batch_size], config, False, record)
+            chunk = {k: v.cpu().numpy() for k, v in amax.items()}
             out = chunk if out is None else {k: np.maximum(out[k], chunk[k]) for k in out}
     return out
-
-
-def _calibrate_amax_one_batch(params, images, config: ModelConfig, pct: float) -> dict:
-    fam = _backbone_module(config.preset)
-    if fam is None:
-        raise ValueError(f"{config.preset_name} is a VGG preset: it calibrates per tensor "
-                         "(calibrate_activation_scales)")
-    amax = {}
-
-    def record(name, x):
-        a = x.float().abs().reshape(-1, x.shape[-1])
-        amax[name] = a.amax(dim=0) if pct >= 100 else percentile_of(a, pct, dim=0)
-
-    def conv(name, x, *, stride=1, padding="SAME", depthwise=False):
-        p = params[name]
-        if depthwise:
-            return depthwise_conv2d(x, p["w"], p["b"], stride, padding)
-        record(name, x)
-        return conv2d_train(x, p["w"], p["b"], stride, padding)
-
-    with torch.inference_mode():
-        maps = fam.walk_feature_maps(params, preprocess(images, config).float(), config.preset,
-                                     conv)
-        for i, fmap in enumerate(maps):
-            record(f"classifier{i}", fmap)
-    return {k: v.cpu().numpy() for k, v in amax.items()}
 
 
 class QuantizedModel:
     """Post-training-quantized deployable model: calibrates on
     ``calibration_images`` (uint8 NHWC), quantizes ``params`` and stages
-    both on ``device``. A VGG model gets per-layer activation scales; a
-    family model per-channel maxima folded into its q-params, and
-    ``act_scales`` is ``{}`` (what marks its bundle int8)."""
+    both on ``device``. A family of per-layer scales (VGG) gets them as
+    ``act_scales``; the others per-channel maxima folded into their
+    q-params, and ``act_scales`` is ``{}`` (what marks its bundle int8)."""
 
     def __init__(self, params, config: ModelConfig, calibration_images,
                  percentile: float = 100.0, device="cuda"):
@@ -359,14 +306,14 @@ class QuantizedModel:
         on_device = {name: {k: v.to(self.device) for k, v in leaf.items()}
                      for name, leaf in params.items()}
         images = torch.as_tensor(calibration_images).to(self.device)
-        if _backbone_module(config.preset) is not None:
-            amax = calibrate_activation_amax(on_device, images, config, percentile=percentile)
-            self.qparams = quantize_weights_folded(params, amax)
-            self.act_scales = {}
-        else:
+        if _backbone_module(config.preset).PER_LAYER_SCALES:
             self.qparams = quantize_weights(params)
             self.act_scales = calibrate_activation_scales(on_device, images, config,
                                                           percentile=percentile)
+        else:
+            amax = calibrate_activation_amax(on_device, images, config, percentile=percentile)
+            self.qparams = quantize_weights_folded(params, amax)
+            self.act_scales = {}
         self.staged = stage_qparams(self.qparams, self.act_scales, self.device)
 
     def result(self, images):

@@ -9,14 +9,15 @@ sizes. The multibox source maps are the layer2/3/4 outputs (strides 8, 16,
 ``rtest64`` 4.
 
 The walk (:func:`walk_feature_maps`) runs every convolution through an
-injected executor ``conv(name, x, *, stride=1, padding="SAME") -> y``
-(conv + bias only), so the float path (``layers.float_conv_executor``),
-the int8 path and its calibration (``models/quantized.py``) walk one
-structure. GroupNorm, ReLU and the skips run here, in the executor's
-output dtype: :func:`norm_act` takes each GroupNorm with the activation
-and the skip after it, in one launch of ``csrc/group_norm.cu`` where the
-route rule (``ops/group_norm_cuda.engages``) lets it, else as
-:func:`group_norm` and the plain activation.
+injected executor (conv + bias only; ``models/ssd_vgg.py`` documents the
+family protocol), so the float and training routes
+(``layers.float_conv_executor``), the int8 route and its calibration
+(``models/quantized.py``) and QAT (``models/qat.py``) walk one structure.
+GroupNorm, ReLU and the skips run here, in the executor's output dtype:
+:func:`norm_act` takes each GroupNorm with the activation and the skip
+after it, in one launch of ``csrc/group_norm.cu`` where the route rule
+(``ops/group_norm_cuda.engages``) lets it, else as :func:`group_norm`
+and the plain activation.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ssd_tensorflow_tpu_torch.models.layers import float_conv_executor, init_conv, max_pool, relu6
+from ssd_tensorflow_tpu_torch.models.layers import init_conv, max_pool, relu6
 from ssd_tensorflow_tpu_torch.ops.group_norm_cuda import engages, group_norm_cuda
 from ssd_tensorflow_tpu_torch.presets import SSDPreset
 from ssd_tensorflow_tpu_torch.utils.profiling import counted_span, span
@@ -39,6 +40,15 @@ TRUNK_TAP_CHANNELS = (128, 256, 512)
 EXTRA_CHANNELS = 256
 
 GN_GROUPS = 32
+
+#: int8 activation scales: per input channel, folded into the weights
+#: (``quantized.quantize_weights_folded``)
+PER_LAYER_SCALES = False
+#: a GroupNorm sits between each conv and its activation, so every
+#: inference conv carries its bias in (``layers.conv2d_bias_in``)
+RELU_IN_CONV = False
+#: no stem kernel, and no pretrained import for the train CLI's ``--vgg-dir``
+stem = load_pretrained = None
 
 
 def map_channels(preset: SSDPreset):
@@ -206,9 +216,10 @@ def _block(params, name, x, stride, conv):
     return norm_act(y, params[f"{name}_gn2"], "relu", skip=skip)
 
 
-def walk_feature_maps(params, x, preset: SSDPreset, conv):
-    """Preprocessed NHWC images -> the preset's multibox source maps, every
-    convolution through ``conv`` (see the module doc)."""
+def walk_feature_maps(params, x, config, conv):
+    """Preprocessed NHWC images -> the multibox source maps of
+    ``config.preset``, every convolution through ``conv`` (see the module
+    doc)."""
     x = norm_act(conv("stem_conv", x, stride=2), params["stem_gn"], "relu")
     x = max_pool(x, 3, 2)
     maps = []
@@ -217,26 +228,8 @@ def walk_feature_maps(params, x, preset: SSDPreset, conv):
             x = _block(params, f"s{si}b{bi}", x, stride if bi == 0 else 1, conv)
         if si >= 1:  # layer2/3/4 outputs are the trunk taps
             maps.append(x)
-    for name, _, _, stride, padding in extra_layer_defs(preset):
+    for name, _, _, stride, padding in extra_layer_defs(config.preset):
         x = torch.relu(conv(name, x, stride=stride, padding=padding))
         if name.endswith("_2"):
             maps.append(x)
-    check_maps(maps, preset)
     return maps
-
-
-def check_maps(maps, preset: SSDPreset):
-    """Raise unless ``maps`` are the preset's maps, in number and size."""
-    if len(maps) != preset.num_maps:
-        raise AssertionError(f"{preset.name}: walked {len(maps)} maps, the preset has "
-                             f"{preset.num_maps}")
-    for m, pm in zip(maps, preset.maps):
-        if tuple(m.shape[1:3]) != (pm.size.h, pm.size.w):
-            raise AssertionError(f"{preset.name}: a map of {tuple(m.shape[1:3])}, the preset "
-                                 f"says {pm.size.h}x{pm.size.w}")
-
-
-def apply_feature_maps(params, x, preset: SSDPreset, inference: bool = True):
-    """Preprocessed images -> the preset's multibox source maps through the
-    float executor (``layers.float_conv_executor``)."""
-    return walk_feature_maps(params, x, preset, float_conv_executor(params, inference))

@@ -1,32 +1,45 @@
 """The SSD detector: configuration, parameters and forward pass.
 
 Three backbone families, chosen by the preset's ``backbone``: VGG-16
-(below), ResNet-34 (``models/resnet.py``) and MobileNetV1
+(``models/vgg16.py``), ResNet-34 (``models/resnet.py``) and MobileNetV1
 (``models/mobilenet.py``); the heads, the anchor order and everything
-after them are family-generic.
+after them are family-generic: one wide 3x3 multibox head conv per
+source map, whose output channels are the per-shape heads concatenated.
+Outputs follow the anchor-order contract of ``ops/anchors.py``:
+heads-major, then row-major cells.
 
-VGG architecture: VGG-16 trunk -> a-trous conv6/conv7 -> extra layers
-conv8..11 (+12 for 7-map presets) -> the L2-normalized conv4_3 plus 5-6
-more feature maps -> one wide 3x3 multibox head conv per map, whose
-output channels are the per-shape heads concatenated. Outputs follow the
-anchor-order contract of ``ops/anchors.py``: heads-major, then row-major
-cells.
+The family protocol. Each family module (:func:`_backbone_module`, the
+one place that maps a backbone name to its code) exposes
+``map_channels(preset)``, ``backbone_shapes(preset)``,
+``init_backbone_params(rng, preset)`` and ``walk_feature_maps(params, x,
+config, conv)``, the one walk of its layers from the preprocessed images
+to the multibox source maps, and the facts the routes ask of it:
+``PER_LAYER_SCALES`` (int8 activation scales one per layer, or per input
+channel folded into the weights), ``RELU_IN_CONV`` (each walked conv
+carries its ReLU), ``stem`` (the bf16 inference route's stem kernel,
+after which the walk starts from pool1, or None) and ``load_pretrained``
+(or None). The walk runs every convolution, and :func:`walk_heads` every
+head, through a route's conv executor ``conv(name, x, *, stride=1,
+padding="SAME", dilation=1, depthwise=False, relu=False)``: the float
+and training routes' ``layers.float_conv_executor``, the int8 route's
+``quantized._qconv_executor`` and its calibration's recorder, QAT's
+``qat._fq_executor``; tensor parallelism wraps the float one
+(``parallel/tensor_parallel.ModelShards.conv_executor``).
 
 Parameters are a nested dict ``{layer: {"w": OIHW, "b": (cout,)}}`` plus
-``{"l2_norm_conv4_3": {"scale": (512,)}}``; ``weights.params_from_jax``
-converts the JAX package's HWIO dict into it.
+the family's other leaves (VGG's ``{"l2_norm_conv4_3": {"scale":
+(512,)}}``, the GroupNorms); ``weights.params_from_jax`` converts the JAX
+package's HWIO dict into it.
 
-A bf16 inference forward always runs a stem kernel
+A bf16 inference forward of a family with a ``stem`` always runs it
 (``ops/stem_cuda.py``): the split stem (conv1_1 as a convolution,
 conv1_2 + pool1 as a kernel) or, with ``pallas_stem_variant="uint8"``,
 the whole stem from the raw uint8 image; a float32 forward runs the conv1
-block as plain convolutions. A family forward runs no stem kernel: its
-walk takes the float conv executor (``layers.float_conv_executor``), one
-rounding per conv + bias on the inference route. The training forward
-(``apply_model(..., inference=False)``) runs no kernel without a
-derivative: every conv is ``layers.conv2d_train``, conv1 included. A
-float32 forward on the card runs its convs in full float32, TF32 off
-(``layers.full_float32``).
+block as plain convolutions. The inference route rounds once per conv +
+bias. The training forward (``apply_model(..., inference=False)``) runs
+no kernel without a derivative: every conv is ``layers.conv2d_train``,
+conv1 included. A float32 forward on the card runs its convs in full
+float32, TF32 off (``layers.full_float32``).
 """
 
 from __future__ import annotations
@@ -36,18 +49,13 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from ssd_tensorflow_tpu_torch.models import vgg16
+from ssd_tensorflow_tpu_torch.models import mobilenet, resnet, vgg16
 from ssd_tensorflow_tpu_torch.models.layers import (
-    conv2d_bias_in,
-    conv2d_train,
-    conv_relu,
-    conv_relu_train,
     float_conv_executor,
     full_float32,
     init_conv,
-    l2_normalize_scale,
+    preprocess,
     widen_bias,
 )
 from ssd_tensorflow_tpu_torch.presets import SSDPreset, get_preset_by_name
@@ -55,8 +63,9 @@ from ssd_tensorflow_tpu_torch.presets import SSDPreset, get_preset_by_name
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 #: the stem kernels a bf16 VGG forward may run (``ModelConfig.pallas_stem_variant``)
 STEM_VARIANTS = ("dma", "uint8")
-#: the backbone families a preset may name
-BACKBONES = ("vgg", "resnet34", "mobilenetv1")
+#: the family module of each backbone a preset may name
+_FAMILIES = {"vgg": vgg16, "resnet34": resnet, "mobilenetv1": mobilenet}
+BACKBONES = tuple(_FAMILIES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,7 +104,7 @@ class ModelConfig:
         if self.preset.backbone not in BACKBONES:
             raise ValueError(f"preset {self.preset_name!r}: unknown backbone "
                              f"{self.preset.backbone!r}, expected one of {BACKBONES}")
-        if self.pallas_stem_variant != "dma" and self.preset.backbone != "vgg":
+        if self.pallas_stem_variant != "dma" and _backbone_module(self.preset).stem is None:
             raise ValueError(
                 f"pallas_stem_variant={self.pallas_stem_variant!r} selects a VGG conv1-block "
                 f"kernel; preset {self.preset_name!r} uses backbone {self.preset.backbone!r}"
@@ -127,74 +136,22 @@ class ModelConfig:
         return self.num_classes + 5
 
 
-def _extra_layer_defs(num_maps: int):
-    """Extra feature layers ``(name, out_ch, kernel, stride, padding)``.
-
-    conv10_2 differs between 6- and 7-map presets; presets with fewer
-    maps use a truncated prefix of the chain.
-    """
-    stride10, padding10 = (2, "SAME") if num_maps >= 7 else (1, "VALID")
-    defs = [
-        ("conv8_1", 256, 1, 1, "SAME"),
-        ("conv8_2", 512, 3, 2, "SAME"),
-        ("conv9_1", 128, 1, 1, "SAME"),
-        ("conv9_2", 256, 3, 2, "SAME"),
-        ("conv10_1", 128, 1, 1, "SAME"),
-        ("conv10_2", 256, 3, stride10, padding10),
-        ("conv11_1", 128, 1, 1, "SAME"),
-        ("conv11_2", 256, 3, 1, "VALID"),
-    ][: 2 * (num_maps - 2)]
-    if num_maps >= 7:
-        defs += [
-            ("conv12_1", 128, 1, 1, "SAME"),  # + bottom/right zero pad
-            ("conv12_2", 256, 3, 1, "VALID"),
-        ]
-    return defs
-
-
-#: input channels of each multibox source map (VGG family)
-#: [norm_conv4_3, mod_conv7, conv8_2, conv9_2, conv10_2, conv11_2, (conv12_2)]
-_MAP_CHANNELS = (512, 1024, 512, 256, 256, 256, 256)
-
-
 def _backbone_module(preset: SSDPreset):
-    """The family module of a non-VGG preset (``models/resnet.py`` or
-    ``models/mobilenet.py``), or None for the VGG family. Each exposes
-    ``map_channels``, ``backbone_shapes``, ``init_backbone_params`` and
-    ``walk_feature_maps``."""
-    if preset.backbone == "resnet34":
-        from ssd_tensorflow_tpu_torch.models import resnet
-
-        return resnet
-    if preset.backbone == "mobilenetv1":
-        from ssd_tensorflow_tpu_torch.models import mobilenet
-
-        return mobilenet
-    return None
+    """The family module of ``preset`` (``models/vgg16.py``,
+    ``models/resnet.py`` or ``models/mobilenet.py``; see the module doc)."""
+    return _FAMILIES[preset.backbone]
 
 
 def map_channels(preset: SSDPreset):
     """Head-input channel count per multibox source map, per family."""
-    fam = _backbone_module(preset)
-    if fam is not None:
-        return fam.map_channels(preset)
-    return _MAP_CHANNELS[: preset.num_maps]
+    return _backbone_module(preset).map_channels(preset)
 
 
 def param_shapes(config: ModelConfig) -> dict:
     """``{layer: {leaf: shape}}`` of every parameter, convolutions in the
     JAX package's HWIO layout (the bundle's and the conversion's layout)."""
     preset = config.preset
-    fam = _backbone_module(preset)
-    if fam is not None:
-        shapes = fam.backbone_shapes(preset)
-    else:
-        shapes = {name: {"b": (s[3],), "w": s} for name, s in vgg16.vgg_param_shapes().items()}
-        shapes["l2_norm_conv4_3"] = {"scale": (512,)}
-        cin = 1024
-        for name, cout, ksize, _, _ in _extra_layer_defs(preset.num_maps):
-            shapes[name] = {"b": (cout,), "w": (ksize, ksize, cin, cout)}
-            cin = cout
+    shapes = _backbone_module(preset).backbone_shapes(preset)
     for i, (m, c) in enumerate(zip(preset.maps, map_channels(preset))):
         co = m.num_shapes * config.num_vars
         shapes[f"classifier{i}"] = {"b": (co,), "w": (3, 3, c, co)}
@@ -207,16 +164,7 @@ def init_params(config: ModelConfig, seed: int = 0) -> dict:
     separate ``3x3xCx(K+5)`` conv, then the heads of a map are concatenated."""
     rng = np.random.default_rng(seed)
     preset = config.preset
-    fam = _backbone_module(preset)
-    if fam is not None:
-        params = fam.init_backbone_params(rng, preset)
-    else:
-        params = vgg16.init_vgg_params(rng)
-        params["l2_norm_conv4_3"] = {"scale": torch.full((512,), 20.0)}
-        cin = 1024
-        for name, cout, ksize, _, _ in _extra_layer_defs(preset.num_maps):
-            params[name] = init_conv(rng, ksize, ksize, cin, cout)
-            cin = cout
+    params = _backbone_module(preset).init_backbone_params(rng, preset)
     for i, (m, c) in enumerate(zip(preset.maps, map_channels(preset))):
         heads = [init_conv(rng, 3, 3, c, config.num_vars) for _ in range(m.num_shapes)]
         params[f"classifier{i}"] = {
@@ -226,64 +174,45 @@ def init_params(config: ModelConfig, seed: int = 0) -> dict:
     return params
 
 
-def preprocess(images, config: ModelConfig):
-    """uint8/float NHWC BGR images -> mean-subtracted compute-dtype tensor
-    (the subtraction in float32, then one rounding)."""
-    mean = torch.tensor(config.mean_bgr, dtype=torch.float32, device=images.device)
-    return (images.float() - mean).to(config.dtype)
+def walk_heads(params, x, config: ModelConfig, conv, **entry):
+    """The family's walk of ``x`` (``walk_feature_maps(params, x, config,
+    conv, **entry)``), then each source map's multibox head conv
+    ``conv(f"classifier{i}", map)`` (no ReLU) through the same executor:
+    ``(B, h, w, ns * (K+5))`` NHWC each. Raises unless the walk gave the
+    preset's maps, in number and size."""
+    preset = config.preset
+    maps = _backbone_module(preset).walk_feature_maps(params, x, config, conv, **entry)
+    if len(maps) != preset.num_maps:
+        raise AssertionError(f"{preset.name}: walked {len(maps)} maps, the preset has "
+                             f"{preset.num_maps}")
+    for m, pm in zip(maps, preset.maps):
+        if tuple(m.shape[1:3]) != (pm.size.h, pm.size.w):
+            raise AssertionError(f"{preset.name}: a map of {tuple(m.shape[1:3])}, the preset "
+                                 f"says {pm.size.h}x{pm.size.w}")
+    return [conv(f"classifier{i}", fmap) for i, fmap in enumerate(maps)]
 
 
-def _backbone(params, images, config: ModelConfig, train: bool = False, shards=None):
-    """Preprocess + VGG trunk -> (conv4_3, mod_conv7), NHWC. The uint8
-    stem preprocesses inside its kernel, from images cast to uint8 as in
-    the JAX package. A float32 forward and the training forward (``train``)
-    run the conv1 block as plain convolutions. ``shards``: conv6 / conv7
-    tensor-parallel (``vgg16.apply_backbone``)."""
-    if train or config.dtype != torch.bfloat16:
-        return vgg16.apply_backbone(params, preprocess(images, config), config.a_trous,
-                                    train=train, shards=shards)
-    if config.pallas_stem_variant == "uint8":
-        pool1 = vgg16.conv1_block_uint8(params, images.to(torch.uint8), config.mean_bgr)
-    else:
-        pool1 = vgg16.conv1_block(params, preprocess(images, config))
-    return vgg16.apply_backbone(params, pool1, config.a_trous, from_pool1=True, shards=shards)
-
-
-def _extra_maps(params, conv4_3, x, config: ModelConfig, train: bool = False):
-    """L2-normalized conv4_3, mod_conv7 and the extra layers -> the
-    preset's multibox source maps (NHWC)."""
-    conv = conv_relu_train if train else conv_relu
-    maps = [
-        l2_normalize_scale(conv4_3, params["l2_norm_conv4_3"]["scale"], eps=config.l2_norm_eps),
-        x,
-    ]
-    for name, _, _, stride, padding in _extra_layer_defs(config.preset.num_maps):
-        x = conv(params[name], x, stride, padding)
-        if name == "conv12_1":
-            x = F.pad(x, (0, 0, 0, 1, 0, 1))  # bottom/right zero pad before conv12_2
-        elif name.endswith("_2"):
-            maps.append(x)
-    if len(maps) != config.preset.num_maps:
-        raise AssertionError((len(maps), config.preset.num_maps))
-    return maps
-
-
-def _feature_maps(params, images, config: ModelConfig, train: bool = False, shards=None):
-    """Backbone + extra layers -> the preset's multibox source maps (NHWC).
-    A family walks its module's ``walk_feature_maps`` with the float conv
-    executor: the inference one, or with ``train`` the training one."""
+def _float_heads(params, images, config: ModelConfig, inference: bool = True, shards=None):
+    """:func:`walk_heads` of ``(B, H, W, 3)`` raw BGR images through the
+    float executor (``layers.float_conv_executor``): the inference one or
+    the training one. A bf16 inference forward of a family with a stem
+    kernel walks from the kernel's pool1. ``shards``: conv6 / conv7
+    tensor-parallel (``parallel/tensor_parallel.ModelShards``)."""
     fam = _backbone_module(config.preset)
-    if fam is not None:
-        return fam.walk_feature_maps(params, preprocess(images, config), config.preset,
-                                     float_conv_executor(params, inference=not train))
-    return _extra_maps(params, *_backbone(params, images, config, train, shards), config, train)
+    conv = float_conv_executor(params, inference)
+    if shards is not None:
+        conv = shards.conv_executor(conv, params)
+    if inference and config.dtype == torch.bfloat16 and fam.stem is not None:
+        return walk_heads(params, fam.stem(params, images, config), config, conv, from_pool1=True)
+    return walk_heads(params, preprocess(images, config), config, conv)
 
 
 def bias_in_layers(params, config: ModelConfig):
     """The layers whose inference conv carries its bias in as input
-    channels (``layers.conv2d_bias_in``): every multibox head, and for a
-    family every conv but the depthwise ones."""
-    if _backbone_module(config.preset) is None:
+    channels (``layers.conv2d_bias_in``): every multibox head, and where
+    the family's walked convs carry no ReLU (``RELU_IN_CONV``) every conv
+    but the depthwise ones."""
+    if _backbone_module(config.preset).RELU_IN_CONV:
         return [name for name in params if name.startswith("classifier")]
     return [name for name, p in params.items()
             if "w" in p and not name.endswith("_dw")]
@@ -297,26 +226,6 @@ def stage_conv_weights(params, config: ModelConfig):
     for name in bias_in_layers(params, config):
         params[name]["wb"] = widen_bias(params[name]["w"], params[name]["b"])
     return params
-
-
-def _head_maps(params, maps, config: ModelConfig, train: bool = False):
-    """Each map's multibox head conv: ``(B, h, w, ns * (K+5))`` NHWC,
-    ``dtype(conv_f32 + b_f32)`` rounded once (``layers.conv2d_bias_in``).
-    Uses the staged ``"wb"`` filter where ``stage_conv_weights`` put one.
-    ``train``: the training conv, the bias added in the compute dtype."""
-    out = []
-    for i, (fmap, m) in enumerate(zip(maps, config.preset.maps)):
-        hp = params[f"classifier{i}"]
-        if train:
-            y = conv2d_train(fmap, hp["w"], hp["b"])
-        else:
-            wb = hp["wb"] if "wb" in hp else widen_bias(hp["w"].to(fmap.dtype), hp["b"])
-            y = conv2d_bias_in(fmap, wb)
-        if y.shape[1:3] != (m.size.h, m.size.w):
-            raise AssertionError(f"map {i}: got {tuple(y.shape[1:3])}, preset says "
-                                 f"{m.size.h}x{m.size.w}")
-        out.append(y)
-    return out
 
 
 def apply_model(params, images, config: ModelConfig, *, inference: bool = True, shards=None):
@@ -334,10 +243,8 @@ def apply_model(params, images, config: ModelConfig, *, inference: bool = True, 
     ``shards`` (a ``parallel/tensor_parallel.ModelShards``): ``params``
     hold this process's shard of conv6 / conv7, run tensor-parallel.
     """
-    train = not inference
     with full_float32(config.dtype):
-        maps = _feature_maps(params, images, config, train, shards)
-        heads = _head_maps(params, maps, config, train)
+        heads = _float_heads(params, images, config, inference, shards)
     out = anchor_order(heads, config).float()
     return out[:, :, : config.num_classes + 1], out[:, :, config.num_classes + 1 :]
 
@@ -368,8 +275,7 @@ def apply_scores(params, images, config: ModelConfig):
     ``(B, A, 4)`` float32 in the anchor-order contract.
     """
     with full_float32(config.dtype):
-        maps = _feature_maps(params, images, config)
-        return reduce_head_maps(_head_maps(params, maps, config), config)
+        return reduce_head_maps(_float_heads(params, images, config), config)
 
 
 def reduce_head_maps(head_maps, config: ModelConfig):

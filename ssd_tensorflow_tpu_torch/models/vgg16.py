@@ -1,13 +1,28 @@
-"""VGG-16 trunk with the a-trous conv6/conv7, on NHWC tensors, and the
-import of pretrained VGG-16 weights with the fc6/fc7 decimation."""
+"""The VGG-16 SSD backbone: the VGG-16 trunk, the a-trous conv6/conv7 and
+the extra layers conv8..11 (+12 for 7-map presets) on NHWC tensors, and
+the import of pretrained VGG-16 weights with the fc6/fc7 decimation.
+
+The multibox source maps are the L2-normalized conv4_3, conv7 and the
+second conv of each extra pair. The walk (:func:`walk_feature_maps`)
+runs every convolution through an injected executor as the ResNet-34 and
+MobileNetV1 walks do (``models/ssd_vgg.py`` documents the family
+protocol); each of VGG's convs carries its ReLU.
+"""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ssd_tensorflow_tpu_torch.models.layers import conv_relu, conv_relu_train, init_conv, max_pool
+from ssd_tensorflow_tpu_torch.models.layers import (
+    init_conv,
+    l2_normalize_scale,
+    max_pool,
+    preprocess,
+)
 from ssd_tensorflow_tpu_torch.ops import stem_cuda
+from ssd_tensorflow_tpu_torch.presets import SSDPreset
 
 #: (name, out_channels) of the 13 conv layers; pools follow each block.
 VGG_CONV_LAYERS = (
@@ -28,6 +43,47 @@ VGG_CONV_LAYERS = (
 
 _POOL_AFTER = {"conv1_2", "conv2_2", "conv3_3", "conv4_3"}
 
+#: input channels of each multibox source map
+#: [norm_conv4_3, mod_conv7, conv8_2, conv9_2, conv10_2, conv11_2, (conv12_2)]
+_MAP_CHANNELS = (512, 1024, 512, 256, 256, 256, 256)
+
+#: int8 activation scales: one per layer (``quantized.calibrate_activation_scales``)
+PER_LAYER_SCALES = True
+#: every conv of the walk carries its ReLU, so the float inference route
+#: runs them as ``layers.conv_relu`` and only the heads carry their bias in
+RELU_IN_CONV = True
+
+
+def map_channels(preset: SSDPreset):
+    """Head-input channel count per multibox source map."""
+    return _MAP_CHANNELS[: preset.num_maps]
+
+
+def extra_layer_defs(preset: SSDPreset):
+    """Extra feature layers ``(name, out_ch, kernel, stride, padding)``.
+
+    conv10_2 differs between 6- and 7-map presets; presets with fewer
+    maps use a truncated prefix of the chain.
+    """
+    num_maps = preset.num_maps
+    stride10, padding10 = (2, "SAME") if num_maps >= 7 else (1, "VALID")
+    defs = [
+        ("conv8_1", 256, 1, 1, "SAME"),
+        ("conv8_2", 512, 3, 2, "SAME"),
+        ("conv9_1", 128, 1, 1, "SAME"),
+        ("conv9_2", 256, 3, 2, "SAME"),
+        ("conv10_1", 128, 1, 1, "SAME"),
+        ("conv10_2", 256, 3, stride10, padding10),
+        ("conv11_1", 128, 1, 1, "SAME"),
+        ("conv11_2", 256, 3, 1, "VALID"),
+    ][: 2 * (num_maps - 2)]
+    if num_maps >= 7:
+        defs += [
+            ("conv12_1", 128, 1, 1, "SAME"),  # + bottom/right zero pad
+            ("conv12_2", 256, 3, 1, "VALID"),
+        ]
+    return defs
+
 
 def vgg_param_shapes() -> dict:
     """``{name: (kh, kw, cin, cout)}`` of the trunk's convolutions."""
@@ -41,9 +97,25 @@ def vgg_param_shapes() -> dict:
     return shapes
 
 
-def init_vgg_params(rng: np.random.Generator) -> dict:
-    """Xavier init of the 13 conv layers + mod_conv6/7 (OIHW tensors)."""
-    return {name: init_conv(rng, *shape) for name, shape in vgg_param_shapes().items()}
+def backbone_shapes(preset: SSDPreset) -> dict:
+    """``{layer: {leaf: shape}}`` of the trunk, the conv4_3 L2-norm scale
+    and the extras in init order, filters HWIO (the bundle's layout)."""
+    shapes = {name: {"b": (s[3],), "w": s} for name, s in vgg_param_shapes().items()}
+    shapes["l2_norm_conv4_3"] = {"scale": (512,)}
+    cin = 1024
+    for name, cout, ksize, _, _ in extra_layer_defs(preset):
+        shapes[name] = {"b": (cout,), "w": (ksize, ksize, cin, cout)}
+        cin = cout
+    return shapes
+
+
+def init_backbone_params(rng: np.random.Generator, preset: SSDPreset) -> dict:
+    """Xavier convolutions with zero biases (OIHW) drawn from ``rng`` in
+    the order of :func:`backbone_shapes`, the L2-norm scale at 20 (heads
+    live with ``ssd_vgg.init_params``)."""
+    return {name: (init_conv(rng, *leaves["w"]) if "w" in leaves
+                   else {"scale": torch.full(leaves["scale"], 20.0)})
+            for name, leaves in backbone_shapes(preset).items()}
 
 
 def conv1_block(params, x):
@@ -62,38 +134,44 @@ def conv1_block_uint8(params, images, mean_bgr):
     return stem_cuda.fused_stem_uint8(params, images, mean_bgr)
 
 
-def apply_backbone(params, x, a_trous: bool = True, from_pool1: bool = False,
-                   train: bool = False, shards=None):
-    """VGG-16 trunk -> (conv4_3 relu, mod_conv7 relu), NHWC.
+def stem(params, images, config):
+    """pool1 of the bf16 inference route from raw ``(B, H, W, 3)`` BGR
+    images by the stem kernel ``config.pallas_stem_variant`` names:
+    ``"uint8"`` the whole stem from the images cast to uint8, as in the JAX
+    package, ``"dma"`` the split stem (:func:`conv1_block`) from the
+    preprocessed batch. The walk then starts from pool1."""
+    if config.pallas_stem_variant == "uint8":
+        return conv1_block_uint8(params, images.to(torch.uint8), config.mean_bgr)
+    return conv1_block(params, preprocess(images, config))
 
-    pool5 is 3x3 stride-1 SAME; conv6 is the rate-6 dilated conv.
-    ``from_pool1=True`` means ``x`` is already pool1's output and the
-    conv1 block is skipped. ``train=True`` runs every conv through the
-    differentiable training conv (``layers.conv_relu_train``), the conv1
-    block included, as plain convolutions and a pool: the JAX package's
-    training forward never takes a stem kernel.
 
-    ``shards`` (a ``parallel/tensor_parallel.ModelShards``) says that
-    ``params`` hold this process's shard of conv6 / conv7
-    (``parallel/sharding.shard_params``): conv6 then runs column-parallel
-    and conv7 row-parallel over its ``model`` group, on either route.
-    """
-    conv = conv_relu_train if train else conv_relu
+def walk_feature_maps(params, x, config, conv, from_pool1: bool = False):
+    """Preprocessed NHWC images (with ``from_pool1``, pool1's output) ->
+    the preset's multibox source maps, every convolution through ``conv``
+    with its ReLU (``relu=True``): the trunk with a 2x2 pool after each
+    block, pool5 3x3 stride 1, conv6 dilated 6 where ``config.a_trous``
+    (else 1), conv7, the extras (conv12_1 zero-padded at the bottom and
+    right); the maps are the L2-normalized conv4_3, conv7 and each extra
+    pair's second conv."""
     conv4_3 = None
-    for name, _ in VGG_CONV_LAYERS:
-        if from_pool1 and name in ("conv1_1", "conv1_2"):
-            continue
-        x = conv(params[name], x)
+    for name, _ in VGG_CONV_LAYERS[2 if from_pool1 else 0:]:
+        x = conv(name, x, relu=True)
         if name == "conv4_3":
             conv4_3 = x
         if name in _POOL_AFTER:
             x = max_pool(x, 2, 2)
     x = max_pool(x, 3, 1)
-    if shards is None:
-        x = conv(params["mod_conv6"], x, dilation=6 if a_trous else 1)
-        return conv4_3, conv(params["mod_conv7"], x)
-    x = conv(params["mod_conv6"], shards.copy_in(x), dilation=6 if a_trous else 1)
-    return conv4_3, shards.row_conv_relu(params["mod_conv7"], x)
+    x = conv("mod_conv6", x, dilation=6 if config.a_trous else 1, relu=True)
+    x = conv("mod_conv7", x, relu=True)
+    maps = [l2_normalize_scale(conv4_3, params["l2_norm_conv4_3"]["scale"],
+                               eps=config.l2_norm_eps), x]
+    for name, _, _, stride, padding in extra_layer_defs(config.preset):
+        x = conv(name, x, stride=stride, padding=padding, relu=True)
+        if name == "conv12_1":
+            x = F.pad(x, (0, 0, 0, 1, 0, 1))  # bottom/right zero pad before conv12_2
+        elif name.endswith("_2"):
+            maps.append(x)
+    return maps
 
 
 def decimate_fc6(fc6_w: np.ndarray, fc6_b: np.ndarray):
@@ -145,3 +223,8 @@ def load_pretrained_vgg(npz_path: str, params: dict) -> dict:
         else:
             print("[!] pretrained archive has no fc6/fc7; keeping random init")
     return out
+
+
+#: the pretrained import that the train CLI's ``--vgg-dir`` bootstrap lays
+#: over a new model (a family without one has None)
+load_pretrained = load_pretrained_vgg

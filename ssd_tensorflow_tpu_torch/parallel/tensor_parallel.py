@@ -20,8 +20,9 @@ pass, collective included, in the same order on every process.
 
 The model code imports none of this: the train and eval steps hand it a
 :class:`ModelShards` of the mesh the state was sharded on
-(``models/vgg16.apply_backbone``'s and ``models/loss.l2_regularizer``'s
-``shards``).
+(``models/ssd_vgg.apply_model``'s and ``models/loss.l2_regularizer``'s
+``shards``), and the forward runs its float conv executor through
+:meth:`ModelShards.conv_executor`, where this sharding rule lives.
 """
 
 from __future__ import annotations
@@ -88,6 +89,20 @@ class ModelShards:
     def sum(self, x):
         """The float32 sum of ``x`` over the group."""
         return reduce_from_model(x, self.group)
+
+    def conv_executor(self, conv, params):
+        """The conv executor ``conv`` (``layers.float_conv_executor``) over
+        this process's shards: conv6's input through :meth:`copy_in`, then
+        ``conv``; conv7 :meth:`row_conv_relu`; every other layer ``conv``."""
+
+        def tp_conv(name, x, **kwargs):
+            if name == "mod_conv6":
+                return conv(name, self.copy_in(x), **kwargs)
+            if name == "mod_conv7":
+                return self.row_conv_relu(params[name], x)
+            return conv(name, x, **kwargs)
+
+        return tp_conv
 
     def row_conv_relu(self, layer, x):
         """conv7 of this process's input-channel shard: the bias-free

@@ -154,7 +154,7 @@ def test_wrapper_checks_raise_without_building(case):
         gnc.group_norm_cuda(x, scale, bias, groups, act=act, skip=skip)
 
 
-def _old_resnet_walk(params, x, preset, conv):
+def _old_resnet_walk(params, x, cfg, conv):
     """``resnet.walk_feature_maps`` as it was written before ``norm_act``:
     every GroupNorm alone, then ``torch.relu`` and the skip add."""
     gn = resnet.group_norm
@@ -172,14 +172,14 @@ def _old_resnet_walk(params, x, preset, conv):
             x = torch.relu(y + skip)
         if si >= 1:
             maps.append(x)
-    for name, _, _, stride, padding in resnet.extra_layer_defs(preset):
+    for name, _, _, stride, padding in resnet.extra_layer_defs(cfg.preset):
         x = torch.relu(conv(name, x, stride=stride, padding=padding))
         if name.endswith("_2"):
             maps.append(x)
     return maps
 
 
-def _old_mobilenet_walk(params, x, preset, conv):
+def _old_mobilenet_walk(params, x, cfg, conv):
     """``mobilenet.walk_feature_maps`` as it was written before ``norm_act``."""
     gn = resnet.group_norm
     x = layers.relu6(gn(conv("stem_conv", x, stride=2), params["stem_gn"]))
@@ -190,7 +190,7 @@ def _old_mobilenet_walk(params, x, preset, conv):
         x = layers.relu6(gn(conv(f"b{i}_pw", x), params[f"b{i}_pw_gn"]))
         if i in mobilenet.TAP_BLOCKS:
             maps.append(x)
-    for name, _, _, stride, padding in mobilenet.extra_layer_defs(preset):
+    for name, _, _, stride, padding in mobilenet.extra_layer_defs(cfg.preset):
         x = layers.relu6(conv(name, x, stride=stride, padding=padding))
         if name.endswith("_2"):
             maps.append(x)
@@ -228,7 +228,7 @@ def test_walks_keep_their_bits(preset_name, dtype):
         for key, walk in (("new", fam.walk_feature_maps), ("old", old)):
             with mock.patch.object(resnet, "group_norm", recording(key)), \
                     mock.patch.object(mobilenet, "group_norm", recording(key)):
-                maps[key] = walk(params, x, cfg.preset, conv)
+                maps[key] = walk(params, x, cfg, conv)
     got, want = maps["new"], maps["old"]
     assert order["new"] == order["old"] and len(order["new"]) == {"r": 36, "m": 27}[preset_name[0]]
     assert len(got) == len(want) == cfg.preset.num_maps

@@ -53,7 +53,9 @@ def test_int8_qconv_cpu_route_is_the_chain(name, shape, k, cout, stride, padding
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     assert torch.equal(got, want)
     # the model's conv is this call
-    assert torch.equal(quantized._qconv(layer, x, stride, padding, dilation, relu), want)
+    conv = quantized._qconv_executor({name: layer})
+    got = conv(name, x, stride=stride, padding=padding, dilation=dilation, relu=relu)
+    assert torch.equal(got, want)
 
 
 def test_int8_qconv_does_not_count_on_the_cpu():

@@ -113,7 +113,7 @@ def test_mobilenet320_map_shapes():
     cfg = ssd_vgg.ModelConfig(preset_name="mobilenet320", num_classes=20, compute_dtype="float32")
     img = torch.from_numpy(fc.images(0, 1, 320))
     with torch.no_grad():
-        maps = ssd_vgg._feature_maps(ssd_vgg.init_params(cfg), img, cfg)
+        maps = fc.port_maps(ssd_vgg.init_params(cfg), img, cfg)
     assert [tuple(m.shape) for m in maps] == [
         (1, m.size.h, m.size.w, c) for m, c in zip(cfg.preset.maps, ssd_vgg.map_channels(cfg.preset))]
     assert all(torch.isfinite(m).all() for m in maps)

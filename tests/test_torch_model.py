@@ -5,6 +5,7 @@ Tolerance: 1e-4 relative to the largest magnitude of the reference —
 both sides accumulate in float32 but in different orders.
 """
 
+import dataclasses
 from unittest import mock
 
 import jax
@@ -165,7 +166,7 @@ def test_head_weights_are_staged_once():
         assert torch.equal(hp["wb"], layers.widen_bias(hp["w"], hp["b"]))
         assert "wb" not in params[f"classifier{i}"]
     img = torch.from_numpy(rng.integers(0, 255, (1, 64, 64, 3), dtype=np.uint8))
-    with mock.patch.object(ssd_vgg, "widen_bias", side_effect=AssertionError("not staged")):
+    with mock.patch.object(layers, "widen_bias", side_effect=AssertionError("not staged")):
         staged = ssd_vgg.apply_scores(model.params, img, cfg)
     for got, want in zip(staged, ssd_vgg.apply_scores(params, img, cfg)):
         assert torch.equal(got, want)
@@ -214,12 +215,21 @@ def test_param_shapes_match_jax_init():
 
 
 def test_apply_backbone_matches_jax(rng):
-    _, jp, _, tp = _f32_models("test64")
+    """The VGG walk's conv4_3 (before its L2-norm) and conv7 against JAX's
+    ``vgg16.apply_backbone``."""
+    _, jp, tcfg, tp = _f32_models("test64")
     x = rng.normal(0, 30, (2, 64, 64, 3)).astype(np.float32)
     jc4, jx = jax_vgg16.apply_backbone(jp, jnp.asarray(x))
-    tc4, tx = vgg16.apply_backbone(tp, torch.from_numpy(x))
-    _close(tc4, jc4)
-    _close(tx, jx)
+    taps, conv = {}, layers.float_conv_executor(tp)
+
+    def tapped(name, x, **kwargs):
+        taps[name] = conv(name, x, **kwargs)
+        return taps[name]
+
+    maps = vgg16.walk_feature_maps(tp, torch.from_numpy(x), tcfg, tapped)
+    _close(taps["conv4_3"], jc4)
+    _close(maps[1], jx)
+    assert maps[1] is taps["mod_conv7"]
 
 
 @pytest.mark.parametrize("preset,batch", [("test64", 2), ("vgg300", 1)])
@@ -277,7 +287,76 @@ def test_non_vgg_presets_wait():
         assert ssd_vgg._backbone_module(cfg.preset).__name__.endswith(f".{module}")
         with pytest.raises(ValueError, match="VGG conv1-block"):
             ssd_vgg.ModelConfig(preset_name=preset, pallas_stem_variant="uint8")
-    assert ssd_vgg._backbone_module(ssd_vgg.ModelConfig(preset_name="vgg512").preset) is None
+    assert ssd_vgg._backbone_module(ssd_vgg.ModelConfig(preset_name="vgg512").preset) is vgg16
+
+
+def _recording(calls, conv):
+    """``conv`` (a route's executor) recording each call as ``(name,
+    stride, padding, dilation, depthwise, relu)`` in ``calls``."""
+
+    def rec(name, x, *, stride=1, padding="SAME", dilation=1, depthwise=False, relu=False):
+        calls.append((name, stride, padding, dilation, depthwise, relu))
+        return conv(name, x, stride=stride, padding=padding, dilation=dilation,
+                    depthwise=depthwise, relu=relu)
+
+    return rec
+
+
+def _recorded(module, factory, run):
+    """The executor calls ``run()`` makes through ``module.factory``."""
+    calls, real = [], getattr(module, factory)
+    with mock.patch.object(module, factory,
+                           lambda *a, **k: _recording(calls, real(*a, **k))):
+        run()
+    return calls
+
+
+@pytest.mark.parametrize("preset", ["test64", "rtest64", "mntest64"])
+def test_every_route_walks_the_same_graph(preset):
+    """The float inference, training, int8, fake-quant and calibration
+    forwards each make, through their own conv executor, the calls of the
+    family's one walk and heads (``ssd_vgg.walk_heads`` with a recording
+    float executor): the same layers in the same order with the same
+    stride, padding, dilation, depthwise flag and ReLU. A bf16 inference
+    forward of a family with a stem kernel starts the walk after it."""
+    from ssd_tensorflow_tpu_torch.inference import InferenceModel
+    from ssd_tensorflow_tpu_torch.models import qat, quantized
+
+    cfg = ssd_vgg.ModelConfig(preset_name=preset, num_classes=3, compute_dtype="float32")
+    params = ssd_vgg.init_params(cfg, seed=4)
+    img = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (1, 64, 64, 3),
+                                                             dtype=np.uint8))
+    walk = []
+    with torch.no_grad():
+        ssd_vgg.walk_heads(params, ssd_vgg.preprocess(img, cfg), cfg,
+                           _recording(walk, layers.float_conv_executor(params)))
+    assert [c[0] for c in walk[-cfg.preset.num_maps:]] == [
+        f"classifier{i}" for i in range(cfg.preset.num_maps)]
+    fam = ssd_vgg._backbone_module(cfg.preset)
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    qcfg = qat.qat_model_config(cfg)
+    act = (quantized.calibrate_activation_scales if fam.PER_LAYER_SCALES
+           else quantized.calibrate_activation_amax)(params, img, cfg)
+    qmodel = quantized.QuantizedModel(params, bf16, img, device="cpu")
+    routes = {
+        "inference": (ssd_vgg, "float_conv_executor",
+                      lambda: ssd_vgg.apply_scores(params, img, cfg)),
+        "train": (ssd_vgg, "float_conv_executor",
+                  lambda: ssd_vgg.apply_model(params, img, cfg, inference=False)),
+        "int8": (quantized, "_qconv_executor",
+                 lambda: quantized._forward_scores(qmodel.staged, img, bf16)),
+        "fake_quant": (qat, "_fq_executor",
+                       lambda: qat.make_qat_forward(qcfg, act)(params, img)),
+        "calibration": (quantized, "float_conv_executor",
+                        lambda: quantized.QuantizedModel(params, bf16, img, device="cpu")),
+        "bf16_inference": (ssd_vgg, "float_conv_executor",
+                           lambda: InferenceModel(params, bf16, device="cpu").forward_scores(img)),
+    }
+    for route, (module, factory, run) in routes.items():
+        with torch.no_grad():
+            got = _recorded(module, factory, run)
+        want = walk[2:] if route == "bf16_inference" and fam.stem is not None else walk
+        assert got == want, route
 
 
 @pytest.mark.parametrize("cin", [512, 1024], ids=["K4608", "K9216"])

@@ -183,7 +183,8 @@ def test_qconv_matches_jax(model, layer, hw, stride, padding, dilation, relu):
     xt = torch.from_numpy(np.asarray(xb, np.float32)).to(torch.bfloat16)
     np.testing.assert_array_equal(ic.quantize(xt, staged[layer]["inv"]).numpy(),
                                   np.asarray(want_xq))
-    got = tq._qconv(staged[layer], xt, stride, padding, dilation, relu)
+    got = tq._qconv_executor(staged)(layer, xt, stride=stride, padding=padding,
+                                     dilation=dilation, relu=relu)
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     _bf16_step_close(got.float().numpy(), np.asarray(want, np.float32))
 

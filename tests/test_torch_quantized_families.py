@@ -232,7 +232,7 @@ def test_qconv_folded_matches_jax(layer, hw, stride, padding):
         jnp.asarray(xq.numpy()), jqp["wq"], (stride, stride), padding,
         dimension_numbers=jq._DIMNUMS, preferred_element_type=jnp.int32)
     np.testing.assert_array_equal(sums.numpy(), np.asarray(want_sums))
-    got = tq._qconv_folded(staged[layer], xt, stride, padding)
+    got = tq._qconv_executor(staged)(layer, xt, stride=stride, padding=padding)
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.float().numpy(), want)
 

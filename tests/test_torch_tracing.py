@@ -99,7 +99,7 @@ def test_qconv_spans_quantize_and_requant_once():
              "b": torch.linspace(-0.5, 0.5, 16)}
     x = xq.float().to(torch.bfloat16)
     with _cpu_profile() as prof:
-        quantized._qconv(layer, x)
+        quantized._qconv_executor({"conv": layer})("conv", x, relu=True)
     assert [n for n, _, _ in _spans(prof, "ssd.int8.")] == ["ssd.int8.quantize",
                                                              "ssd.int8.requant"]
 

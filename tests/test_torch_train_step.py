@@ -40,7 +40,7 @@ from ssd_tensorflow_tpu.ops.anchors import anchors_for_preset
 from ssd_tensorflow_tpu.ops.postprocess import DetectionConfig as JaxDetectionConfig
 from ssd_tensorflow_tpu.parallel import train_step as jax_ts
 from ssd_tensorflow_tpu.presets import get_preset_by_name
-from ssd_tensorflow_tpu_torch.models import ssd_vgg
+from ssd_tensorflow_tpu_torch.models import layers, ssd_vgg
 from ssd_tensorflow_tpu_torch.ops.postprocess import DetectionConfig
 from ssd_tensorflow_tpu_torch.parallel import train_step
 from ssd_tensorflow_tpu_torch.weights import params_from_jax, params_to_jax
@@ -114,7 +114,7 @@ def test_training_forward_takes_no_stem_kernel_and_has_gradients(setup):
     params = {n: {k: v.requires_grad_() for k, v in d.items()}
               for n, d in params_from_jax(jp).items()}
     with mock.patch.object(stem_cuda, "fused_stem", side_effect=AssertionError("stem")), \
-            mock.patch.object(ssd_vgg, "widen_bias", side_effect=AssertionError("widen_bias")):
+            mock.patch.object(layers, "widen_bias", side_effect=AssertionError("widen_bias")):
         logits, locs = ssd_vgg.apply_model(params, torch.from_numpy(batch["images"]), tcfg.model,
                                            inference=False)
     (logits.sum() + locs.sum()).backward()

@@ -16,7 +16,7 @@ from ssd_tensorflow_tpu.ops.anchors import anchors_for_preset
 from ssd_tensorflow_tpu.ops.postprocess import DetectionConfig as JaxDetectionConfig
 from ssd_tensorflow_tpu.parallel import train_step as jax_ts
 from ssd_tensorflow_tpu_torch import inference
-from ssd_tensorflow_tpu_torch.models import ssd_vgg
+from ssd_tensorflow_tpu_torch.models import layers, ssd_vgg
 from ssd_tensorflow_tpu_torch.ops.postprocess import DetectionConfig
 from ssd_tensorflow_tpu_torch.parallel import train_step
 from ssd_tensorflow_tpu_torch.weights import params_from_jax, params_to_jax
@@ -59,6 +59,15 @@ def rel(got, want):
     return float(np.abs(got - want).max()) / max(float(np.abs(want).max()), 1e-30)
 
 
+def port_maps(params, images, cfg, inference_route: bool = True):
+    """The port's family walk of raw images through the float executor
+    (``layers.float_conv_executor``): the inference one, or the training
+    one; the multibox source maps, without the heads."""
+    return ssd_vgg._backbone_module(cfg.preset).walk_feature_maps(
+        params, ssd_vgg.preprocess(images, cfg), cfg,
+        layers.float_conv_executor(params, inference=inference_route))
+
+
 def feature_maps(preset: str, dtype: str, inference_route: bool, seed: int = 0):
     """``(JAX maps, port maps)`` as float32 numpy, the same weights and
     images; the JAX side with ``f32_out`` = ``inference_route``."""
@@ -68,8 +77,7 @@ def feature_maps(preset: str, dtype: str, inference_route: bool, seed: int = 0):
     want = jax.jit(lambda p, x: jax_ssd._feature_maps(p, x, jcfg, inference=inference_route))(
         jp, img)
     with torch.no_grad():
-        got = ssd_vgg._feature_maps(params_from_jax(jp), torch.from_numpy(img), tcfg,
-                                    train=not inference_route)
+        got = port_maps(params_from_jax(jp), torch.from_numpy(img), tcfg, inference_route)
     return ([np.asarray(m, np.float32) for m in want], [m.float().numpy() for m in got])
 
 

@@ -21,8 +21,9 @@ object (and writes it to ``--out``):
 * ``stages``: each layer of the path timed alone with CUDA events on the
   inputs the path gives it, in ms per batch. Float path: preprocess +
   conv1_1 and the split stem kernel, or the whole uint8 stem kernel; the
-  rest of the VGG trunk, L2-norm + extras, heads + lazy softmax, top-k +
-  decode + clamp, class shift + the NMS kernel, compaction. int8 path:
+  rest of the VGG walk (trunk from conv2_1, L2-norm, extras), heads + lazy
+  softmax, top-k + decode + clamp, class shift + the NMS kernel,
+  compaction. int8 path:
   preprocess, ``int8_conv`` (every trunk and extra conv's call of the
   fused kernel, ``ops/int8_conv.int8_qconv``, timed alone); then pools
   + L2-norm (VGG) or GroupNorm with its activation and skip add
@@ -88,7 +89,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 def _stages(model, images):
     """``{stage: ms}`` for each layer of the path, in path order: the
     functions ``run_scores`` calls, each timed alone on its inputs."""
-    from ssd_tensorflow_tpu_torch.models import ssd_vgg, vgg16
+    from ssd_tensorflow_tpu_torch.models import layers, ssd_vgg, vgg16
     from ssd_tensorflow_tpu_torch.ops import postprocess, stem_cuda
     from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
 
@@ -107,11 +108,11 @@ def _stages(model, images):
                    lambda: stem_cuda.conv1_1_unbiased(p, ssd_vgg.preprocess(images, cfg)))
         pool1 = timed("stem_kernel", lambda: stem_cuda.fused_stem(
             c1, p["conv1_1"]["b"], p["conv1_2"]["w"], p["conv1_2"]["b"]))
-    conv4_3, x7 = timed("trunk_conv2_to_conv7",
-                        lambda: vgg16.apply_backbone(p, pool1, cfg.a_trous, from_pool1=True))
-    maps = timed("l2norm_extras", lambda: ssd_vgg._extra_maps(p, conv4_3, x7, cfg))
+    conv = layers.float_conv_executor(p)
+    maps = timed("walk_conv2_to_extras",
+                 lambda: vgg16.walk_feature_maps(p, pool1, cfg, conv, from_pool1=True))
     conf, cls, locs = timed("heads_lazy_softmax", lambda: ssd_vgg.reduce_head_maps(
-        ssd_vgg._head_maps(p, maps, cfg), cfg))
+        [conv(f"classifier{i}", m) for i, m in enumerate(maps)], cfg))
     boxes, conf_top, cls_top, valid = timed("topk_decode_clamp", lambda: (
         postprocess._candidates_from_scores(conf, cls, locs, model.anchors, det)))
     keep = timed("class_shift_nms_kernel", lambda: postprocess._keep(boxes, cls_top, valid, det))
@@ -120,8 +121,8 @@ def _stages(model, images):
 
 
 def _int8_stages(model, images):
-    """``{stage: ms}`` of the int8 path: every ``_qconv``, and the pools and
-    the L2-norm (VGG) or the GroupNorms and depthwise convs (families), of
+    """``{stage: ms}`` of the int8 path: every ``int8_qconv``, and the pools
+    and the L2-norm (VGG) or the GroupNorms and depthwise convs (families), of
     one forward recorded with its inputs, each step then timed alone (see
     the module doc; conv12_1's pad of a 2 x 2 map is left out)."""
     import contextlib
@@ -129,7 +130,7 @@ def _int8_stages(model, images):
     import torch
     from unittest import mock
 
-    from ssd_tensorflow_tpu_torch.models import quantized, ssd_vgg
+    from ssd_tensorflow_tpu_torch.models import quantized, ssd_vgg, vgg16
     from ssd_tensorflow_tpu_torch.ops import int8_conv as ic
     from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
 
@@ -137,9 +138,9 @@ def _int8_stages(model, images):
     family = model.config.preset.backbone != "vgg"
     heads_of = {id(layer) for name, layer in model.params.items() if name.startswith("classifier")}
 
-    def rec_qconv(layer, x, stride=1, padding="SAME", dilation=1, relu=True):
+    def rec_qconv(x, layer, stride=1, padding="SAME", dilation=1, relu=True):
         convs.append((layer, x, stride, padding, dilation, relu))
-        return real_qconv(layer, x, stride, padding, dilation, relu)
+        return real_qconv(x, layer, stride, padding, dilation, relu)
 
     def rec(fn):
         def wrapper(*a, **k):
@@ -147,18 +148,17 @@ def _int8_stages(model, images):
             return fn(*a, **k)
         return wrapper
 
-    real_qconv = quantized._qconv
+    real_qconv = quantized.int8_qconv
     with contextlib.ExitStack() as stack:
-        stack.enter_context(mock.patch.object(quantized, "_qconv", rec_qconv))
+        stack.enter_context(mock.patch.object(quantized, "int8_qconv", rec_qconv))
         if family:
             for patch in _family_patches(family_calls, int8=True):
                 stack.enter_context(patch)
         else:
-            stack.enter_context(mock.patch.object(quantized, "max_pool", rec(quantized.max_pool)))
-            stack.enter_context(mock.patch.object(quantized, "l2_normalize_scale",
-                                                  rec(quantized.l2_normalize_scale)))
-        maps = quantized._feature_maps_q(model.params, images, model.config)
-        quantized._head_maps(model.params, maps)
+            stack.enter_context(mock.patch.object(vgg16, "max_pool", rec(vgg16.max_pool)))
+            stack.enter_context(mock.patch.object(vgg16, "l2_normalize_scale",
+                                                  rec(vgg16.l2_normalize_scale)))
+        quantized._forward_scores(model.params, images, model.config)
     cfg = model.config
     out = {"preprocess": cuda_event_ms(lambda: ssd_vgg.preprocess(images, cfg).to(torch.bfloat16))}
     for key in ("int8_conv", "heads_lazy_softmax"):
@@ -181,7 +181,7 @@ def _int8_stages(model, images):
         out["pools_l2norm"] = sum(cuda_event_ms(lambda f=f, a=a, k=k: f(*a, **k))
                                   for f, a, k in glue)
     conf, cls, locs = ssd_vgg.reduce_head_maps(heads, cfg)
-    del maps, heads, convs, glue, family_calls
+    del heads, convs, glue, family_calls
     _decode_stages(model, conf, cls, locs, out)
     return out
 
@@ -195,7 +195,8 @@ def _recorder(calls, kind, fn):
 
 def _family_patches(calls, int8: bool):
     """Patches that record, in ``calls``, a family forward's GroupNorms,
-    depthwise convs and (float path) bias-in convs with their inputs."""
+    depthwise convs and (float path) bias-in convs with their inputs, a
+    head's (the executor's ``classifier*`` layers) as heads."""
     from unittest import mock
 
     from ssd_tensorflow_tpu_torch.models import layers, mobilenet, quantized, resnet, ssd_vgg
@@ -206,13 +207,27 @@ def _family_patches(calls, int8: bool):
     if int8:
         patches.append(mock.patch.object(quantized, "depthwise_conv2d", _recorder(
             calls, "depthwise", quantized.depthwise_conv2d)))
-    else:
-        patches += [mock.patch.object(layers, "depthwise_conv2d", _recorder(
-                        calls, "depthwise", layers.depthwise_conv2d)),
-                    mock.patch.object(layers, "conv2d_bias_in", _recorder(
-                        calls, "bias_in_convs", layers.conv2d_bias_in)),
-                    mock.patch.object(ssd_vgg, "conv2d_bias_in", _recorder(
-                        calls, "heads_lazy_softmax", layers.conv2d_bias_in))]
+        return patches
+    layer, executor, bias_in = [""], layers.float_conv_executor, layers.conv2d_bias_in
+
+    def named_executor(params, inference=True):
+        conv = executor(params, inference)
+
+        def named(name, x, **kwargs):
+            layer[0] = name
+            return conv(name, x, **kwargs)
+
+        return named
+
+    def rec_bias_in(*a, **k):
+        kind = "heads_lazy_softmax" if layer[0].startswith("classifier") else "bias_in_convs"
+        calls.append((kind, bias_in, a, k))
+        return bias_in(*a, **k)
+
+    patches += [mock.patch.object(layers, "depthwise_conv2d", _recorder(
+                    calls, "depthwise", layers.depthwise_conv2d)),
+                mock.patch.object(layers, "conv2d_bias_in", rec_bias_in),
+                mock.patch.object(ssd_vgg, "float_conv_executor", named_executor)]
     return patches
 
 
@@ -251,8 +266,7 @@ def _family_float_stages(model, images):
     with contextlib.ExitStack() as stack:
         for patch in _family_patches(calls, int8=False):
             stack.enter_context(patch)
-        maps = ssd_vgg._feature_maps(model.params, images, cfg)
-        heads = ssd_vgg._head_maps(model.params, maps, cfg)
+        heads = ssd_vgg._float_heads(model.params, images, cfg)
     out = {"preprocess": cuda_event_ms(lambda: ssd_vgg.preprocess(images, cfg))}
     _timed_calls(calls, out)
     out["heads_lazy_softmax"] += cuda_event_ms(lambda: ssd_vgg.reduce_head_maps(heads, cfg))
