@@ -48,9 +48,12 @@ non-zero, and the final line is printed only when every phase passed:
    on 2 images must equal the card chain's (``int8_qconv_plain``:
    quantize, im2col + ``_int_mm``, requant) on the same input bit for bit;
    the counted run must launch ``int8_qconv`` once a conv layer (32), the
-   im2col route never, NMS, and no stem kernel; its scores must be the
-   same in two runs and identical to the same model's with ``int8_qconv``
-   patched to the chain, be finite and give 0..200 detections per image;
+   im2col route never, NMS, and no stem kernel; two more ``run_scores``
+   must capture the forward's CUDA graph once and replay it twice
+   (``inference.forward_graph``), each with the counted run's detections
+   bit for bit; its (replayed) scores must be the same in two runs and
+   identical to the eager forward's with ``int8_qconv`` patched to the
+   chain, be finite and give 0..200 detections per image;
    it reports images/s, ms per batch and peak device memory as phase 4
    does.
 6. train_path: the SGD training step of vgg512, 21 classes
@@ -84,11 +87,13 @@ non-zero, and the final line is printed only when every phase passed:
    ``csrc/group_norm.cu``) equal to the CPU route bit for bit; the counted
    run must launch ``int8_qconv`` once a conv (48 / 28),
    ``group_norm_cuda`` once a GroupNorm (36 / 27), the im2col route never,
-   NMS, and no stem kernel; the scores the same in two runs and identical
-   to the chain-patched model's and to the model's with every GroupNorm
-   on the plain route; ms per batch (CUDA events over 5 chained batches),
+   NMS, and no stem kernel; two more ``run_scores`` one graph capture and
+   two replays with the counted run's detections bit for bit; the
+   (replayed) scores the same in two runs and identical to the
+   chain-patched eager forward's and to the eager forward's with every
+   GroupNorm on the plain route; ms per batch (CUDA events over 5 chained batches),
    images/s, peak device memory, and GroupNorm's device ms a batch (the
-   ``ssd.group_norm`` spans of one profiled batch).
+   ``ssd.group_norm`` spans of one profiled eager forward).
 8. family_float_path: resnet320 and mobilenet320 in bf16 with weights from
    the seed at the same batch: every conv + bias call of the forward (the
    bias-in convs, the depthwise convs, the heads) held to one rounding as
@@ -874,8 +879,9 @@ def detection_path(model, images, batch: int):
 
 
 def qconv_calls(model, images):
-    """Every W8A8 conv of the int8 ``model``'s forward on ``images``, each
-    checked as it runs against the card chain (``int8_qconv_plain``:
+    """Every W8A8 conv of the int8 ``model``'s eager forward on ``images``
+    (``quantized._forward_scores``: the façade's would replay a graph),
+    each checked as it runs against the card chain (``int8_qconv_plain``:
     quantize, im2col + ``_int_mm``, requant) on the same input:
     ``[(x shape, staged filter, stride, padding, dilation, equal)]``."""
     import torch
@@ -894,8 +900,33 @@ def qconv_calls(model, images):
         return y
 
     with mock.patch.object(quantized, "int8_qconv", record):
-        model.forward_scores(images)
+        quantized._forward_scores(model.params, images, model.config)
     return calls
+
+
+def graph_replays(name, model, images, first):
+    """Two more ``run_scores`` of ``images`` after the counted eager one
+    that gave ``first``: the first captures the int8 forward's CUDA graph
+    (``inference.forward_graph``) and replays it, the second replays it;
+    each must give ``first``'s detections bit for bit -> how far the
+    graph counters moved (1 capture, 2 replays)."""
+    import torch
+
+    from ssd_tensorflow_tpu_torch.inference import forward_graph
+
+    before = (forward_graph.captures, forward_graph.replays)
+    for _ in range(2):
+        dets = model.run_scores(images)
+        differ = [f for f in ("boxes", "scores", "classes", "valid")
+                  if not torch.equal(getattr(dets, f), getattr(first, f))]
+        if differ:
+            raise AssertionError(f"{name}: the replayed forward's detections differ from the "
+                                 f"eager one's in {differ}")
+    moved = {"captures": forward_graph.captures - before[0],
+             "replays": forward_graph.replays - before[1]}
+    if moved != {"captures": 1, "replays": 2}:
+        raise AssertionError(f"{name}: the forward graph moved its counters by {moved}")
+    return moved
 
 
 def int8_path(bundle, images, batch: int, device):
@@ -926,12 +957,13 @@ def int8_path(bundle, images, batch: int, device):
             or launches["nms_keep"] < 1 or launches["fused_stem"] or launches["fused_stem_uint8"]):
         raise AssertionError(f"the int8 path did not run its kernels as it should: {launches}")
     counts = _path_checks("int8", dets, model, batch)
+    graphs = graph_replays("int8", model, images, dets)
 
     with torch.inference_mode():
         scores = model.forward_scores(images)
         repeat = model.forward_scores(images)
         with mock.patch.object(quantized, "int8_qconv", int8_qconv_plain):
-            plain = model.forward_scores(images)
+            plain = quantized._forward_scores(model.params, images, model.config)
     (conf, cls, locs), (conf_p, cls_p, locs_p) = scores, plain
     if not (torch.isfinite(conf).all() and torch.isfinite(locs).all()):
         raise AssertionError("int8: non-finite pre-NMS scores")
@@ -948,7 +980,7 @@ def int8_path(bundle, images, batch: int, device):
     batch_ms = cuda_event_ms(lambda: model.run_scores(images), iters=5, warmup=1)
     _emit({"phase": "int8_path", "bundle": str(Path(bundle).name),
            "preset": model.config.preset_name, "batch": batch, "launches": launches,
-           "conv_layers": len(layers), "layers_bit_exact": True,
+           "conv_layers": len(layers), "layers_bit_exact": True, "forward_graph": graphs,
            "plain_route_agreement": agree, "detections_per_image": counts,
            "batch_ms": batch_ms, "images_per_s": batch / batch_ms * 1e3,
            "peak_mem_gib": peak_mem_gib})
@@ -1238,8 +1270,8 @@ def _family_images(seed: int, batch: int, device):
 
 
 def depthwise_calls(model, images):
-    """Every depthwise conv of the int8 ``model``'s forward on ``images``:
-    ``[(x, w, b, stride, padding, output)]``."""
+    """Every depthwise conv of the int8 ``model``'s eager forward on
+    ``images``: ``[(x, w, b, stride, padding, output)]``."""
     from ssd_tensorflow_tpu_torch.models import quantized
 
     calls = []
@@ -1251,15 +1283,15 @@ def depthwise_calls(model, images):
         return y
 
     with mock.patch.object(quantized, "depthwise_conv2d", record):
-        model.forward_scores(images)
+        quantized._forward_scores(model.params, images, model.config)
     return calls
 
 
 def norm_calls(model, images):
-    """Every GroupNorm of the family ``model``'s forward on ``images``, with
-    its activation and skip (``resnet.norm_act``): ``[(x, gn, act, skip,
+    """Every GroupNorm of the family ``model``'s eager forward on ``images``,
+    with its activation and skip (``resnet.norm_act``): ``[(x, gn, act, skip,
     output)]``."""
-    from ssd_tensorflow_tpu_torch.models import mobilenet, resnet
+    from ssd_tensorflow_tpu_torch.models import mobilenet, quantized, resnet
 
     calls = []
     real = resnet.norm_act
@@ -1271,23 +1303,26 @@ def norm_calls(model, images):
 
     with mock.patch.object(resnet, "norm_act", record), \
             mock.patch.object(mobilenet, "norm_act", record):
-        model.forward_scores(images)
+        quantized._forward_scores(model.params, images, model.config)
     return calls
 
 
 def group_norm_ms(model, images):
-    """GroupNorm's device ms in one profiled ``run_scores`` batch: the
+    """GroupNorm's device ms in one profiled eager forward
+    (``quantized._forward_scores``; a replayed graph opens no span): the
     device time of the ``ssd.group_norm`` spans (``utils/profiling``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from ssd_tensorflow_tpu_torch.models import quantized
     from ssd_tensorflow_tpu_torch.utils.profiling import profiler_events, span_device_ms
 
-    model.run_scores(images)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.run_scores(images)
+    with torch.inference_mode():
+        quantized._forward_scores(model.params, images, model.config)
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            quantized._forward_scores(model.params, images, model.config)
+            torch.cuda.synchronize()
     return span_device_ms(profiler_events(prof)).get("ssd.group_norm")
 
 
@@ -1344,13 +1379,14 @@ def family_int8_path(name: str, root: Path, seed: int, batch: int, device):
         raise AssertionError(f"the {name} int8 path did not run its kernels as it should: "
                              f"{launches}")
     counts = _path_checks(name, dets, model, batch)
+    graphs = graph_replays(name, model, images, dets)
     with torch.inference_mode():
         scores = model.forward_scores(images)
         repeat = model.forward_scores(images)
         with mock.patch.object(quantized, "int8_qconv", int8_qconv_plain):
-            plain = model.forward_scores(images)
+            plain = quantized._forward_scores(model.params, images, model.config)
         with mock.patch.object(resnet, "engages", lambda *a: False):
-            plain_norms = model.forward_scores(images)
+            plain_norms = quantized._forward_scores(model.params, images, model.config)
     if not (torch.isfinite(scores[0]).all() and torch.isfinite(scores[2]).all()):
         raise AssertionError(f"{name}: non-finite pre-NMS scores")
     if not all(torch.equal(a, b) for a, b in zip(scores, repeat)):
@@ -1362,7 +1398,8 @@ def family_int8_path(name: str, root: Path, seed: int, batch: int, device):
     del scores, repeat, plain, plain_norms
     batch_ms = cuda_event_ms(lambda: model.run_scores(images), iters=5, warmup=1)
     _emit({"phase": "family_int8_path", "bundle": Path(fname).name, "preset": name,
-           "batch": batch, "launches": launches, "int8_convs": len(layers),
+           "batch": batch, "launches": launches, "forward_graph": graphs,
+           "int8_convs": len(layers),
            "int8_convs_bit_exact": True,
            "depthwise_convs": len(dw), "depthwise_equal_to_cpu": True,
            "group_norms": len(norms), "group_norms_equal_to_cpu": True,

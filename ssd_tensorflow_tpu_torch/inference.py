@@ -40,6 +40,7 @@ from ssd_tensorflow_tpu_torch.ops.postprocess import (
     detections_to_boxes,
 )
 from ssd_tensorflow_tpu_torch.utils.checkpoint import checkpoint_config, read_params
+from ssd_tensorflow_tpu_torch.utils.profiling import span
 from ssd_tensorflow_tpu_torch.weights import (
     params_from_jax,
     params_to_jax,
@@ -216,6 +217,63 @@ def _apply_overrides(model_cfg: ModelConfig, overrides: dict, int8: bool = False
     return dataclasses.replace(model_cfg, **overrides)
 
 
+#: what :func:`forward_graph` keeps for a key seen once
+_SEEN = object()
+
+
+def _capture(forward, x):
+    """``(input buffer, graph, outputs)``: ``forward`` of a buffer like
+    ``x`` captured on a side stream into one CUDA graph (the capture runs
+    nothing, so the buffer is filled at each replay). The device is idle
+    first (``torch.cuda.graph`` synchronises); ``thread_local`` lets other
+    threads (a prefetch producer, a process group's watchdog) run on."""
+    with torch.cuda.device(x.device):
+        static_x = torch.empty_like(x, memory_format=torch.contiguous_format)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream(),
+                              capture_error_mode="thread_local"):
+            outs = forward(static_x)
+    return static_x, graph, outs
+
+
+def forward_graph(graphs: dict, forward, x):
+    """``forward(x)`` of a CUDA tensor through one CUDA graph per input
+    shape, dtype and device, kept in ``graphs``.
+
+    The first call of a key runs ``forward`` eagerly: it builds the kernel
+    libraries and cuDNN's plans and fills the kernels' host caches (the
+    driver's entry points, the cluster sizes) outside any capture. The
+    second captures ``forward`` into a graph that reads its own input
+    buffer; the launches freeze every address (the int8 kernel encodes its
+    input's tensor map on the host), which the buffer and the graph's
+    private memory pool keep fixed. That call and every later one copy
+    ``x`` into the buffer, replay the graph on the current stream and
+    return clones of its outputs, which the caller owns: a later replay
+    overwrites none of them. A shape called once never captures. Counted
+    in ``forward_graph.captures`` and ``forward_graph.replays``, inside
+    spans ``ssd.forward_graph.capture`` and ``ssd.forward_graph.replay``."""
+    key = (tuple(x.shape), x.dtype, x.device)
+    entry = graphs.get(key)
+    if entry is None:
+        graphs[key] = _SEEN
+        return forward(x)
+    if entry is _SEEN:
+        with span("ssd.forward_graph.capture"):
+            entry = graphs[key] = _capture(forward, x)
+        forward_graph.captures += 1
+    static_x, graph, outs = entry
+    with span("ssd.forward_graph.replay"):
+        static_x.copy_(x)
+        graph.replay()
+        out = tuple(t.clone() for t in outs)
+    forward_graph.replays += 1
+    return out
+
+
+forward_graph.captures = 0
+forward_graph.replays = 0
+
+
 class InferenceModel:
     """End-to-end detector: uint8 BGR batch -> detections, on one device,
     or data-parallel over a mesh.
@@ -270,6 +328,7 @@ class InferenceModel:
                 for name, leaves in params.items()
             }, model_cfg)
         self.anchors = torch.from_numpy(anchors_for_preset(self.preset)).to(self.device)
+        self._graphs = {}
 
     def _stage(self, value):
         """Filters in the compute dtype, channels-last (the convolutions'
@@ -354,10 +413,19 @@ class InferenceModel:
 
     def forward_scores(self, x):
         """Per-anchor ``(conf, cls, locs)`` of a uint8 batch on the device:
-        the int8 or the float forward, as the model was built."""
-        if self.act_scales is not None:
-            return quantized._forward_scores(self.params, x, self.config)
-        return apply_scores(self.params, x, self.config)
+        the int8 or the float forward, as the model was built. The int8
+        forward of a CUDA batch under ``torch.inference_mode`` (as
+        ``run_scores`` runs it) goes through :func:`forward_graph`, one CUDA
+        graph per input shape, the same bits; the CPU, the float forward
+        and calls outside inference mode run eagerly."""
+        if self.act_scales is None:
+            return apply_scores(self.params, x, self.config)
+        if x.device.type == "cuda" and torch.is_inference_mode_enabled():
+            return forward_graph(self._graphs, self._int8_scores, x)
+        return self._int8_scores(x)
+
+    def _int8_scores(self, x):
+        return quantized._forward_scores(self.params, x, self.config)
 
     def run_scores(self, images) -> Detections:
         """Forward + lazy softmax + decode + NMS of ``(B, H, W, 3)`` uint8

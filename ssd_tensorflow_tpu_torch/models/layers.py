@@ -14,6 +14,7 @@ bottom); max-pooling is SAME ceil mode with -inf padding.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import numpy as np
 import torch
@@ -261,11 +262,30 @@ def conv_relu(params, x, stride=1, padding="SAME", dilation=1):
     return y.permute(0, 2, 3, 1)
 
 
+@functools.cache
+def _mean_on(device: torch.device, mean: tuple) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.tensor(mean, dtype=torch.float32, device=device)
+
+
+def mean_constant(mean_bgr, device) -> torch.Tensor:
+    """The channel means ``mean_bgr`` as a float32 ``(3,)`` tensor on
+    ``device``, made once per device and mean and shared by every later
+    call (read it, never write it): the copy from pageable host memory,
+    which waits for the device and may not run while a CUDA graph is
+    captured, happens at the first call alone. While ``torch.export`` or
+    ``torch.compile`` traces, a fresh tensor, which the program keeps as
+    its own constant."""
+    mean = tuple(float(m) for m in mean_bgr)
+    if torch.compiler.is_compiling():
+        return torch.tensor(mean, dtype=torch.float32, device=device)
+    return _mean_on(torch.device(device), mean)
+
+
 def preprocess(images, config):
     """uint8/float NHWC BGR images -> mean-subtracted compute-dtype tensor
     (the subtraction in float32, then one rounding)."""
-    mean = torch.tensor(config.mean_bgr, dtype=torch.float32, device=images.device)
-    return (images.float() - mean).to(config.dtype)
+    return (images.float() - mean_constant(config.mean_bgr, images.device)).to(config.dtype)
 
 
 def relu6(x):

@@ -32,7 +32,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ssd_tensorflow_tpu_torch.models.layers import conv2d, split_terms
+from ssd_tensorflow_tpu_torch.models.layers import conv2d, mean_constant, split_terms
 from ssd_tensorflow_tpu_torch.ops import _build
 
 _C = 64
@@ -40,8 +40,7 @@ _C = 64
 
 def _preprocess(images, mean_bgr):
     """Raw BGR images -> bf16 after a float32 mean subtraction."""
-    mean = torch.tensor(mean_bgr, dtype=torch.float32, device=images.device)
-    return (images.float() - mean).to(torch.bfloat16)
+    return (images.float() - mean_constant(mean_bgr, images.device)).to(torch.bfloat16)
 
 
 def conv1_1_unbiased(params, x):
@@ -283,7 +282,7 @@ def _fused_stem_uint8_cuda(images, w1, b1, w2, b2, mean_bgr):
     out = torch.empty((b, h // 2, w // 2, _C), dtype=torch.bfloat16, device=images.device)
     if out.numel() == 0:
         return out
-    mean = torch.tensor(mean_bgr, dtype=torch.float32, device=images.device)
+    mean = mean_constant(mean_bgr, images.device)
     w1k, b1f, w2t, b2f = weights
     _launch("stem_uint8", images.device, (images.data_ptr(), mean.data_ptr(), w1k.data_ptr(),
                                           b1f.data_ptr(), w2t.data_ptr(), b2f.data_ptr(),

@@ -438,6 +438,52 @@ def test_int8_qconv_kernel_matches_the_chain_in_the_bundles(cuda, bundle, side, 
     assert int8_conv.int8_qconv.launches == len(checked) and int8_conv.int8_conv.launches == 0
 
 
+@pytest.mark.parametrize("b", [64, 8])
+@pytest.mark.parametrize("bundle,side", INT8_BUNDLES)
+def test_int8_forward_graph_replays_the_eager_forward(cuda, bundle, side, b):
+    """``forward_scores`` of a shipped int8 bundle under inference mode, four
+    calls on new inputs: call 1 eager, call 2 captures the graph, calls 2-4
+    replay it; each equal to ``quantized._forward_scores`` of the same input
+    bit for bit, call 3's still after call 4, and one capture and three
+    replays counted for the shape."""
+    from ssd_tensorflow_tpu_torch.inference import InferenceModel, forward_graph
+    from ssd_tensorflow_tpu_torch.models import quantized
+
+    model = InferenceModel.from_bundle(bundle, device=cuda)
+    rng = np.random.default_rng(side + b)
+    before = (forward_graph.captures, forward_graph.replays)
+    got, want = [], []
+    with torch.inference_mode():
+        for _ in range(4):
+            x = torch.from_numpy(rng.integers(0, 256, (b, side, side, 3), dtype=np.uint8)).to(cuda)
+            got.append(model.forward_scores(x))
+            want.append(quantized._forward_scores(model.params, x, model.config))
+    torch.cuda.synchronize()
+    assert (forward_graph.captures - before[0], forward_graph.replays - before[1]) == (1, 3)
+    assert len(model._graphs) == 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert all(a.dtype == c.dtype and torch.equal(a, c) for a, c in zip(g, w)), i
+    assert not torch.equal(got[2][0], got[3][0])  # new inputs: the replay read call 4's
+
+
+def test_float_forward_never_captures(cuda):
+    """The float route stays eager: three calls of one shape, no graph."""
+    from ssd_tensorflow_tpu_torch.inference import InferenceModel, forward_graph
+
+    cfg = ModelConfig(preset_name="mobilenet320", num_classes=20)
+    model = InferenceModel(init_params(cfg, seed=0), cfg, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (8, 320, 320, 3),
+                                                           dtype=np.uint8)).to(cuda)
+    before = (forward_graph.captures, forward_graph.replays)
+    with torch.inference_mode():
+        first = model.forward_scores(x)
+        for _ in range(2):
+            again = model.forward_scores(x)
+    torch.cuda.synchronize()
+    assert (forward_graph.captures, forward_graph.replays) == before and model._graphs == {}
+    assert all(torch.equal(a, c) for a, c in zip(first, again))
+
+
 #: the multibox head convs (H = W, cin, anchor shapes, K + 5) of vgg512 and
 #: mobilenet320 (21 classes) and resnet320 (81)
 VGG512_HEADS = [(64, 512, 4, 25), (32, 1024, 6, 25), (16, 512, 6, 25), (8, 256, 6, 25),
