@@ -25,7 +25,9 @@ non-zero, and the final line is printed only when every phase passed:
    step of the largest output. As a control, the share of the route they
    replaced (bf16 conv + bf16 bias pass (+ ReLU)) on the same inputs.
 3. kernels: each kernel against its plain PyTorch version on the card at
-   its path's shapes (vgg512 batch 64; the stem probe at its TPU shape):
+   its path's shapes (vgg512 batch 64; the stem probe at its TPU shape;
+   NMS also at retina800's 5,000 candidates of 264 classes, the
+   device-memory route, D = 1,025 and 5,000, timed at (64, 5,000)):
    NMS keep masks and the lane-unflatten sums bit-exact, every stem
    kernel within one bf16 step of its largest output. ``ms`` is device
    time from a ``torch.profiler`` window, ``event_ms`` the CUDA-event
@@ -304,6 +306,14 @@ non-zero, and the final line is printed only when every phase passed:
    ``run_scores`` of the 32 images (NMS once, ``int8_qconv`` once a conv,
    the keep mask held) and their VOC mAP within 1e-3 of (b)'s QAT int8
    mAP.
+17. retina_path: RetinaNet (``h100bench/configs/retinanet800-resnext50fpn-
+   bf16.json``: retina800, bf16, the reference's seeded weights) through
+   ``run_scores`` on a batch of the benchmark's staged 800x800 images,
+   counted as phase 4's: NMS launched once (D = 5,000), 16 grouped convs
+   and 10 head calls, no other kernel; the keep mask equal to
+   ``nms_keep_plain`` on the same candidates; each image
+   ``min(300, NMS survivors)`` valid rows, finite and sorted; the
+   candidates per image, ms a batch, images/s, peak memory.
 
 The line before the last lists the kernels with their launches, errors,
 times and bounds; the last line is ``{"ok": true, "device": {...}}``.
@@ -572,29 +582,42 @@ def conv_epilogue(model, images, seed: int, phase: str = "conv_epilogue"):
     return summary
 
 
+def _nms_row(name, batch: int, d: int, kernel: str, err, corners, valid, iters: int):
+    from ssd_tensorflow_tpu_torch.ops import nms_cuda
+
+    times = _times(lambda: nms_cuda.nms_keep(corners, valid), kernel, iters=iters)
+    plain_ms = _plain_ms(lambda: nms_cuda.nms_keep_plain(corners, valid))
+    # each pair j > i: 4 min/max, 4 add/sub, 2 clamps, mul, add, sub, div, compare
+    n_ops = batch * (d * (d - 1) / 2 * 15 + d * 5)
+    n_bytes = batch * d * (16 + 1 + 1)
+    return _row(name, "nms.cu", "ssd_tensorflow_tpu/ops/nms_pallas.py:72", err, times,
+                plain_ms, _bound(n_bytes, n_ops, PEAK_F32_FLOPS), None, shape=[batch, d])
+
+
 def check_nms(rng, batch: int, device):
+    """The NMS kernels against ``nms_keep_plain`` bit for bit: the
+    shared-memory route at D = 200, 57, 256 (21 classes, SSD's), the
+    device-memory route at D = 1,025 and 5,000 (264 classes, RetinaNet's
+    five levels of 1,000); a timed row of each route, at (batch, 200) and
+    (batch, 5,000)."""
     import torch
 
     from ssd_tensorflow_tpu_torch.ops import nms_cuda
 
     err = 0.0
-    for d in (200, 57, 256):
-        corners, valid = _nms_inputs(rng, batch, d, 21, device)
+    for d, classes in ((200, 21), (57, 21), (256, 21), (1025, 264), (5000, 264)):
+        corners, valid = _nms_inputs(rng, batch, d, classes, device)
         got = nms_cuda.nms_keep(corners, valid)
         want = nms_cuda.nms_keep_plain(corners, valid)
         err = max(err, float((got.int() - want.int()).abs().max()))
         if not torch.equal(got, want):
             raise AssertionError(f"nms_keep differs from its plain version at D={d}: "
                                  f"{int((got != want).sum())} of {got.numel()} flags")
-    corners, valid = _nms_inputs(rng, batch, 200, 21, device)
-    d = 200
-    times = _times(lambda: nms_cuda.nms_keep(corners, valid), "nms_kernel", iters=50)
-    plain_ms = _plain_ms(lambda: nms_cuda.nms_keep_plain(corners, valid))
-    # each pair j > i: 4 min/max, 4 add/sub, 2 clamps, mul, add, sub, div, compare
-    n_ops = batch * (d * (d - 1) / 2 * 15 + d * 5)
-    n_bytes = batch * d * (16 + 1 + 1)
-    return _row("nms_keep", "nms.cu", "ssd_tensorflow_tpu/ops/nms_pallas.py:72", err, times,
-                plain_ms, _bound(n_bytes, n_ops, PEAK_F32_FLOPS), None, shape=[batch, d])
+    rows = [_nms_row("nms_keep", batch, 200, "nms_kernel", err,
+                     *_nms_inputs(rng, batch, 200, 21, device), iters=50)]
+    rows.append(_nms_row("nms_keep_global", batch, 5000, "_global", err,
+                         *_nms_inputs(rng, batch, 5000, 264, device), iters=10))
+    return rows
 
 
 def _stem_bound(b, h, w, c_in):
@@ -3540,6 +3563,86 @@ def learning_path(device):
             "learning:served_bundle": served_launches}
 
 
+#: RetinaNet's configuration file, as the benchmark's cell serves it
+RETINA_CONFIG = "h100bench/configs/retinanet800-resnext50fpn-bf16.json"
+
+
+def retina_path(root: Path, seed: int, batch: int, device):
+    """Phase 17: RetinaNet (retina800, bf16, the benchmark's configuration
+    and its seeded weights) through ``InferenceModel.run_scores`` on a batch
+    of the benchmark's staged images, with every counter set to 0 just
+    before the call and read just after: NMS once (the device-memory route,
+    D = 5,000), 16 grouped convs, 10 head calls and no other kernel; the
+    recorded keep mask equal to ``nms_keep_plain`` on the same candidates;
+    each image ``min(max_detections, NMS survivors)`` valid rows, finite, in
+    descending score order; the candidates sent to NMS per image
+    (``retina_select.candidates``). Its ms a batch, images/s and peak
+    memory."""
+    import torch
+
+    sys.path.insert(0, str(root / "h100bench"))
+    from benchlib import pool
+    from reference import retinanet_resnext50fpn as ref
+
+    from ssd_tensorflow_tpu_torch.inference import InferenceModel, model_config_from_dict
+    from ssd_tensorflow_tpu_torch.models import layers, resnext_fpn
+    from ssd_tensorflow_tpu_torch.ops import postprocess
+    from ssd_tensorflow_tpu_torch.ops.postprocess import DetectionConfig
+    from ssd_tensorflow_tpu_torch.timing import cuda_event_ms
+
+    cfg = json.loads((root / RETINA_CONFIG).read_text())
+    det = DetectionConfig(**cfg["detection"])
+    model = InferenceModel(ref.seeded_params(cfg, seed, device),
+                           model_config_from_dict(cfg["model"]), detection=det, device=device)
+    augment = json.loads((root / "h100bench/traffic/serve-b64.json").read_text())["augment"]
+    images = pool.images(batch, cfg["preset"]["image_size"], augment, seed, device)
+    model.run_scores(images)  # cuDNN's plans, outside the counted call
+    rec, keep = {}, postprocess._keep
+
+    def record_keep(*args):
+        rec["keep"] = (args, keep(*args))
+        return rec["keep"][1]
+
+    layers.grouped_conv.calls = resnext_fpn.retina_head.calls = 0
+    postprocess.retina_select.candidates = 0
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(postprocess, "_keep", record_keep):
+        dets, launches = counted(lambda: model.run_scores(images))
+    peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30
+    calls = {"grouped_conv": layers.grouped_conv.calls,
+             "retina_head": resnext_fpn.retina_head.calls}
+    others = {k: n for k, n in launches.items() if k != "nms_keep" and n}
+    if launches["nms_keep"] != 1 or others or calls != {"grouped_conv": 16, "retina_head": 10}:
+        raise AssertionError(f"retina800: launches {launches}, calls {calls}")
+    kept = check_keep(rec, "retina800")
+    (_, _, valid, _), keep_mask = rec["keep"]
+    sent = valid.sum(dim=1)
+    if int(postprocess.retina_select.candidates) != int(sent.sum()):
+        raise AssertionError("retina800: retina_select.candidates disagrees with the candidates "
+                             "NMS got")
+    rows = dets.valid.sum(dim=1)
+    want_rows = keep_mask.sum(dim=1).clamp_max(det.max_detections)
+    if not torch.equal(rows, want_rows):
+        raise AssertionError(f"retina800: valid rows {rows.tolist()} are not min("
+                             f"{det.max_detections}, NMS survivors) {want_rows.tolist()}")
+    v = dets.valid
+    scores = torch.where(v, dets.scores, torch.zeros_like(dets.scores))
+    if not (torch.isfinite(dets.scores[v]).all() and torch.isfinite(dets.boxes[v]).all()
+            and bool((scores[:, 1:] <= scores[:, :-1]).all())):
+        raise AssertionError("retina800: non-finite or unsorted detections")
+    batch_ms = cuda_event_ms(lambda: model.run_scores(images), iters=3, warmup=1)
+    _emit({"phase": "retina_path", "preset": cfg["model"]["preset_name"], "batch": batch,
+           "launches": launches, "calls": calls, **kept,
+           "candidates_per_image": {"min": int(sent.min()), "median": int(sent.median()),
+                                    "max": int(sent.max())},
+           "survivors_per_image": {"min": int(keep_mask.sum(1).min()),
+                                   "max": int(keep_mask.sum(1).max())},
+           "rows_per_image": {"min": int(rows.min()), "max": int(rows.max())},
+           "batch_ms": batch_ms, "images_per_s": batch / batch_ms * 1e3,
+           "peak_mem_gib": peak_mem_gib})
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3592,7 +3695,7 @@ def main(argv=None) -> int:
 
     # 3. each kernel against its plain version at its path's shapes
     with torch.inference_mode():
-        kernels = [check_nms(rng, args.batch, device), check_stem(model.params, images),
+        kernels = [*check_nms(rng, args.batch, device), check_stem(model.params, images),
                    *check_whole_stems(model.params, images), *check_probes(args.seed, device)]
     _emit({"phase": "kernels", "checked": [k["name"] for k in kernels]})
 
@@ -3631,6 +3734,8 @@ def main(argv=None) -> int:
                      for k, v in multichip_path(root, args.seed, device, bare_step_ms).items()})
     # 16. the port learns: overfit, QAT finetune, export and serve
     launches.update(learning_path(device))
+    # 17. RetinaNet's serving path
+    launches["retina800"] = retina_path(root, args.seed, args.batch, device)
     with torch.inference_mode():
         _, launches["fused_stem_pallas"] = counted(
             lambda: stem_cuda.fused_stem_pallas(model.params, images, MEAN_BGR))
@@ -3644,6 +3749,7 @@ def main(argv=None) -> int:
     _emit({"phase": "paths", "launches": launches})
     path_of = {"nms_keep": ("dma", "nms_keep"), "fused_stem": ("dma", "fused_stem"),
                "fused_stem_uint8": ("uint8", "fused_stem_uint8"),
+               "nms_keep_global": ("retina800", "nms_keep"),
                "fused_stem_pallas": ("fused_stem_pallas", "fused_stem"),
                "lane_unflatten_sum": ("lane_unflatten_sum", "lane_unflatten_sum")}
     for k in kernels:

@@ -54,6 +54,31 @@
 // No padding of D is needed; D is capped at kMaxD (the mask then takes
 // 128 KB of dynamic shared memory).
 //
+// Above kMaxD (RetinaNet's multi-label decode sends up to 5 levels x
+// 1000 = 5,000 candidates an image) the D^2-bit mask does not fit in
+// shared memory (3.1 MB an image at D = 5,000), so it lives in device
+// memory, in a workspace the caller allocates, and the work is split
+// over two kernels:
+//   nms_mask_global: a grid of (rows / 8, B) blocks of 8 warps; each warp
+//      takes one valid row i and writes its words w >= i/32 exactly as
+//      phase 2 above computes them (the same IoU arithmetic), reading the
+//      columns' corners from device memory (the image's corners, 80 KB
+//      at D = 5,000, stay in L1/L2). All the images' rows run at once:
+//      D(D-1)/2 IoUs an image are ~15 operations each, ~0.2 ms of the
+//      card's float32 rate for a batch of 64.
+//   nms_scan_global: one warp per image, phase 3 above over ceil(D/32)
+//      blocks, with the alive set in shared memory (a word a block, up
+//      to kMaxWordsGlobal) instead of one register a lane, and each
+//      kept row's later words read from device memory (a row a lane, so
+//      consecutive words of one row share cache lines); a block that
+//      keeps nothing skips them. Keep bytes are written block by block.
+// The scan is the same greedy decision procedure, so the keep mask is the
+// plain version's bit for bit at any D up to kMaxDGlobal, as below kMaxD.
+// Class segments (class-shifted boxes of two classes never overlap) would
+// skip most pairs of a 264-class batch, but the kernel sees shifted
+// corners alone and must equal greedy_keep on any input; the plain
+// per-pair mask keeps that contract.
+//
 // Bit-exactness with the plain version (ops/nms.py): every operation is
 // an explicitly rounded intrinsic in the JAX package's order, so nvcc
 // cannot contract a multiply and an add into an FMA, and the division is
@@ -68,6 +93,9 @@
 namespace {
 
 constexpr int kMaxD = 1024;
+constexpr int kMaxDGlobal = 8192;
+constexpr int kMaxWordsGlobal = kMaxDGlobal / 32;
+constexpr int kRowsPerBlock = 8;  // warps of nms_mask_global's blocks
 constexpr int kMaxThreads = 1024;
 constexpr size_t kDefaultSmem = 48 * 1024;  // dynamic shared memory allowed without opt-in
 constexpr int kMaxDevices = 64;
@@ -110,6 +138,28 @@ __device__ __forceinline__ bool iou_over(float inter, float uni, float threshold
   return over;
 }
 
+// +1-pixel area of corners (x0, x1, y0, y1).
+__device__ __forceinline__ float box_area(const float4 v) {
+  return __fmul_rn(__fadd_rn(__fsub_rn(v.y, v.x), 1.0f), __fadd_rn(__fsub_rn(v.w, v.z), 1.0f));
+}
+
+// Whether IoU(a, q) > threshold, for every lane of the warp (iou_over).
+__device__ __forceinline__ bool pair_over(const float4 a, float aa, const float4 q, float qa,
+                                          float threshold, float hi, float lo) {
+  const float iw = nan_max(
+      0.0f, __fadd_rn(__fsub_rn(nan_min(a.y, q.y), nan_max(a.x, q.x)), 1.0f));
+  const float ih = nan_max(
+      0.0f, __fadd_rn(__fsub_rn(nan_min(a.w, q.w), nan_max(a.z, q.z)), 1.0f));
+  const float inter = __fmul_rn(iw, ih);
+  const float uni = __fsub_rn(__fadd_rn(aa, qa), inter);
+  return iou_over(inter, uni, threshold, hi, lo);
+}
+
+// threshold -+ margin: outside it the approximate quotient decides
+__device__ __forceinline__ float threshold_margin(float threshold) {
+  return __fmul_rn(fmaxf(fabsf(threshold), 0x1p-40f), 0x1p-18f);
+}
+
 __global__ void __launch_bounds__(kMaxThreads)
 nms_kernel(const float* __restrict__ corners, const uint8_t* __restrict__ valid,
            uint8_t* __restrict__ keep, int d, float threshold) {
@@ -128,8 +178,7 @@ nms_kernel(const float* __restrict__ corners, const uint8_t* __restrict__ valid,
   for (int i = threadIdx.x; i < d; i += blockDim.x) {
     const float4 v = c[i];
     box[i] = v;
-    area[i] = __fmul_rn(__fadd_rn(__fsub_rn(v.y, v.x), 1.0f),
-                        __fadd_rn(__fsub_rn(v.w, v.z), 1.0f));
+    area[i] = box_area(v);
   }
   uint32_t alive = 0;  // warp 0, lane l: word l of valid-and-not-suppressed
   if (warp == 0) {
@@ -147,8 +196,7 @@ nms_kernel(const float* __restrict__ corners, const uint8_t* __restrict__ valid,
   // suppressed, so the words of other rows, and words without a valid
   // column, are neither computed nor used (the scan reads them, but only
   // under a select on a bit that is then 0).
-  // threshold -+ margin: outside it the approximate quotient decides
-  const float margin = __fmul_rn(fmaxf(fabsf(threshold), 0x1p-40f), 0x1p-18f);
+  const float margin = threshold_margin(threshold);
   const float hi = __fadd_rn(threshold, margin), lo = __fsub_rn(threshold, margin);
   for (int i = warp; i < d; i += warps) {
     if (!((valid_words[i >> 5] >> (i & 31)) & 1u)) continue;
@@ -158,14 +206,7 @@ nms_kernel(const float* __restrict__ corners, const uint8_t* __restrict__ valid,
       if (valid_words[w] == 0u) continue;
       const int j = 32 * w + lane;
       const int jc = min(j, d - 1);
-      const float4 q = box[jc];
-      const float iw = nan_max(
-          0.0f, __fadd_rn(__fsub_rn(nan_min(a.y, q.y), nan_max(a.x, q.x)), 1.0f));
-      const float ih = nan_max(
-          0.0f, __fadd_rn(__fsub_rn(nan_min(a.w, q.w), nan_max(a.z, q.z)), 1.0f));
-      const float inter = __fmul_rn(iw, ih);
-      const float uni = __fsub_rn(__fadd_rn(aa, area[jc]), inter);
-      bool over = iou_over(inter, uni, threshold, hi, lo);
+      const bool over = pair_over(a, aa, box[jc], area[jc], threshold, hi, lo);
       const uint32_t word = __ballot_sync(kFull, j > i && j < d && over);
       if (lane == 0) mask[i * words + w] = word;
     }
@@ -215,6 +256,83 @@ nms_kernel(const float* __restrict__ corners, const uint8_t* __restrict__ valid,
   }
 }
 
+// The mask of the D > kMaxD path (see the note at the top): row i's words
+// w >= i/32 of image blockIdx.y, one warp a row, into `mask` (B x D x
+// words). Rows of invalid candidates and words without a valid column are
+// left unwritten: the scan reads them only under a bit that is then 0.
+__global__ void __launch_bounds__(kRowsPerBlock * 32)
+nms_mask_global(const float* __restrict__ corners, const uint8_t* __restrict__ valid,
+                uint32_t* __restrict__ mask, int d, float threshold) {
+  const int words = (d + 31) / 32;
+  const int b = blockIdx.y, lane = threadIdx.x & 31;
+  const int i = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  const uint8_t* v = valid + static_cast<size_t>(b) * d;
+  if (i >= d || v[i] == 0) return;  // uniform across the warp
+  const float4* c = reinterpret_cast<const float4*>(corners) + static_cast<size_t>(b) * d;
+  uint32_t* row = mask + (static_cast<size_t>(b) * d + i) * words;
+  const float margin = threshold_margin(threshold);
+  const float hi = __fadd_rn(threshold, margin), lo = __fsub_rn(threshold, margin);
+  const float4 a = c[i];
+  const float aa = box_area(a);
+  for (int w = i >> 5; w < words; ++w) {
+    const int j = 32 * w + lane;
+    const int jc = min(j, d - 1);
+    if (__ballot_sync(kFull, j < d && v[jc] != 0) == 0u) continue;
+    const float4 q = c[jc];
+    const bool over = pair_over(a, aa, q, box_area(q), threshold, hi, lo);
+    const uint32_t word = __ballot_sync(kFull, j > i && j < d && over);
+    if (lane == 0) row[w] = word;
+  }
+}
+
+// The scan of the D > kMaxD path: one warp per image over the mask that
+// nms_mask_global wrote, the greedy rounds of nms_kernel's phase 3.
+__global__ void __launch_bounds__(32)
+nms_scan_global(const uint32_t* __restrict__ mask, const uint8_t* __restrict__ valid,
+                uint8_t* __restrict__ keep, int d) {
+  __shared__ uint32_t alive[kMaxWordsGlobal];  // word w: valid and not suppressed
+  const int words = (d + 31) / 32;
+  const int b = blockIdx.x, lane = threadIdx.x;
+  const uint32_t* m = mask + static_cast<size_t>(b) * d * words;
+  const uint8_t* v = valid + static_cast<size_t>(b) * d;
+  uint8_t* out = keep + static_cast<size_t>(b) * d;
+#pragma unroll 8
+  for (int w = 0; w < words; ++w) {
+    const int j = 32 * w + lane;
+    const uint32_t word = __ballot_sync(kFull, j < d && v[min(j, d - 1)] != 0);
+    if (lane == 0) alive[w] = word;
+  }
+  __syncwarp();
+  uint32_t diag = m[static_cast<size_t>(min(lane, d - 1)) * words];
+  for (int w = 0; w < words; ++w) {
+    const uint32_t* row = m + static_cast<size_t>(min(32 * w + lane, d - 1)) * words;
+    const bool more = w + 1 < words;
+    const uint32_t next_diag =
+        more ? m[static_cast<size_t>(min(32 * (w + 1) + lane, d - 1)) * words + w + 1] : 0u;
+    uint32_t live = alive[w];  // undecided candidates of the block
+    uint32_t kept = 0;
+    while (live) {  // uniform across the warp
+      const uint32_t aimed = __reduce_or_sync(kFull, ((live >> lane) & 1u) ? diag : 0u);
+      const uint32_t sure = live & ~aimed;  // never empty: it holds live's lowest bit
+      const uint32_t gone = __reduce_or_sync(kFull, ((sure >> lane) & 1u) ? diag : 0u);
+      kept |= sure;
+      live &= ~(sure | gone);
+    }
+    const int j = 32 * w + lane;
+    if (j < d) out[j] = (kept >> lane) & 1u;
+    if (kept) {  // uniform: clear what the kept rows suppress later on
+      const bool mine = (kept >> lane) & 1u;
+#pragma unroll 4
+      for (int w2 = w + 1; w2 < words; ++w2) {
+        const uint32_t gone = __reduce_or_sync(kFull, mine ? row[w2] : 0u);
+        if (lane == 0) alive[w2] &= ~gone;
+      }
+      __syncwarp();
+    }
+    diag = next_diag;
+  }
+}
+
 // Opts nms_kernel into `smem` bytes of dynamic shared memory on the
 // current device. The attribute belongs to the function on each device,
 // so it is set once per device and size, not on every launch. Up to the
@@ -237,6 +355,8 @@ cudaError_t allow_smem(size_t smem) {
 
 extern "C" int nms_max_candidates() { return kMaxD; }
 
+extern "C" int nms_max_candidates_global() { return kMaxDGlobal; }
+
 // corners: (B, D, 4) float32 contiguous, 16-byte aligned; valid, keep:
 // (B, D) bytes 0/1. Launches on `stream` and returns cudaGetLastError()
 // after the launch.
@@ -251,5 +371,22 @@ extern "C" int nms_keep_launch(const float* corners, const uint8_t* valid, uint8
   const int threads = d < kMaxThreads / 32 ? 32 * d : kMaxThreads;
   nms_kernel<<<batch, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       corners, valid, keep, d, threshold);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The D > kMaxD path (kMaxD < d <= kMaxDGlobal): as nms_keep_launch, with
+// `mask` a workspace of B x D x ceil(D/32) 32-bit words in device memory.
+extern "C" int nms_keep_launch_global(const float* corners, const uint8_t* valid, uint8_t* keep,
+                                      uint32_t* mask, int batch, int d, float threshold,
+                                      void* stream) {
+  if (batch <= 0 || d <= kMaxD || d > kMaxDGlobal || batch > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((d + kRowsPerBlock - 1) / kRowsPerBlock, batch);
+  nms_mask_global<<<grid, kRowsPerBlock * 32, 0, s>>>(corners, valid, mask, d, threshold);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  nms_scan_global<<<batch, 32, 0, s>>>(mask, valid, keep, d);
   return static_cast<int>(cudaGetLastError());
 }

@@ -60,13 +60,16 @@ def model_config_from_dict(d: dict) -> ModelConfig:
         a_trous=d.get("a_trous", True),
         compute_dtype=d.get("compute_dtype", "bfloat16"),
         mean_bgr=tuple(d.get("mean_bgr", (104.0, 117.0, 123.0))),
+        std_bgr=tuple(d.get("std_bgr", (1.0, 1.0, 1.0))),
         packed_stem=d.get("packed_stem", True),
         l2_norm_eps=d.get("l2_norm_eps", 1e-12),
     )
 
 
 def model_config_to_dict(cfg: ModelConfig) -> dict:
-    """The serialization of ModelConfig in checkpoint configs and bundles."""
+    """The serialization of ModelConfig in checkpoint configs and bundles
+    (``std_bgr`` only where it divides: the JAX package has none)."""
+    std = {"std_bgr": list(cfg.std_bgr)} if tuple(cfg.std_bgr) != (1.0, 1.0, 1.0) else {}
     return {
         "preset_name": cfg.preset_name,
         "num_classes": cfg.num_classes,
@@ -75,6 +78,7 @@ def model_config_to_dict(cfg: ModelConfig) -> dict:
         "mean_bgr": list(cfg.mean_bgr),
         "packed_stem": cfg.packed_stem,
         "l2_norm_eps": cfg.l2_norm_eps,
+        **std,
     }
 
 
@@ -318,7 +322,9 @@ class InferenceModel:
         self.config = model_cfg
         self.preset = model_cfg.preset
         self.lid2name = lid2name or {}
-        self.detection = detection or DetectionConfig(top_k=200, confidence_threshold=0.01)
+        self.detection = detection or getattr(
+            _backbone_module(self.preset), "DETECTION",
+            DetectionConfig(top_k=200, confidence_threshold=0.01))
         self.act_scales = act_scales
         if act_scales is not None:
             self.params = stage_qparams(params, act_scales, self.device)
@@ -398,7 +404,11 @@ class InferenceModel:
         result the softmax probabilities then the 4 offsets of each anchor
         (the int8 or the float forward, as the model was built), the
         detections :func:`ops.postprocess.detect` of it; under a mesh, the
-        whole batch's on every process."""
+        whole batch's on every process. The SSD families' alone: a
+        multi-label model (RetinaNet) serves through :meth:`run_scores`."""
+        if self.detection.multi_label:
+            raise ValueError("run() decodes softmax scores; a multi-label model serves "
+                             "through run_scores()")
         with torch.inference_mode():
             x = self._batch(images)
             if self.act_scales is not None:

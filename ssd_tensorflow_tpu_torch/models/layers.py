@@ -8,7 +8,9 @@ channels-last, so no layout copy is made. Weights are OIHW.
 
 ``padding="SAME"`` follows TF semantics, which is asymmetric whenever the
 total padding is odd (the stride-2 extras pad 0 on top and 1 at the
-bottom); max-pooling is SAME ceil mode with -inf padding.
+bottom); max-pooling is SAME ceil mode with -inf padding. An int
+``padding`` pads that many pixels on every side, PyTorch's symmetric
+rule (RetinaNet's ``k // 2``), for convolutions and pools alike.
 """
 
 from __future__ import annotations
@@ -34,9 +36,12 @@ def _same_pads(size: int, window: int, stride: int, dilation: int = 1):
 def _same_input(x, w, stride, padding, dilation):
     """``(NCHW channels-last view of x, symmetric pads)`` for a convolution
     with OIHW ``w``: an asymmetric TF-SAME padding is applied to ``x``
-    here, a symmetric one is left to the convolution."""
+    here, a symmetric one (or an int ``padding``) is left to the
+    convolution."""
     pad = (0, 0)
-    if padding == "SAME":
+    if isinstance(padding, int):
+        pad = (padding, padding)
+    elif padding == "SAME":
         ph = _same_pads(x.shape[1], w.shape[2], stride, dilation)
         pw = _same_pads(x.shape[2], w.shape[3], stride, dilation)
         if ph[0] == ph[1] and pw[0] == pw[1]:
@@ -44,7 +49,7 @@ def _same_input(x, w, stride, padding, dilation):
         else:
             x = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
     elif padding != "VALID":
-        raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+        raise ValueError(f"padding must be 'SAME', 'VALID' or an int, got {padding!r}")
     return x.permute(0, 3, 1, 2), pad
 
 
@@ -168,7 +173,9 @@ def conv2d_bias_in(x, wb, stride=1, padding="SAME", dilation=1):
     (e - 1) / 2``. Output ``o``'s centre tap reads input ``o * stride -
     before + (e - 1) / 2 >= o * stride >= 0``, and the last output's reads
     ``n - 1 + after - (e - 1) / 2 <= n - 1`` (if ``total > 0``; else
-    ``(out - 1) * stride + (e - 1) / 2 <= n - 1 - (e - 1) / 2``).
+    ``(out - 1) * stride + (e - 1) / 2 <= n - 1 - (e - 1) / 2``). An int
+    padding of ``(e - 1) / 2`` a side (PyTorch's ``k // 2``) centres every
+    tap on input ``o * stride``, and ``(out - 1) * stride <= n - 1``.
     """
     if wb.shape[1] != x.shape[-1] + BIAS_CHANNELS:
         raise ValueError(f"conv2d_bias_in: filter of {wb.shape[1]} input channels for a map "
@@ -213,23 +220,37 @@ def depthwise_conv2d(x, w, b=None, stride=1, padding="SAME", f32_out=False):
 def float_conv_executor(params, inference=True):
     """The float conv executor of a family's ``walk_feature_maps`` and the
     heads: ``conv(name, x, *, stride=1, padding="SAME", dilation=1,
-    depthwise=False, relu=False)``, conv + bias (+ ReLU where ``relu``;
-    norms, other activations and skips live in the walker), as the JAX
-    package's ``layers.float_conv_executor``.
+    depthwise=False, relu=False, groups=1, skip=None)``, conv + bias (+
+    ReLU where ``relu``; norms, other activations and skips live in the
+    walker, but for ``skip``: ``relu(conv + bias + skip)``, a residual
+    block's last conv), as the JAX package's ``layers.float_conv_executor``
+    (which takes neither ``groups`` nor ``skip``).
 
     ``inference=True``: every output rounds once, as the JAX package's
     ``f32_out=True``: :func:`conv_relu` (cuDNN's fused conv + bias + ReLU
-    on the card), :func:`conv2d_bias_in` (with the ``"wb"`` filter that
+    on the card), :func:`conv_add_relu` for a ``skip``,
+    :func:`conv2d_bias_in` (with the ``"wb"`` filter that
     ``ssd_vgg.stage_conv_weights`` staged, else one widened per call) and
     the float32 form of :func:`depthwise_conv2d`. ``inference=False``: the
     differentiable training math, :func:`conv_relu_train`,
     :func:`conv2d_train` and the ``x.dtype`` depthwise form (two roundings
-    in bf16, as the JAX package's default)."""
+    in bf16, as the JAX package's default). A grouped conv (``groups >
+    1``, always with its ReLU) is :func:`grouped_conv`; it and ``skip``
+    exist on the inference route alone (RetinaNet serves, and trains
+    nowhere in the port)."""
 
-    def conv(name, x, *, stride=1, padding="SAME", dilation=1, depthwise=False, relu=False):
+    def conv(name, x, *, stride=1, padding="SAME", dilation=1, depthwise=False, relu=False,
+             groups=1, skip=None):
         p = params[name]
         if depthwise:
             return depthwise_conv2d(x, p["w"], p["b"], stride, padding, f32_out=inference)
+        if groups > 1 or skip is not None:
+            if not (relu and inference):
+                raise ValueError(f"{name}: a grouped conv or a skip runs on the inference "
+                                 "route alone, with its ReLU")
+            if groups > 1:
+                return grouped_conv(p, x, stride, padding, groups)
+            return conv_add_relu(p, x, skip, stride, padding)
         if relu:
             return (conv_relu if inference else conv_relu_train)(p, x, stride, padding, dilation)
         if not inference:
@@ -238,6 +259,28 @@ def float_conv_executor(params, inference=True):
         return conv2d_bias_in(x, wb, stride, padding, dilation)
 
     return conv
+
+
+@counted_span("ssd.grouped_conv")
+def grouped_conv(params, x, stride, padding, groups):
+    """Grouped conv + bias + ReLU of NHWC ``x`` (an OIHW filter of ``cin /
+    groups`` input channels), the inference route's.
+
+    ``F.conv2d(groups=...)`` in float32 from the compute-dtype
+    operands with the float32 bias inside, the ReLU, one rounding to
+    ``x.dtype``, the same route on the CPU and the card, as
+    :func:`depthwise_conv2d`'s ``f32_out`` form (every product of two bf16
+    values is exact in float32, and in TF32 where cuDNN takes it). Not
+    :func:`conv_relu`: for 32 groups cuDNN's fused conv + bias + ReLU runs
+    a generic FFMA kernel, 255 ms of RetinaNet's 16 grouped convs a batch
+    of 64 on an H100 against ~40 here (PERF.md).
+
+    Each call counts once in ``grouped_conv.calls`` and runs inside the
+    span ``ssd.grouped_conv``."""
+    w = params["w"].to(x.dtype)
+    xn, pad = _same_input(x, w, stride, padding, 1)
+    y = F.conv2d(xn.float(), w.float(), params["b"].float(), stride, pad, 1, groups)
+    return torch.relu_(y).to(x.dtype).permute(0, 2, 3, 1)
 
 
 def conv_relu(params, x, stride=1, padding="SAME", dilation=1):
@@ -259,6 +302,32 @@ def conv_relu(params, x, stride=1, padding="SAME", dilation=1):
     xn, pad = _same_input(x, w, stride, padding, dilation)
     y = torch.cudnn_convolution_relu(xn, w, params["b"].float(), [stride, stride], list(pad),
                                      [dilation, dilation], 1)
+    return y.permute(0, 2, 3, 1)
+
+
+def conv_add_relu(params, x, skip, stride=1, padding="SAME"):
+    """``relu(conv(x) + bias + skip)`` of NHWC ``x`` and ``skip``, rounded
+    once: a residual block's last conv with its skip and ReLU. On the card
+    cuDNN's fused ``torch.cudnn_convolution_add_relu`` (the float32 bias
+    and the skip join the float32 accumulator, as :func:`conv_relu`'s
+    bias); on the CPU the convolution in float32 from the operands, the
+    float32 bias and skip added, the ReLU, one rounding to ``x.dtype``."""
+    w = params["w"].to(x.dtype)
+    xn, pad = _same_input(x, w, stride, padding, 1)
+    z = skip.permute(0, 3, 1, 2)
+    if x.device.type != "cuda":
+        y = F.conv2d(xn.float(), w.float(), params["b"].float(), stride, pad) + z.float()
+        return torch.relu_(y).to(x.dtype).permute(0, 2, 3, 1)
+    y = torch.cudnn_convolution_add_relu(xn, w, z.to(x.dtype), 1.0, params["b"].float(),
+                                         [stride, stride], list(pad), [1, 1], 1)
+    return y.permute(0, 2, 3, 1)
+
+
+def upsample_nearest(x, size):
+    """NHWC ``x`` resized to ``size`` ``(h, w)`` by the nearest pixel
+    (``F.interpolate``'s ``"nearest"``: output ``i`` reads input ``floor(i
+    * in / out)``), as an FPN's top-down path; exact in any dtype."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(size), mode="nearest")
     return y.permute(0, 2, 3, 1)
 
 
@@ -284,8 +353,12 @@ def mean_constant(mean_bgr, device) -> torch.Tensor:
 
 def preprocess(images, config):
     """uint8/float NHWC BGR images -> mean-subtracted compute-dtype tensor
-    (the subtraction in float32, then one rounding)."""
-    return (images.float() - mean_constant(config.mean_bgr, images.device)).to(config.dtype)
+    (the subtraction in float32, then one rounding); with a ``std_bgr``
+    other than ones, divided by it in float32 before the rounding."""
+    x = images.float() - mean_constant(config.mean_bgr, images.device)
+    if tuple(config.std_bgr) != (1.0, 1.0, 1.0):
+        x = x / mean_constant(config.std_bgr, images.device)
+    return x.to(config.dtype)
 
 
 def relu6(x):
@@ -293,8 +366,11 @@ def relu6(x):
     return torch.relu(x).clamp_max(6.0)
 
 
-def max_pool(x, window=2, stride=2):
-    """Max pooling of NHWC ``x`` with TF-style SAME (ceil) semantics."""
+def max_pool(x, window=2, stride=2, padding="SAME"):
+    """Max pooling of NHWC ``x`` with TF-style SAME (ceil) semantics, or an
+    int ``padding`` of -inf on every side (PyTorch's floor mode)."""
+    if isinstance(padding, int):
+        return F.max_pool2d(x.permute(0, 3, 1, 2), window, stride, padding).permute(0, 2, 3, 1)
     ph = _same_pads(x.shape[1], window, stride)
     pw = _same_pads(x.shape[2], window, stride)
     pad = 0

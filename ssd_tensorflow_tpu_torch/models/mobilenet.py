@@ -47,6 +47,8 @@ EXTRA_DEFS = ((256, 512), (128, 256), (128, 256), (64, 128))
 #: the family protocol's facts, as the ResNet family's (``models/resnet.py``)
 PER_LAYER_SCALES = False
 RELU_IN_CONV = False
+#: the maps feed SSD's multibox heads (``ssd_vgg.MULTIBOX``)
+OWN_HEADS = False
 stem = load_pretrained = None
 
 

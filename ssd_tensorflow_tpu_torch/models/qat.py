@@ -113,9 +113,14 @@ def _fq_executor(params, scales):
     """The fake-quant conv executor of a family's walk and the heads: each
     conv through :func:`_fq_conv` with ``scales[name]``, then its ReLU
     where asked; depthwise convs with a weight-only fake-quantized filter
-    in float32 (the deploy path has no activation quantizer there)."""
+    in float32 (the deploy path has no activation quantizer there). A
+    grouped conv raises, as the int8 route it rehearses does."""
 
-    def conv(name, x, *, stride=1, padding="SAME", dilation=1, depthwise=False, relu=False):
+    def conv(name, x, *, stride=1, padding="SAME", dilation=1, depthwise=False, relu=False,
+             groups=1):
+        if groups > 1:
+            raise NotImplementedError(f"{name}: the int8 route has no grouped conv "
+                                      f"(groups={groups}), so neither has fake quantization")
         p = params[name]
         if depthwise:
             return depthwise_conv2d(x, fake_quant_weight(p["w"].float()), p["b"].float(), stride,

@@ -150,9 +150,14 @@ def _qconv_executor(staged):
     ``weights.stage_qparams`` staged it); depthwise convs weight-only, the
     staged bf16 dequantized filter (``float32(wq) * w_scale`` rounded once)
     in the two-rounding bf16 stencil with the bias in bf16, as the JAX
-    package's executor."""
+    package's executor. A grouped conv raises: ``csrc/int8_conv.cu`` has
+    no grouped route."""
 
-    def conv(name, x, *, stride=1, padding="SAME", dilation=1, depthwise=False, relu=False):
+    def conv(name, x, *, stride=1, padding="SAME", dilation=1, depthwise=False, relu=False,
+             groups=1):
+        if groups > 1:
+            raise NotImplementedError(f"{name}: the int8 route has no grouped conv "
+                                      f"(groups={groups}); csrc/int8_conv.cu runs dense convs")
         layer = staged[name]
         if depthwise:
             return depthwise_conv2d(x, layer["w"], layer["b"], stride, padding)

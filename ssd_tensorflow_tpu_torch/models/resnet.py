@@ -47,6 +47,8 @@ PER_LAYER_SCALES = False
 #: a GroupNorm sits between each conv and its activation, so every
 #: inference conv carries its bias in (``layers.conv2d_bias_in``)
 RELU_IN_CONV = False
+#: the maps feed SSD's multibox heads (``ssd_vgg.MULTIBOX``)
+OWN_HEADS = False
 #: no stem kernel, and no pretrained import for the train CLI's ``--vgg-dir``
 stem = load_pretrained = None
 

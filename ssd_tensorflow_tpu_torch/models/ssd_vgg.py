@@ -1,22 +1,30 @@
 """The SSD detector: configuration, parameters and forward pass.
 
-Three backbone families, chosen by the preset's ``backbone``: VGG-16
+Three SSD backbone families, chosen by the preset's ``backbone``: VGG-16
 (``models/vgg16.py``), ResNet-34 (``models/resnet.py``) and MobileNetV1
 (``models/mobilenet.py``); the heads, the anchor order and everything
 after them are family-generic: one wide 3x3 multibox head conv per
 source map, whose output channels are the per-shape heads concatenated.
 Outputs follow the anchor-order contract of ``ops/anchors.py``:
-heads-major, then row-major cells.
+heads-major, then row-major cells. A fourth family, RetinaNet on a
+ResNeXt-50 FPN (``models/resnext_fpn.py``), runs heads of its own. This
+module's :func:`param_shapes`, :func:`init_params`, :func:`apply_model`
+and :func:`apply_scores` always hand over to the model's detector
+(:func:`_detector`): SSD's multibox heads (:data:`MULTIBOX`, this
+module's ``multibox_*`` functions) or the family module itself.
 
 The family protocol. Each family module (:func:`_backbone_module`, the
 one place that maps a backbone name to its code) exposes
 ``map_channels(preset)``, ``backbone_shapes(preset)``,
-``init_backbone_params(rng, preset)`` and ``walk_feature_maps(params, x,
-config, conv)``, the one walk of its layers from the preprocessed images
-to the multibox source maps, and the facts the routes ask of it:
-``PER_LAYER_SCALES`` (int8 activation scales one per layer, or per input
-channel folded into the weights), ``RELU_IN_CONV`` (each walked conv
-carries its ReLU), ``stem`` (the bf16 inference route's stem kernel,
+``init_backbone_params(rng, preset)`` (an SSD family's; a family with
+``OWN_HEADS`` gives the four entry points instead) and
+``walk_feature_maps(params, x, config, conv)``, the one walk of its
+layers from the preprocessed images to the multibox source maps, and
+the facts the routes ask of it: ``OWN_HEADS`` (the family module gives
+the detector's entry points itself, else its maps feed
+:data:`MULTIBOX`), ``PER_LAYER_SCALES`` (int8 activation scales one per
+layer, or per input channel folded into the weights), ``RELU_IN_CONV``
+(each walked conv carries its ReLU), ``stem`` (the bf16 inference route's stem kernel,
 after which the walk starts from pool1, or None) and ``load_pretrained``
 (or None). The walk runs every convolution, and :func:`walk_heads` every
 head, through a route's conv executor ``conv(name, x, *, stride=1,
@@ -45,12 +53,13 @@ float32, TF32 off (``layers.full_float32``).
 from __future__ import annotations
 
 import dataclasses
+import types
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from ssd_tensorflow_tpu_torch.models import mobilenet, resnet, vgg16
+from ssd_tensorflow_tpu_torch.models import mobilenet, resnet, resnext_fpn, vgg16
 from ssd_tensorflow_tpu_torch.models.layers import (
     float_conv_executor,
     full_float32,
@@ -64,7 +73,8 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 #: the stem kernels a bf16 VGG forward may run (``ModelConfig.pallas_stem_variant``)
 STEM_VARIANTS = ("dma", "uint8")
 #: the family module of each backbone a preset may name
-_FAMILIES = {"vgg": vgg16, "resnet34": resnet, "mobilenetv1": mobilenet}
+_FAMILIES = {"vgg": vgg16, "resnet34": resnet, "mobilenetv1": mobilenet,
+             "resnext50_fpn": resnext_fpn}
 BACKBONES = tuple(_FAMILIES)
 
 
@@ -82,6 +92,9 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     #: BGR channel means subtracted from the raw images.
     mean_bgr: Tuple[float, float, float] = (104.0, 117.0, 123.0)
+    #: BGR channel deviations the mean-subtracted images are divided by
+    #: (ones: no division; serialized only when set).
+    std_bgr: Tuple[float, float, float] = (1.0, 1.0, 1.0)
     #: carried for bundle compatibility only: the JAX package's
     #: width-packed conv1 block is a TPU lane-layout choice with the same
     #: math, and the port always computes the plain conv1 block.
@@ -142,6 +155,14 @@ def _backbone_module(preset: SSDPreset):
     return _FAMILIES[preset.backbone]
 
 
+def _detector(preset: SSDPreset):
+    """The entry points (``param_shapes``, ``init_params``, ``apply_model``,
+    ``apply_scores``) of ``preset``'s model: its family module where the
+    family runs heads of its own (``OWN_HEADS``), else :data:`MULTIBOX`."""
+    fam = _backbone_module(preset)
+    return fam if fam.OWN_HEADS else MULTIBOX
+
+
 def map_channels(preset: SSDPreset):
     """Head-input channel count per multibox source map, per family."""
     return _backbone_module(preset).map_channels(preset)
@@ -150,6 +171,32 @@ def map_channels(preset: SSDPreset):
 def param_shapes(config: ModelConfig) -> dict:
     """``{layer: {leaf: shape}}`` of every parameter, convolutions in the
     JAX package's HWIO layout (the bundle's and the conversion's layout)."""
+    return _detector(config.preset).param_shapes(config)
+
+
+def init_params(config: ModelConfig, seed: int = 0) -> dict:
+    """Initialized parameters from ``numpy.random.default_rng(seed)``
+    (float32 CPU tensors, OIHW)."""
+    return _detector(config.preset).init_params(config, seed)
+
+
+def apply_model(params, images, config: ModelConfig, *, inference: bool = True, shards=None):
+    """Forward pass of ``(B, H, W, 3)`` raw BGR images: ``(logits, locs)``
+    float32 in the anchor order (:func:`multibox_apply_model` for SSD)."""
+    return _detector(config.preset).apply_model(params, images, config, inference=inference,
+                                                shards=shards)
+
+
+def apply_scores(params, images, config: ModelConfig):
+    """The throughput inference forward that ``ops/postprocess.decode_scores``
+    takes (:func:`multibox_apply_scores` for SSD; RetinaNet's per-level
+    logits, None, per-level offsets, ``models/resnext_fpn.apply_scores``)."""
+    return _detector(config.preset).apply_scores(params, images, config)
+
+
+def multibox_param_shapes(config: ModelConfig) -> dict:
+    """SSD's :func:`param_shapes`: the family's trunk, then a
+    ``classifier{i}`` head conv per source map."""
     preset = config.preset
     shapes = _backbone_module(preset).backbone_shapes(preset)
     for i, (m, c) in enumerate(zip(preset.maps, map_channels(preset))):
@@ -158,10 +205,11 @@ def param_shapes(config: ModelConfig) -> dict:
     return shapes
 
 
-def init_params(config: ModelConfig, seed: int = 0) -> dict:
-    """Xavier-initialized parameters from ``numpy.random.default_rng(seed)``
-    (float32 CPU tensors, OIHW). Each multibox head is initialized like a
-    separate ``3x3xCx(K+5)`` conv, then the heads of a map are concatenated."""
+def multibox_init_params(config: ModelConfig, seed: int = 0) -> dict:
+    """SSD's :func:`init_params`: Xavier-initialized parameters from
+    ``numpy.random.default_rng(seed)`` (float32 CPU tensors, OIHW). Each
+    multibox head is initialized like a separate ``3x3xCx(K+5)`` conv, then
+    the heads of a map are concatenated."""
     rng = np.random.default_rng(seed)
     preset = config.preset
     params = _backbone_module(preset).init_backbone_params(rng, preset)
@@ -228,8 +276,10 @@ def stage_conv_weights(params, config: ModelConfig):
     return params
 
 
-def apply_model(params, images, config: ModelConfig, *, inference: bool = True, shards=None):
-    """Forward pass of ``(B, H, W, 3)`` raw BGR images.
+def multibox_apply_model(params, images, config: ModelConfig, *, inference: bool = True,
+                         shards=None):
+    """SSD's :func:`apply_model`, the forward pass of ``(B, H, W, 3)`` raw
+    BGR images.
 
     Returns ``(logits, locs)``: ``(B, A, K+1)`` float32 class logits and
     ``(B, A, 4)`` float32 location offsets, heads-major anchor order.
@@ -268,8 +318,9 @@ def apply_result(params, images, config: ModelConfig):
     return torch.cat([torch.softmax(logits, dim=-1), locs], dim=-1)
 
 
-def apply_scores(params, images, config: ModelConfig):
-    """Throughput inference head: per-anchor ``(conf, cls, locs)``.
+def multibox_apply_scores(params, images, config: ModelConfig):
+    """SSD's :func:`apply_scores`, the throughput inference head:
+    per-anchor ``(conf, cls, locs)``.
 
     Returns conf ``(B, A)`` float32, cls ``(B, A)`` int32 and locs
     ``(B, A, 4)`` float32 in the anchor-order contract.
@@ -303,6 +354,13 @@ def reduce_head_maps(head_maps, config: ModelConfig):
         clss.append(cls_m.reshape(b, -1))
         locss.append(locs_m.reshape(b, -1, 4).float())
     return torch.cat(confs, dim=1), torch.cat(clss, dim=1), torch.cat(locss, dim=1)
+
+
+#: SSD's multibox detector: the entry points of the SSD families' models
+MULTIBOX = types.SimpleNamespace(param_shapes=multibox_param_shapes,
+                                 init_params=multibox_init_params,
+                                 apply_model=multibox_apply_model,
+                                 apply_scores=multibox_apply_scores)
 
 
 class SSDVGG:

@@ -52,6 +52,8 @@ PER_LAYER_SCALES = True
 #: every conv of the walk carries its ReLU, so the float inference route
 #: runs them as ``layers.conv_relu`` and only the heads carry their bias in
 RELU_IN_CONV = True
+#: the maps feed SSD's multibox heads (``ssd_vgg.MULTIBOX``)
+OWN_HEADS = False
 
 
 def map_channels(preset: SSDPreset):

@@ -52,11 +52,19 @@ def box_canvas_corners(boxes, canvas: int = CANVAS_SIZE):
     return torch.trunc(cxcywh_to_corners(boxes, canvas, canvas))
 
 
-def clamp_boxes(boxes, canvas: int = CANVAS_SIZE):
+def clamp_boxes(boxes, canvas: int = CANVAS_SIZE, clip: bool = False):
     """Integerize onto the canvas, clamp to its bounds (with the
     ``min(xmin, xmax)`` guard for degenerate boxes) and convert back to
-    center form. Rows holding NaN or Inf pass through untouched."""
+    center form. Rows holding NaN or Inf pass through untouched.
+
+    The default, SSD's (the JAX package's), clamps each corner on its own
+    side, so a box wholly off one side keeps its far corner off the canvas.
+    ``clip`` clamps every corner to ``[0, canvas - 1]``, as torchvision's
+    ``clip_boxes_to_image`` (RetinaNet's decode): such a box becomes a line
+    on that edge."""
     c = box_canvas_corners(boxes, canvas)
+    if clip:
+        c = c.clamp(0.0, canvas - 1.0)
     xmin = torch.clamp_min(c[..., 0], 0.0)
     xmax = torch.clamp_max(c[..., 1], canvas - 1.0)
     ymin = torch.clamp_min(c[..., 2], 0.0)

@@ -1,10 +1,16 @@
-"""SSD box codec: center-form boxes <-> anchor-relative offsets.
+"""Box codecs: center-form boxes <-> anchor-relative offsets.
 
-The prior variances 0.1 (center) and 0.2 (size) are baked in as x10 /
-x5 multipliers; decode clamps offsets at 100 to guard ``exp``.
+SSD's: the prior variances 0.1 (center) and 0.2 (size) are baked in as
+x10 / x5 multipliers; decode clamps offsets at 100 to guard ``exp``.
+The R-CNN decoder (RetinaNet's, torchvision's ``BoxCoder.decode`` with
+weights ``(1, 1, 1, 1)``): offsets in units of the anchor's size, the
+size offsets clamped at ``log(1000 / 16)`` before ``exp``; RetinaNet only
+serves, so it has no encoder here.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -12,6 +18,9 @@ from ssd_tensorflow_tpu_torch.ops.boxes import true_div
 
 #: Decode clamp on the offsets.
 DECODE_CLAMP = 100.0
+#: the R-CNN coder's clamp on the width and height offsets (torchvision's
+#: ``bbox_xform_clip``)
+RCNN_SIZE_CLAMP = math.log(1000.0 / 16)
 
 
 def _log_rounded_once(x):
@@ -55,3 +64,15 @@ def decode_locations(offsets, anchors):
     w = _exp_rounded_once(true_div(tw, 5.0)) * aw
     h = _exp_rounded_once(true_div(th, 5.0)) * ah
     return torch.stack([cx, cy, w, h], dim=-1)
+
+
+def decode_rcnn(offsets, anchors):
+    """R-CNN offsets -> center-form boxes, as torchvision's
+    ``BoxCoder.decode_single`` with weights 1 in the anchors' units:
+    ``c = d * w_a + c_a``, ``w = exp(min(dw, log(1000 / 16))) * w_a``
+    (``exp`` rounded once, as :func:`decode_locations`)."""
+    acx, acy, aw, ah = anchors.unbind(-1)
+    dx, dy, dw, dh = offsets.unbind(-1)
+    w = _exp_rounded_once(torch.clamp_max(dw, RCNN_SIZE_CLAMP)) * aw
+    h = _exp_rounded_once(torch.clamp_max(dh, RCNN_SIZE_CLAMP)) * ah
+    return torch.stack([dx * aw + acx, dy * ah + acy, w, h], dim=-1)

@@ -18,8 +18,11 @@ from ssd_tensorflow_tpu_torch.ops import _build
 from ssd_tensorflow_tpu_torch.ops.iou import pairwise_canvas_iou
 from ssd_tensorflow_tpu_torch.ops.nms import NMS_THRESHOLD, greedy_keep
 
-#: Largest candidate count per image the kernel takes (csrc/nms.cu kMaxD).
+#: Largest candidate count per image of the shared-memory kernel (csrc/nms.cu
+#: kMaxD); above it the mask goes to a device-memory workspace.
 MAX_CANDIDATES = 1024
+#: Largest candidate count per image the kernels take (kMaxDGlobal).
+MAX_CANDIDATES_GLOBAL = 8192
 
 
 def nms_keep_plain(corners, valid, threshold: float = NMS_THRESHOLD):
@@ -31,6 +34,15 @@ def nms_keep_plain(corners, valid, threshold: float = NMS_THRESHOLD):
 def _launcher():
     fn = _build.libraries()["nms"].nms_keep_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _global_launcher():
+    fn = _build.libraries()["nms"].nms_keep_launch_global
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                            ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -48,7 +60,11 @@ def nms_keep(corners, valid, threshold: float = NMS_THRESHOLD):
 
     Returns:
       ``(B, D)`` bool keep mask. CUDA tensors run the kernel (and count
-      one launch in ``nms_keep.launches``); CPU tensors the plain version.
+      one call in ``nms_keep.launches``): up to :data:`MAX_CANDIDATES` the
+      shared-memory kernel, above it and up to
+      :data:`MAX_CANDIDATES_GLOBAL` the two kernels of the device-memory
+      mask (a ``B x D x ceil(D / 32)`` word workspace, 200 MB at B = 64,
+      D = 5,000); CPU tensors the plain version.
     """
     if corners.device.type == "cpu":
         return nms_keep_plain(corners, valid, threshold)
@@ -62,15 +78,21 @@ def nms_keep(corners, valid, threshold: float = NMS_THRESHOLD):
         raise ValueError(f"nms_keep: valid must be ({b}, {d}) bool on {corners.device}")
     if not (corners.is_contiguous() and valid.is_contiguous()) or corners.data_ptr() % 16:
         raise ValueError("nms_keep: corners (16-byte aligned) and valid must be contiguous")
-    if d > MAX_CANDIDATES:
-        raise ValueError(f"nms_keep: D={d} exceeds the kernel's {MAX_CANDIDATES} candidates")
+    if d > MAX_CANDIDATES_GLOBAL:
+        raise ValueError(f"nms_keep: D={d} exceeds the kernels' {MAX_CANDIDATES_GLOBAL} "
+                         "candidates")
     keep = torch.empty((b, d), dtype=torch.bool, device=corners.device)
     if b == 0 or d == 0:
         return keep
     with torch.cuda.device(corners.device):
         stream = torch.cuda.current_stream(corners.device).cuda_stream
-        rc = _launcher()(corners.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-                         b, d, threshold, stream)
+        if d <= MAX_CANDIDATES:
+            rc = _launcher()(corners.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+                             b, d, threshold, stream)
+        else:
+            mask = torch.empty(b * d * -(-d // 32), dtype=torch.int32, device=corners.device)
+            rc = _global_launcher()(corners.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+                                    mask.data_ptr(), b, d, threshold, stream)
     _build.check(rc, "nms_keep")
     nms_keep.launches += 1
     return keep

@@ -4,6 +4,9 @@ The preset registry mirrors the reference's ``SSD_PRESETS``
 (reference: ssdutils.py:32-73) so that datasets can be pre-processed
 without instantiating the network. ``vgg300`` has 6 feature maps and
 8,732 anchors; ``vgg512`` has 7 maps and 24,564 anchors.
+``PYRAMID_PRESETS`` holds RetinaNet's: ``retina800`` is five pyramid
+levels at 800x800 (9 anchors a cell, sizes in pixels:
+``SSDMap.anchor_sizes``), 120,087 anchors.
 """
 
 from __future__ import annotations
@@ -16,18 +19,24 @@ from ssd_tensorflow_tpu_torch.types import Size
 
 @dataclasses.dataclass(frozen=True)
 class SSDMap:
-    """One multibox feature map: grid size, anchor scale, aspect ratios."""
+    """One multibox feature map: grid size, anchor scale, aspect ratios.
+
+    A map with ``anchor_sizes`` (pixels; ``scale`` unused) takes the
+    anchor rule of torchvision's ``AnchorGenerator`` instead of SSD's:
+    every size at every aspect ratio (``ops/anchors.py``)."""
 
     size: Size
     scale: float
     aspect_ratios: Tuple[float, ...]
+    anchor_sizes: Tuple[int, ...] = ()
 
     @property
     def num_shapes(self) -> int:
-        """Anchor shapes per cell: AR=1, each extra AR, plus s' box.
-
-        Reference: ssdutils.py:84-100 and ssdvgg.py:359.
-        """
+        """Anchor shapes per cell: AR=1, each extra AR, plus s' box
+        (reference: ssdutils.py:84-100 and ssdvgg.py:359); or each of
+        ``anchor_sizes`` at each aspect ratio."""
+        if self.anchor_sizes:
+            return len(self.anchor_sizes) * len(self.aspect_ratios)
         return 2 + len(self.aspect_ratios)
 
 
@@ -38,10 +47,9 @@ class SSDPreset:
     maps: Tuple[SSDMap, ...]
     extra_scale: float
     num_anchors: int
-    #: which backbone family builds this preset's feature maps: "vgg"
-    #: (the only family the port runs so far), "resnet34" or
-    #: "mobilenetv1". Everything anchor-side (generation, codec, NMS) is
-    #: backbone-agnostic.
+    #: which backbone family builds this preset's feature maps: "vgg",
+    #: "resnet34", "mobilenetv1" or "resnext50_fpn" (RetinaNet).
+    #: Everything anchor-side (generation, codec, NMS) is backbone-agnostic.
     backbone: str = "vgg"
 
     @property
@@ -51,11 +59,13 @@ class SSDPreset:
 
 def _preset(name, image_size, maps, extra_scale, num_anchors,
             backbone="vgg") -> SSDPreset:
+    """``maps``: ``(size, scale, aspect ratios[, anchor sizes])`` each."""
     return SSDPreset(
         name=name,
         image_size=Size(*image_size),
         maps=tuple(
-            SSDMap(Size(*size), scale, tuple(ars)) for size, scale, ars in maps
+            SSDMap(Size(*m[0]), m[1], tuple(m[2]), tuple(m[3]) if len(m) > 3 else ())
+            for m in maps
         ),
         extra_scale=extra_scale,
         num_anchors=num_anchors,
@@ -183,12 +193,44 @@ SSD_PRESETS = {
     ),
 }
 
+#: RetinaNet's pyramid presets (no counterpart in the reference's registry,
+#: which ``SSD_PRESETS`` mirrors): anchors by ``SSDMap.anchor_sizes``
+PYRAMID_PRESETS = {
+    # RetinaNet at 800x800 (Lin et al. 2017, arXiv:1708.02002; torchvision's
+    # retinanet_resnet50_fpn, MLPerf Inference's detector since v2.1): P3-P7
+    # of a ResNeXt-50 FPN (models/resnext_fpn.py), 9 anchors a cell,
+    # torchvision's sizes (x, int(x 2^(1/3)), int(x 2^(2/3))) for x = 32..512
+    # at ratios 0.5, 1, 2; 13,343 cells, 120,087 anchors. ``scale`` and
+    # ``extra_scale`` are unused by that anchor rule.
+    "retina800": _preset(
+        "retina800",
+        (800, 800),
+        [((g, g), 0.0, (0.5, 1.0, 2.0), (x, int(x * 2 ** (1 / 3)), int(x * 2 ** (2 / 3))))
+         for g, x in ((100, 32), (50, 64), (25, 128), (13, 256), (7, 512))],
+        extra_scale=0.0,
+        num_anchors=120087,
+        backbone="resnext50_fpn",
+    ),
+    # Tiny RetinaNet preset for fast tests: the same network at 64x64,
+    # levels 8/4/2/1/1 and anchors an eighth of retina800's, 774 anchors.
+    "rxtest64": _preset(
+        "rxtest64",
+        (64, 64),
+        [((g, g), 0.0, (0.5, 1.0, 2.0), (x, int(x * 2 ** (1 / 3)), int(x * 2 ** (2 / 3))))
+         for g, x in ((8, 4), (4, 8), (2, 16), (1, 32), (1, 64))],
+        extra_scale=0.0,
+        num_anchors=774,
+        backbone="resnext50_fpn",
+    ),
+}
+
 
 def get_preset_by_name(pname: str) -> SSDPreset:
-    """Look up a preset (reference: ssdutils.py:70-73)."""
-    if pname not in SSD_PRESETS:
+    """Look up a preset (reference: ssdutils.py:70-73), SSD's or RetinaNet's."""
+    found = SSD_PRESETS.get(pname) or PYRAMID_PRESETS.get(pname)
+    if found is None:
         raise RuntimeError("No such preset: " + pname)
-    return SSD_PRESETS[pname]
+    return found
 
 
 def preset_to_dict(preset: SSDPreset) -> dict:
@@ -203,6 +245,7 @@ def preset_to_dict(preset: SSDPreset) -> dict:
                 "size": list(m.size),
                 "scale": m.scale,
                 "aspect_ratios": list(m.aspect_ratios),
+                **({"anchor_sizes": list(m.anchor_sizes)} if m.anchor_sizes else {}),
             }
             for m in preset.maps
         ],
@@ -218,7 +261,8 @@ def preset_from_dict(d: dict) -> SSDPreset:
     return _preset(
         d["name"],
         tuple(d["image_size"]),
-        [(tuple(m["size"]), m["scale"], tuple(m["aspect_ratios"])) for m in d["maps"]],
+        [(tuple(m["size"]), m["scale"], tuple(m["aspect_ratios"]),
+          tuple(m.get("anchor_sizes", ()))) for m in d["maps"]],
         d["extra_scale"],
         d["num_anchors"],
         d.get("backbone", "vgg"),

@@ -41,7 +41,8 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("b,d", [(64, 200), (3, 57), (2, 256), (1, 1), (2, 1024)])
+@pytest.mark.parametrize("b,d", [(64, 200), (3, 57), (2, 256), (1, 1), (2, 1024), (2, 1025),
+                                 (2, 5000)])
 def test_nms_kernel_matches_plain(cuda, b, d):
     rng = np.random.default_rng(d)
     w, h = rng.uniform(0.05, 0.5, (2, b, d))
@@ -106,8 +107,38 @@ def test_nms_kernel_alternating_chain_at_the_largest_d(cuda):
     assert torch.equal(got.cpu(), nms_cuda.nms_keep_plain(corners, valid))
 
 
+@pytest.mark.parametrize("d", [1025, 5000])
+def test_nms_kernel_alternating_chain_in_device_memory(cuda, d):
+    """The device-memory mask's scan: every candidate overlaps only its
+    predecessor, 157 blocks at D = 5000."""
+    idx = torch.arange(d, dtype=torch.float32)
+    corners = torch.stack([30 * idx, 30 * idx + 99, torch.zeros(d), torch.full((d,), 99.0)], -1)[None]
+    valid = torch.ones((1, d), dtype=torch.bool)
+    got = nms_cuda.nms_keep(corners.to(cuda), valid.to(cuda))
+    assert torch.equal(got.cpu()[0], torch.arange(d) % 2 == 0)
+
+
+def test_nms_kernel_multi_label_candidates(cuda):
+    """RetinaNet's shape of input: 5 levels x 1000 candidates of 264
+    classes, sorted by score, many boxes of one class on one object, a
+    fifth invalid, at NMS 0.5."""
+    rng = np.random.default_rng(5000)
+    b, d = 3, 5000
+    centers = rng.uniform(0.1, 0.9, (b, 40, 2))
+    obj = rng.integers(0, 40, (b, d))
+    c = np.take_along_axis(centers, obj[..., None], 1) + rng.normal(0, 0.02, (b, d, 2))
+    wh = rng.uniform(0.05, 0.4, (b, d, 2))
+    boxes = torch.tensor(np.concatenate([c, wh], -1), dtype=torch.float32)
+    classes = torch.tensor((obj * 7 + rng.integers(0, 3, (b, d))) % 264)
+    shifted = class_shifted(box_canvas_corners(boxes), classes).contiguous()
+    valid = torch.tensor(rng.uniform(0, 1, (b, d)) > 0.2)
+    want = nms_cuda.nms_keep_plain(shifted, valid, 0.5)
+    got = nms_cuda.nms_keep(shifted.to(cuda), valid.to(cuda), 0.5)
+    assert torch.equal(got.cpu(), want) and 0 < int(want.sum()) < int(valid.sum())
+
+
 def test_nms_kernel_rejects_too_many_candidates(cuda):
-    corners = torch.zeros((1, nms_cuda.MAX_CANDIDATES + 1, 4), device=cuda)
+    corners = torch.zeros((1, nms_cuda.MAX_CANDIDATES_GLOBAL + 1, 4), device=cuda)
     valid = torch.ones(corners.shape[:2], dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError, match="exceeds"):
         nms_cuda.nms_keep(corners, valid)
@@ -1069,3 +1100,97 @@ def test_train_cli_epochs_on_the_card(nccl_group, tmp_path):
     assert nms_cuda.nms_keep.launches - before == 3 * (2 + 1)
     final = str(tmp_path / "p" / "final.ckpt.npz")
     assert checkpoint_config(final)["epoch"] == 3
+
+
+#: RetinaNet's grouped 3x3 convs (32 groups): (hw, channels, stride) of a
+#: stage's first and later blocks at retina800
+RETINA_GROUPED = [(200, 128, 1), (200, 256, 2), (100, 256, 1), (100, 512, 2), (25, 1024, 1)]
+
+
+@pytest.mark.parametrize("hw,c,stride", RETINA_GROUPED)
+def test_grouped_conv_relu_rounds_once(cuda, hw, c, stride):
+    g = torch.Generator(device=cuda).manual_seed(hw * c + stride)
+    x = (2 * torch.randn((2, hw, hw, c), generator=g, device=cuda)).to(torch.bfloat16)
+    w = (torch.randn((c, c // 32, 3, 3), generator=g, device=cuda) / (9 * c // 32) ** 0.5).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    b = torch.randn(c, generator=g, device=cuda) * 0.5
+    before = layers.grouped_conv.calls
+    got = layers.grouped_conv({"w": w, "b": b}, x, stride, 1, 32)
+    assert layers.grouped_conv.calls == before + 1
+    want = torch.relu(torch.nn.functional.conv2d(x.permute(0, 3, 1, 2).float(), w.float(), b,
+                                                 stride, 1, 1, 32)).to(torch.bfloat16)
+    want = want.permute(0, 2, 3, 1)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    _one_step(got, want)
+    assert float((got == want).float().mean()) >= 0.99
+
+
+#: a bottleneck's last 1x1 conv with its skip: (hw, width, out) at retina800
+RETINA_ADD_RELU = [(200, 128, 256), (100, 256, 512), (50, 512, 1024), (25, 1024, 2048)]
+
+
+@pytest.mark.parametrize("hw,cin,cout", RETINA_ADD_RELU)
+def test_conv_add_relu_rounds_once(cuda, hw, cin, cout):
+    """cuDNN's fused conv + bias + skip + ReLU rounds once, as the CPU route
+    (``layers.conv_add_relu``) does."""
+    g = torch.Generator(device=cuda).manual_seed(hw * cin + cout)
+    x = (2 * torch.randn((2, hw, hw, cin), generator=g, device=cuda)).to(torch.bfloat16)
+    skip = (2 * torch.randn((2, hw, hw, cout), generator=g, device=cuda)).to(torch.bfloat16)
+    w = (torch.randn((cout, cin, 1, 1), generator=g, device=cuda) / cin ** 0.5).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    b = torch.randn(cout, generator=g, device=cuda) * 0.5
+    got = layers.conv_add_relu({"w": w, "b": b}, x, skip, 1, 0)
+    want = layers.conv_add_relu({"w": w.cpu(), "b": b.cpu()}, x.cpu(), skip.cpu(), 1, 0)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    _one_step(got.cpu(), want)
+    assert float((got.cpu() == want).float().mean()) >= 0.99
+
+
+def _retina_case(cuda, b=2):
+    """The retina800 configuration of the benchmark, its reference module,
+    seeded parameters (on the CPU) and ``b`` staged images."""
+    import json
+    import sys
+    from pathlib import Path
+
+    bench = Path(__file__).resolve().parents[1] / "h100bench"
+    if str(bench) not in sys.path:
+        sys.path.insert(0, str(bench))
+    from benchlib import pool
+    from reference import retinanet_resnext50fpn as ref
+
+    cfg = json.loads((bench / "configs" / "retinanet800-resnext50fpn-bf16.json").read_text())
+    traffic = json.loads((bench / "traffic" / "serve-b64.json").read_text())
+    params = ref.seeded_params(cfg, 3_000_000_011, torch.device("cpu"))
+    images = pool.images(b, tuple(cfg["preset"]["image_size"]), traffic["augment"], 17,
+                         torch.device("cpu"))
+    return cfg, ref, params, images
+
+
+def test_retina800_forward_card_matches_cpu_reference(cuda):
+    """retina800 at b2 on the card against the plain float32 reference on the
+    CPU, seeded weights. float32 (TF32 off): within 1e-3 of the largest
+    logit / offset (sums in other orders over ~70 layers; ~1e-5 expected).
+    bf16, the served precision: every score (sigmoid of a logit) within
+    0.05 of the reference's, and the mean within 0.005 (bf16 keeps 8
+    significant bits per activation over ~70 layers)."""
+    from ssd_tensorflow_tpu_torch.inference import model_config_from_dict
+
+    cfg, ref, params, images = _retina_case(cuda)
+    with ref.full_float32():
+        want_l, want_c = ref.float_forward(params, images, cfg)
+    on_card = {n: {k: v.to(cuda) for k, v in leaf.items()} for n, leaf in params.items()}
+    for dtype in ("float32", "bfloat16"):
+        mc = model_config_from_dict({**cfg["model"], "compute_dtype": dtype})
+        staged = ssd_vgg.stage_conv_weights(
+            {n: {k: (v.to(mc.dtype) if v.dim() == 4 else v) for k, v in leaf.items()}
+             for n, leaf in on_card.items()}, mc)
+        with torch.inference_mode():
+            got_l, got_c = ssd_vgg.apply_model(staged, images.to(cuda), mc)
+        got_l, got_c = got_l.cpu(), got_c.cpu()
+        if dtype == "float32":
+            assert float((got_l - want_l).abs().max()) <= 1e-3 * float(want_l.abs().max())
+            assert float((got_c - want_c).abs().max()) <= 1e-3 * float(want_c.abs().max())
+        else:
+            gap = (torch.sigmoid(got_l) - torch.sigmoid(want_l)).abs()
+            assert float(gap.max()) <= 0.05 and float(gap.mean()) <= 0.005
