@@ -29,7 +29,12 @@ non-zero, and the final line is printed only when every phase passed:
    NMS also at retina800's 5,000 candidates of 264 classes, the
    device-memory route, D = 1,025 and 5,000, timed at (64, 5,000)):
    NMS keep masks and the lane-unflatten sums bit-exact, every stem
-   kernel within one bf16 step of its largest output. ``ms`` is device
+   kernel within one bf16 step of its largest output. The depthwise
+   kernel (``csrc/depthwise_conv.cu``) at each distinct depthwise shape
+   of mobilenet320 at ``--batch``, in the int8 route's form, bit-exact
+   against ``depthwise_plain``, timed beside its bound, its plain version
+   and the route it replaced (``library_ms``); the ``depthwise`` line sums
+   the 13 convs. ``ms`` is device
    time from a ``torch.profiler`` window, ``event_ms`` the CUDA-event
    time per call over chained calls (it includes host launch cost).
 4. paths, each driven with every launch count set to 0 just before it
@@ -84,18 +89,22 @@ non-zero, and the final line is printed only when every phase passed:
    ``assets/mobilenet320_int8_qat_minivoc.ssdtpu.npz``, QAT, 20 classes)
    at ``--batch`` x 320 x 320, uint8 images from the seed: on 2 images
    every W8A8 conv's output bit-exact against the card chain (as phase 5)
-   and every weight-only depthwise conv (cuDNN's) and every GroupNorm with
-   its activation and skip (``resnet.norm_act``, the kernel
-   ``csrc/group_norm.cu``) equal to the CPU route bit for bit; the counted
+   and every weight-only depthwise conv (the kernel
+   ``csrc/depthwise_conv.cu``) and every GroupNorm with its activation
+   and skip (``resnet.norm_act``, the kernel ``csrc/group_norm.cu``)
+   equal to the CPU route bit for bit; the counted
    run must launch ``int8_qconv`` once a conv (48 / 28),
-   ``group_norm_cuda`` once a GroupNorm (36 / 27), the im2col route never,
+   ``group_norm_cuda`` once a GroupNorm (36 / 27), ``depthwise_cuda`` once a
+   depthwise conv (0 / 13), the im2col route never,
    NMS, and no stem kernel; two more ``run_scores`` one graph capture and
    two replays with the counted run's detections bit for bit; the
    (replayed) scores the same in two runs and identical to the
    chain-patched eager forward's and to the eager forward's with every
    GroupNorm on the plain route; ms per batch (CUDA events over 5 chained batches),
-   images/s, peak device memory, and GroupNorm's device ms a batch (the
-   ``ssd.group_norm`` spans of one profiled eager forward).
+   images/s, peak device memory, and GroupNorm's and the depthwise convs'
+   device ms a batch (the ``ssd.group_norm`` and ``ssd.depthwise`` spans of
+   one profiled eager forward, whose depthwise spans must each hold one
+   ``depthwise3x3_nhwc`` and nothing else: no cast, pad or bias pass).
 8. family_float_path: resnet320 and mobilenet320 in bf16 with weights from
    the seed at the same batch: every conv + bias call of the forward (the
    bias-in convs, the depthwise convs, the heads) held to one rounding as
@@ -620,6 +629,60 @@ def check_nms(rng, batch: int, device):
     return rows
 
 
+#: mobilenet320's 13 depthwise convs: (H, W, C, stride, convs of that shape)
+MOBILENET320_DW = [(160, 160, 32, 1, 1), (160, 160, 64, 2, 1), (80, 80, 128, 1, 1),
+                   (80, 80, 128, 2, 1), (40, 40, 256, 1, 1), (40, 40, 256, 2, 1),
+                   (20, 20, 512, 1, 5), (20, 20, 512, 2, 1), (10, 10, 1024, 1, 1)]
+
+
+def check_depthwise(seed: int, batch: int, device):
+    """Row 9: ``csrc/depthwise_conv.cu`` at each distinct depthwise shape
+    of mobilenet320 at ``batch``, in the int8 route's form (a bf16 bias
+    added after the first rounding), bit for bit against
+    ``depthwise_plain`` on the card: device ms, the bound (the map read
+    and the output written once at 3.35 TB/s, or 9 multiply-adds an output
+    at the float32 peak), the plain version's ms and the route the kernel
+    replaced (``layers.depthwise_conv2d_library``: a pad where SAME is
+    asymmetric, the casts, cuDNN's float32 stencil, the bf16 bias pass) as
+    ``library_ms``; then a row of the 13 convs' sums, each shape counted as
+    often as the trunk has it."""
+    import torch
+
+    from ssd_tensorflow_tpu_torch.models import layers
+    from ssd_tensorflow_tpu_torch.ops import depthwise_cuda as dwc
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    rows = []
+    for h, w, c, stride, convs in MOBILENET320_DW:
+        x = (2 * torch.randn((batch, h, w, c), generator=g, device=device)).to(torch.bfloat16)
+        wt = (torch.randn((c, 1, 3, 3), generator=g, device=device) / 3).to(torch.bfloat16)
+        b = torch.randn(c, generator=g, device=device).to(torch.bfloat16)
+        pads = layers._pads(x, wt, stride, "SAME", 1)
+        got = dwc.depthwise_cuda(x, wt, b, stride, pads, False)
+        want = dwc.depthwise_plain(x, wt, b, stride, pads, False)
+        if not torch.equal(got, want):
+            raise AssertionError(f"depthwise_cuda differs from its plain version at "
+                                 f"{(batch, h, w, c)} stride {stride}: "
+                                 f"{int((got != want).sum())} of {got.numel()}")
+        times = _times(lambda: dwc.depthwise_cuda(x, wt, b, stride, pads, False),
+                       "depthwise3x3_nhwc", iters=20)
+        plain_ms = _plain_ms(lambda: dwc.depthwise_plain(x, wt, b, stride, pads, False))
+        library_ms = _plain_ms(
+            lambda: layers.depthwise_conv2d_library(x, wt, b, stride, "SAME", False))
+        n_out = got.numel()
+        bound = _bound(2.0 * (x.numel() + n_out) + 2 * 10 * c, 18.0 * n_out, PEAK_F32_FLOPS)
+        rows.append(_row(f"depthwise3x3:{h}x{w}x{c}s{stride}", "depthwise_conv.cu",
+                         "none (XLA's depthwise conv)", 0.0, times, plain_ms, bound, library_ms,
+                         shape=[batch, h, w, c], stride=stride, convs=convs))
+        del x, got, want
+    total = {k: sum(r[k] * r["convs"] for r in rows)
+             for k in ("ms", "event_ms", "plain_ms", "bound_ms", "library_ms")}
+    _emit({"phase": "depthwise", "batch": batch, "convs": sum(r["convs"] for r in rows),
+           **{f"{k}_13": v for k, v in total.items()},
+           "roofline_pct": 100.0 * total["bound_ms"] / total["ms"]})
+    return rows
+
+
 def _stem_bound(b, h, w, c_in):
     """Whole-stem bound: conv1_1 (27 -> 64) + conv1_2 (576 -> 64) MACs;
     the input read once, pool1 written once."""
@@ -801,14 +864,15 @@ PROBE_LINES = {"copy": 46, "conv1_1": 50, "conv1_1_store": 57, "taps1": 67, "tap
 
 
 def _launch_counts():
-    from ssd_tensorflow_tpu_torch.ops import (group_norm_cuda, int8_conv, nms_cuda, stem_cuda,
-                                              stem_probe)
+    from ssd_tensorflow_tpu_torch.ops import (depthwise_cuda, group_norm_cuda, int8_conv, nms_cuda,
+                                              stem_cuda, stem_probe)
 
     return {"nms_keep": nms_cuda.nms_keep, "fused_stem": stem_cuda.fused_stem,
             "fused_stem_uint8": stem_cuda.fused_stem_uint8, "stem_probe": stem_probe.stem_probe,
             "lane_unflatten_sum": stem_probe.lane_unflatten_sum,
             "int8_conv": int8_conv.int8_conv, "int8_qconv": int8_conv.int8_qconv,
-            "group_norm_cuda": group_norm_cuda.group_norm_cuda}
+            "group_norm_cuda": group_norm_cuda.group_norm_cuda,
+            "depthwise_cuda": depthwise_cuda.depthwise_cuda}
 
 
 def counted(run):
@@ -1276,6 +1340,8 @@ FAMILY_BUNDLES = {"resnet320": ("assets/resnet320_int8_minicoco.ssdtpu.npz", 48)
                   "mobilenet320": ("assets/mobilenet320_int8_qat_minivoc.ssdtpu.npz", 28)}
 #: GroupNorms of a forward of each family preset
 FAMILY_NORMS = {"resnet320": 36, "mobilenet320": 27}
+#: depthwise convs of a family forward, each one launch of csrc/depthwise_conv.cu
+FAMILY_DEPTHWISE = {"resnet320": 0, "mobilenet320": 13}
 #: the number of classes of each family preset's shipped bundle
 FAMILY_CLASSES = {"resnet320": 80, "mobilenet320": 20}
 #: two miniVOC JPEGs decoded on the CPU box, with the JAX package's
@@ -1330,15 +1396,15 @@ def norm_calls(model, images):
     return calls
 
 
-def group_norm_ms(model, images):
-    """GroupNorm's device ms in one profiled eager forward
-    (``quantized._forward_scores``; a replayed graph opens no span): the
-    device time of the ``ssd.group_norm`` spans (``utils/profiling``)."""
+def forward_span_ops(model, images):
+    """The device operations of one profiled eager forward
+    (``quantized._forward_scores``; a replayed graph opens no span) by the
+    program's span that launched them (``utils/profiling.span_ops``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from ssd_tensorflow_tpu_torch.models import quantized
-    from ssd_tensorflow_tpu_torch.utils.profiling import profiler_events, span_device_ms
+    from ssd_tensorflow_tpu_torch.utils.profiling import profiler_events, span_ops
 
     with torch.inference_mode():
         quantized._forward_scores(model.params, images, model.config)
@@ -1346,7 +1412,14 @@ def group_norm_ms(model, images):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             quantized._forward_scores(model.params, images, model.config)
             torch.cuda.synchronize()
-    return span_device_ms(profiler_events(prof)).get("ssd.group_norm")
+    return span_ops(profiler_events(prof))
+
+
+def span_ms(ops) -> float | None:
+    """Device busy ms of a span's operations (``forward_span_ops``)."""
+    from ssd_tensorflow_tpu_torch.utils.profiling import union_us
+
+    return union_us((s, e) for _, s, e in ops) / 1e3 if ops else None
 
 
 def family_int8_path(name: str, root: Path, seed: int, batch: int, device):
@@ -1388,7 +1461,7 @@ def family_int8_path(name: str, root: Path, seed: int, batch: int, device):
                 raise AssertionError(f"{name}: a GroupNorm differs from the CPU route: {norms[-1]}")
     if len(layers) != n_convs:
         raise AssertionError(f"{name}: recorded {len(layers)} int8 convs, expected {n_convs}")
-    if (name == "mobilenet320") != bool(dw):
+    if len(dw) != FAMILY_DEPTHWISE[name]:
         raise AssertionError(f"{name}: recorded {len(dw)} depthwise convs")
     if len(norms) != n_norms:
         raise AssertionError(f"{name}: recorded {len(norms)} GroupNorms, expected {n_norms}")
@@ -1398,6 +1471,7 @@ def family_int8_path(name: str, root: Path, seed: int, batch: int, device):
     peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30
     if (launches["int8_qconv"] != n_convs or launches["int8_conv"]
             or launches["group_norm_cuda"] != n_norms
+            or launches["depthwise_cuda"] != FAMILY_DEPTHWISE[name]
             or launches["nms_keep"] < 1 or launches["fused_stem"] or launches["fused_stem_uint8"]):
         raise AssertionError(f"the {name} int8 path did not run its kernels as it should: "
                              f"{launches}")
@@ -1420,6 +1494,12 @@ def family_int8_path(name: str, root: Path, seed: int, batch: int, device):
         raise AssertionError(f"{name}: the scores differ from the plain-GroupNorm model's")
     del scores, repeat, plain, plain_norms
     batch_ms = cuda_event_ms(lambda: model.run_scores(images), iters=5, warmup=1)
+    spans = forward_span_ops(model, images)
+    dw_ops = spans.get("ssd.depthwise", [])
+    if (len(dw_ops) != FAMILY_DEPTHWISE[name]
+            or any("depthwise3x3_nhwc" not in op for op, _, _ in dw_ops)):
+        raise AssertionError(f"{name}: the depthwise spans ran {[op for op, _, _ in dw_ops]}, "
+                             f"not one depthwise3x3_nhwc each (no cast, pad or bias pass)")
     _emit({"phase": "family_int8_path", "bundle": Path(fname).name, "preset": name,
            "batch": batch, "launches": launches, "forward_graph": graphs,
            "int8_convs": len(layers),
@@ -1430,7 +1510,8 @@ def family_int8_path(name: str, root: Path, seed: int, batch: int, device):
            "scores_identical_to_plain_group_norm": True,
            "detections_per_image": counts, "batch_ms": batch_ms,
            "images_per_s": batch / batch_ms * 1e3, "peak_mem_gib": peak_mem_gib,
-           "group_norm_device_ms": group_norm_ms(model, images)})
+           "group_norm_device_ms": span_ms(spans.get("ssd.group_norm")),
+           "depthwise_device_ms": span_ms(dw_ops)})
     return launches
 
 
@@ -3696,7 +3777,8 @@ def main(argv=None) -> int:
     # 3. each kernel against its plain version at its path's shapes
     with torch.inference_mode():
         kernels = [*check_nms(rng, args.batch, device), check_stem(model.params, images),
-                   *check_whole_stems(model.params, images), *check_probes(args.seed, device)]
+                   *check_whole_stems(model.params, images), *check_probes(args.seed, device),
+                   *check_depthwise(args.seed, args.batch, device)]
     _emit({"phase": "kernels", "checked": [k["name"] for k in kernels]})
 
     # 4. the paths, each counted on its own
@@ -3751,7 +3833,9 @@ def main(argv=None) -> int:
                "fused_stem_uint8": ("uint8", "fused_stem_uint8"),
                "nms_keep_global": ("retina800", "nms_keep"),
                "fused_stem_pallas": ("fused_stem_pallas", "fused_stem"),
-               "lane_unflatten_sum": ("lane_unflatten_sum", "lane_unflatten_sum")}
+               "lane_unflatten_sum": ("lane_unflatten_sum", "lane_unflatten_sum"),
+               **{k["name"]: ("family_int8:mobilenet320", "depthwise_cuda") for k in kernels
+                  if k["name"].startswith("depthwise3x3")}}
     for k in kernels:
         path, counter = path_of.get(k["name"], (k["name"], "stem_probe"))
         k["launches"] = launches[path][counter]

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ssd_tensorflow_tpu_torch.ops import depthwise_cuda
 from ssd_tensorflow_tpu_torch.utils.profiling import counted_span
 
 
@@ -33,24 +34,29 @@ def _same_pads(size: int, window: int, stride: int, dilation: int = 1):
     return total // 2, total - total // 2
 
 
+def _pads(x, w, stride, padding, dilation):
+    """``((top, bottom), (left, right))`` zero padding of NHWC ``x`` for a
+    convolution with OIHW ``w``: TF SAME, VALID, or an int on every side."""
+    if isinstance(padding, int):
+        return (padding, padding), (padding, padding)
+    if padding == "SAME":
+        return (_same_pads(x.shape[1], w.shape[2], stride, dilation),
+                _same_pads(x.shape[2], w.shape[3], stride, dilation))
+    if padding == "VALID":
+        return (0, 0), (0, 0)
+    raise ValueError(f"padding must be 'SAME', 'VALID' or an int, got {padding!r}")
+
+
 def _same_input(x, w, stride, padding, dilation):
     """``(NCHW channels-last view of x, symmetric pads)`` for a convolution
     with OIHW ``w``: an asymmetric TF-SAME padding is applied to ``x``
     here, a symmetric one (or an int ``padding``) is left to the
     convolution."""
-    pad = (0, 0)
-    if isinstance(padding, int):
-        pad = (padding, padding)
-    elif padding == "SAME":
-        ph = _same_pads(x.shape[1], w.shape[2], stride, dilation)
-        pw = _same_pads(x.shape[2], w.shape[3], stride, dilation)
-        if ph[0] == ph[1] and pw[0] == pw[1]:
-            pad = (ph[0], pw[0])
-        else:
-            x = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
-    elif padding != "VALID":
-        raise ValueError(f"padding must be 'SAME', 'VALID' or an int, got {padding!r}")
-    return x.permute(0, 3, 1, 2), pad
+    ph, pw = _pads(x, w, stride, padding, dilation)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return x.permute(0, 3, 1, 2), (ph[0], pw[0])
+    x = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
+    return x.permute(0, 3, 1, 2), (0, 0)
 
 
 def conv2d(x, w, b=None, stride=1, padding="SAME", dilation=1):
@@ -188,19 +194,24 @@ def conv2d_bias_in(x, wb, stride=1, padding="SAME", dilation=1):
 @counted_span("ssd.depthwise")
 def depthwise_conv2d(x, w, b=None, stride=1, padding="SAME", f32_out=False):
     """Depthwise convolution of NHWC ``x`` with the OIHW filter ``w`` of
-    shape ``(C, 1, kh, kw)``: ``F.conv2d(groups=C)`` in float32 from the
-    compute-dtype operands (every product of two bf16 values is exact in
-    float32), the same route on the CPU and the card.
+    shape ``(C, 1, kh, kw)``, from the compute-dtype operands with float32
+    sums (every product of two bf16 values is exact in float32).
 
-    ``f32_out=True``, the inference form: the float32 bias added inside
-    the conv and the result rounded once to ``x.dtype``, as the JAX
-    package's ``depthwise_conv2d(..., f32_out=True)`` (a bias cannot ride
-    in as input channels under ``groups=C``, and the stencil is
-    bandwidth-bound either way).
+    ``f32_out=True``, the inference form: the float32 bias added to the
+    float32 sum and the result rounded once to ``x.dtype``, as the JAX
+    package's ``depthwise_conv2d(..., f32_out=True)``.
 
     ``f32_out=False``, the training form and the int8 path's weight-only
     depthwise: the sum rounded to ``x.dtype``, then ``+ b`` in ``x.dtype``,
     two roundings in bf16, as the JAX package's default.
+
+    Where ``ops/depthwise_cuda.engages`` (a CUDA bf16 map that needs no
+    gradient) the call is one launch of ``csrc/depthwise_conv.cu``, whose
+    copies fill the padding with zeros and whose epilogue adds the bias
+    with the route's roundings; it raises on a shape
+    it does not take (not 3x3, a stride other than 1 or 2). Everything
+    else takes :func:`depthwise_conv2d_library`. Both sum the taps in the
+    order ky, then kx, and give the same bits.
 
     Each call counts once in ``depthwise_conv2d.calls`` and runs inside
     the span ``ssd.depthwise`` (``utils/profiling.counted_span``).
@@ -209,10 +220,25 @@ def depthwise_conv2d(x, w, b=None, stride=1, padding="SAME", f32_out=False):
     if w.shape[:2] != (c, 1):
         raise ValueError(f"depthwise_conv2d: filter {tuple(w.shape)} for {c} channels; "
                          f"expected ({c}, 1, kh, kw)")
+    if not depthwise_cuda.engages(x, w, b):
+        return depthwise_conv2d_library(x, w, b, stride, padding, f32_out)
+    if b is not None:
+        b = b.float() if f32_out else b.to(x.dtype)
+    return depthwise_cuda.depthwise_cuda(x.contiguous(), w.to(x.dtype).contiguous(), b, stride,
+                                         _pads(x, w, stride, padding, 1), f32_out)
+
+
+def depthwise_conv2d_library(x, w, b=None, stride=1, padding="SAME", f32_out=False):
+    """:func:`depthwise_conv2d` as ``F.conv2d(groups=C)`` in float32 from
+    the compute-dtype operands, on any device: the route of CPU tensors,
+    float32 maps and differentiable forwards. With ``f32_out`` the float32
+    bias goes inside the conv (a bias cannot ride in as input channels
+    under ``groups=C``); without it the sum is rounded to ``x.dtype`` and
+    ``b`` added there."""
     w = w.to(x.dtype)
     xn, pad = _same_input(x, w, stride, padding, 1)
     bias = b.float() if f32_out and b is not None else None
-    y = F.conv2d(xn.float(), w.float(), bias, stride, pad, groups=c)
+    y = F.conv2d(xn.float(), w.float(), bias, stride, pad, groups=x.shape[-1])
     y = y.to(x.dtype).permute(0, 2, 3, 1)
     return y if f32_out or b is None else y + b.to(x.dtype)
 

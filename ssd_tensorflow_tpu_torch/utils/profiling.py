@@ -138,7 +138,7 @@ def _span_names(spans, times):
     return out
 
 
-def _union_us(intervals) -> float:
+def union_us(intervals) -> float:
     total, end = 0.0, float("-inf")
     for s, e in sorted(intervals):
         if e > end:
@@ -147,17 +147,17 @@ def _union_us(intervals) -> float:
     return total
 
 
-def span_device_ms(events) -> dict:
-    """``{span name: device busy ms}`` of a Chrome trace's ``events``: each
-    device operation put down to the innermost ``ssd.*`` span open on the
-    thread that launched it (found by ``correlation``), and a span's time
-    the union of its operations' intervals. An operation launched outside
-    any such span by a thread that the profiler followed from the main
-    thread (the autograd engine's device threads: their ATen calls are in
-    the trace) goes to the main thread's innermost span at the launch,
-    since the main thread waits in its span meanwhile; one launched by a
-    thread the profiler did not follow (a producer started before it) goes
-    to none. The main thread is the one with the most ``ssd.*`` spans."""
+def span_ops(events) -> dict:
+    """``{span name: [(device operation's name, start us, end us)]}`` of a
+    Chrome trace's ``events``: each device operation put down to the
+    innermost ``ssd.*`` span open on the thread that launched it (found by
+    ``correlation``). An operation launched outside any such span by a
+    thread that the profiler followed from the main thread (the autograd
+    engine's device threads: their ATen calls are in the trace) goes to
+    the main thread's innermost span at the launch, since the main thread
+    waits in its span meanwhile; one launched by a thread the profiler did
+    not follow (a producer started before it) goes to none. The main
+    thread is the one with the most ``ssd.*`` spans."""
     spans, followed = defaultdict(list), set()
     for e in events:
         if e.get("cat") == "user_annotation" and "dur" in e \
@@ -171,12 +171,13 @@ def span_device_ms(events) -> dict:
     main_tid = max(spans, key=lambda tid: len(spans[tid]))
     launches = {e["args"]["correlation"]: (float(e["ts"]), e.get("tid")) for e in events
                 if e.get("cat") in LAUNCH_CATS and "correlation" in e.get("args", {})}
-    ops = [launches[e["args"]["correlation"]] + (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+    ops = [launches[e["args"]["correlation"]] + (float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                                                 e.get("name", "?"))
            for e in events if e.get("cat") in DEVICE_CATS and "dur" in e
            and e.get("args", {}).get("correlation") in launches]
-    names = _span_names(spans[main_tid], [t for t, _, _, _ in ops])
+    names = _span_names(spans[main_tid], [t for t, _, _, _, _ in ops])
     by_thread = defaultdict(list)
-    for k, (_, tid, _, _) in enumerate(ops):
+    for k, (_, tid, _, _, _) in enumerate(ops):
         by_thread[tid].append(k)
     for tid, ks in by_thread.items():
         if tid == main_tid:
@@ -186,7 +187,15 @@ def span_device_ms(events) -> dict:
             if name is not None or tid not in followed:
                 names[k] = name
     per = defaultdict(list)
-    for (_, _, s, e), name in zip(ops, names):
+    for (_, _, s, e, op), name in zip(ops, names):
         if name is not None:
-            per[name].append((s, e))
-    return {name: _union_us(iv) / 1e3 for name, iv in per.items()}
+            per[name].append((op, s, e))
+    return dict(per)
+
+
+def span_device_ms(events) -> dict:
+    """``{span name: device busy ms}`` of a Chrome trace's ``events``: a
+    span's time the union of the intervals of the operations
+    :func:`span_ops` puts down to it."""
+    return {name: union_us((s, e) for _, s, e in ops) / 1e3
+            for name, ops in span_ops(events).items()}

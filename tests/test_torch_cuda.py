@@ -735,6 +735,105 @@ def test_depthwise_conv_card_matches_cpu(cuda, hw, c, stride, f32_out):
         assert float((got == want).float().mean()) >= 0.999
 
 
+#: the 13 depthwise convs of mobilenet320 as its 9 distinct (H, W, C,
+#: stride), then odd and non-square maps (a stride-2 TF SAME pads 1 on each
+#: side) and a width of 3 vectors (16-channel slices)
+MOBILENET320_DW = [(160, 160, 32, 1), (160, 160, 64, 2), (80, 80, 128, 1), (80, 80, 128, 2),
+                   (40, 40, 256, 1), (40, 40, 256, 2), (20, 20, 512, 1), (20, 20, 512, 2),
+                   (10, 10, 1024, 1)]
+ODD_DW = [(21, 21, 48, 2), (9, 7, 16, 1), (5, 8, 24, 2)]
+
+
+def _dw_inputs(cuda, b, h, w, c, seed, f32_out):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (2 * torch.randn((b, h, w, c), generator=g, device=cuda)).to(torch.bfloat16)
+    wt = (torch.randn((c, 1, 3, 3), generator=g, device=cuda) / 3).to(torch.bfloat16)
+    bias = torch.randn(c, generator=g, device=cuda)
+    return x, wt, bias if f32_out else bias.to(torch.bfloat16)
+
+
+def _within_a_step_each(got, want):
+    """Every element within one bf16 step of itself: ``|got - want| <= 2^-7
+    max(|got|, |want|)`` (a bf16 value's step is at most 2^-7 of it)."""
+    g, w = got.float(), want.float()
+    assert bool(((g - w).abs() <= torch.maximum(g.abs(), w.abs()) * 2.0 ** -7).all())
+
+
+@pytest.mark.parametrize("f32_out", [True, False])
+@pytest.mark.parametrize("b", [3, 64])
+@pytest.mark.parametrize("h,w,c,stride", MOBILENET320_DW + ODD_DW)
+def test_depthwise_kernel_matches_plain(cuda, h, w, c, stride, b, f32_out):
+    """``layers.depthwise_conv2d`` of a CUDA bf16 map under inference mode
+    is one launch of ``csrc/depthwise_conv.cu`` (``depthwise_cuda.launches``)
+    and equals ``depthwise_plain`` on the card bit for bit, in both
+    epilogues, at every mobilenet320 depthwise shape (b 64: blocks walk
+    several tiles and both stages) and at odd sizes; against the
+    ``F.conv2d`` route it replaced (cuDNN) >= 99 % of outputs are equal and
+    every other one is within one bf16 step."""
+    from ssd_tensorflow_tpu_torch.ops import depthwise_cuda as dwc
+
+    x, wt, bias = _dw_inputs(cuda, b, h, w, c, h * c + stride + b, f32_out)
+    pads = layers._pads(x, wt, stride, "SAME", 1)
+    with torch.inference_mode():
+        before = dwc.depthwise_cuda.launches
+        got = layers.depthwise_conv2d(x, wt, bias, stride, "SAME", f32_out)
+        assert dwc.depthwise_cuda.launches == before + 1
+        want = dwc.depthwise_plain(x, wt, bias, stride, pads, f32_out)
+        lib = layers.depthwise_conv2d_library(x, wt, bias, stride, "SAME", f32_out)
+        nobias = layers.depthwise_conv2d(x, wt, None, stride, "SAME", f32_out)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape == lib.shape
+    assert torch.equal(got, want)
+    assert torch.equal(nobias, dwc.depthwise_plain(x, wt, None, stride, pads, f32_out))
+    assert float((got == lib).float().mean()) >= 0.99
+    _within_a_step_each(got, lib)
+
+
+def test_depthwise_kernel_in_a_cuda_graph(cuda):
+    """A CUDA graph captured around ``layers.depthwise_conv2d`` (the int8
+    forward's graph takes it so) replays the eager call bit for bit, on the
+    captured input and after a new one is copied in."""
+    x, wt, bias = _dw_inputs(cuda, 8, 40, 40, 256, 5, False)
+    x2 = _dw_inputs(cuda, 8, 40, 40, 256, 6, False)[0]
+    static = x.clone()
+    with torch.inference_mode():
+        eager = [layers.depthwise_conv2d(v, wt, bias, 2) for v in (x, x2)]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            layers.depthwise_conv2d(static, wt, bias, 2)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = layers.depthwise_conv2d(static, wt, bias, 2)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager[0])
+        static.copy_(x2)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager[1])
+
+
+def test_depthwise_kernel_rejects_what_it_does_not_take(cuda):
+    """On the kernel's route a 5x5 filter, stride 3 and (at the wrapper) a
+    map that is not contiguous NHWC raise; nothing falls back."""
+    from ssd_tensorflow_tpu_torch.ops import depthwise_cuda as dwc
+
+    x = torch.zeros((2, 8, 8, 16), dtype=torch.bfloat16, device=cuda)
+    w3 = torch.zeros((16, 1, 3, 3), dtype=torch.bfloat16, device=cuda)
+    before = dwc.depthwise_cuda.launches
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="3, 3"):
+            layers.depthwise_conv2d(x, torch.zeros((16, 1, 5, 5), dtype=torch.bfloat16,
+                                                   device=cuda))
+        with pytest.raises(ValueError, match="stride"):
+            layers.depthwise_conv2d(x, w3, None, 3)
+        with pytest.raises(ValueError, match="contiguous"):
+            dwc.depthwise_cuda(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), w3, None, 1,
+                               ((1, 1), (1, 1)), True)
+    assert dwc.depthwise_cuda.launches == before
+
+
 #: every distinct GroupNorm input of resnet320 and mobilenet320 at b2
 #: (resnet320's five are among mobilenet320's ten); at b64 two shapes that
 #: the launch's plan (``csrc/group_norm.cu``) gives a cluster of 16 blocks

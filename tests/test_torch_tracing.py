@@ -317,3 +317,8 @@ def test_span_device_ms_attribution():
     got = profiling.span_device_ms(ev)
     assert got == {"ssd.int8.quantize": 0.004, "ssd.step.forward": 0.005,
                    "ssd.step.backward": 0.01, "ssd.prefetch.put": 0.003}
+    ops = profiling.span_ops(ev)
+    assert {span: [name for name, _, _ in v] for span, v in ops.items()} == {
+        "ssd.int8.quantize": ["a"], "ssd.step.forward": ["b"], "ssd.step.backward": ["c"],
+        "ssd.prefetch.put": ["Memcpy HtoD"]}
+    assert ops["ssd.step.backward"] == [("c", 130.0, 140.0)]
